@@ -1,0 +1,25 @@
+"""repro_torch — the PyTorch/CUDA port of the Nebula collaborative-rendering
+system (city-scale 3DGS LoD search on the cloud, stereo rasterization on the
+client), written for one NVIDIA H100.
+
+Module paths and public names mirror the JAX package `repro` one to one
+(`repro_torch.core.lod_search` ↔ `repro.core.lod_search`), but nothing here
+imports JAX or `repro`.
+
+Layout:
+  repro_torch.device   — device resolution (the card by default; the CPU
+                         only when the caller asks for it).
+  repro_torch.convert  — build port objects from numpy arrays + plain dicts.
+  repro_torch.core     — scene, tree, LoD search, management tables, codec
+                         fit, projection, binning, stereo merge, session.
+  repro_torch.render   — the client render stages (project → bin_shared →
+                         stereo_merge → rasterize).
+  repro_torch.kernels  — hand-written Hopper kernels (CUDA C++, `csrc/`)
+                         with their wrappers, launch counters and plain
+                         PyTorch versions.
+
+Dispatch is by device: a wrapper given CUDA tensors launches its kernel (or
+raises); given CPU tensors it runs the plain PyTorch version.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,222 @@
+"""Fully-streaming + temporal-aware LoD search (paper §4.2).
+
+Port of `repro.core.lod_search`. Semantics:
+  proj(n)    = size(n) * focal / dist(cam, n)
+  expand(n)  = expand(parent(n)) AND proj(n) > τ        (root parent ≡ True)
+  in_cut(n)  = expand(parent(n)) AND (proj(n) ≤ τ OR leaf(n))
+
+One search = a level-major sweep of the small top-tree (plain tensor ops)
+plus a sweep of every subtree slab, which runs kernel K1
+(`repro_torch.kernels.lod_cut`) on the card.
+
+Temporal reuse: after sweeping slab s at camera c0, ρ_s = min over its nodes
+of |dist(c0, n) − size(n)·focal/τ|. While the camera stays within ρ_s of c0
+and the slab root's parent-expand bit is unchanged, no comparison inside the
+slab can flip, so the cached cut slab is exact. `temporal_search` sweeps all
+slabs and selects the stale ones (the reference's jittable form).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.lod_tree import LodTree
+from repro_torch.kernels.lod_cut import lod_slab_sweep, slab_dist, slab_sweep_plain
+
+_EPS_DIST = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class CutResult:
+    """One frame's LoD cut.
+
+    top_cut:  (T,)    bool — cut nodes inside the top-tree
+    slab_cut: (Ns, S) bool — cut nodes inside each subtree slab
+    root_expand: (Ns,) bool — expand flag of each slab root
+    resweep:  (Ns,)   bool — which slabs were stale this frame
+    nodes_touched: () int32 — streaming work metric (top + stale slabs)
+    """
+
+    top_cut: torch.Tensor
+    slab_cut: torch.Tensor
+    root_expand: torch.Tensor
+    resweep: torch.Tensor
+    nodes_touched: torch.Tensor
+
+    def mask(self, tree: LodTree) -> torch.Tensor:
+        """(N_pad,) global cut mask."""
+        return torch.cat([self.top_cut, self.slab_cut.reshape(-1)])
+
+    def count(self) -> torch.Tensor:
+        return self.top_cut.sum() + self.slab_cut.sum()
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalState:
+    """Per-subtree reuse state for temporal-aware search."""
+
+    cam0: torch.Tensor            # (Ns, 3) camera at last sweep
+    rho: torch.Tensor             # (Ns,)  safe radius
+    parent_expand0: torch.Tensor  # (Ns,)  top parent-expand bit at last sweep
+    slab_cut0: torch.Tensor       # (Ns, S) cached cut
+    root_expand0: torch.Tensor    # (Ns,)
+    swept: torch.Tensor           # (Ns,)  ever swept
+
+    @staticmethod
+    def initial(Ns: int, S: int, device) -> "TemporalState":
+        z = dict(device=device)
+        return TemporalState(
+            cam0=torch.zeros((Ns, 3), dtype=torch.float32, **z),
+            rho=torch.zeros((Ns,), dtype=torch.float32, **z),
+            parent_expand0=torch.zeros((Ns,), dtype=torch.bool, **z),
+            slab_cut0=torch.zeros((Ns, S), dtype=torch.bool, **z),
+            root_expand0=torch.zeros((Ns,), dtype=torch.bool, **z),
+            swept=torch.zeros((Ns,), dtype=torch.bool, **z),
+        )
+
+
+# ---------------------------------------------------------------------------
+# sweeps
+# ---------------------------------------------------------------------------
+
+
+def top_sweep(tree: LodTree, cam_pos: torch.Tensor, focal, tau
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Level-major sweep of the top-tree. Returns (expand, in_cut), both (T,)."""
+    m = tree.meta
+    dist = slab_dist(tree.top_mu(), cam_pos)
+    gt = tree.top_size() * focal / torch.clamp_min(dist, _EPS_DIST) > tau
+    expand = torch.zeros((m.T,), dtype=torch.bool, device=tree.device)
+    in_cut = torch.zeros((m.T,), dtype=torch.bool, device=tree.device)
+    offs = m.top_level_offsets
+    for lv in range(m.P):
+        lo, hi = offs[lv], offs[lv + 1]
+        if lv == 0:
+            pe = torch.ones((hi - lo,), dtype=torch.bool, device=tree.device)
+        else:
+            pe = expand[tree.top_parent[lo:hi].long()]
+        expand[lo:hi] = pe & gt[lo:hi]
+        in_cut[lo:hi] = pe & (~gt[lo:hi] | tree.top_is_leaf[lo:hi])
+    return expand, in_cut
+
+
+# The reference's per-slab sweep, written batched over a leading slab axis:
+# (in_cut, root_expand, rho). It is K1's plain version.
+_slab_sweep_one = slab_sweep_plain
+
+
+def _slab_sweep_all(tree: LodTree, cam_pos, focal, tau, root_parent_expand):
+    """Every slab through K1 (the plain version for CPU tensors)."""
+    return lod_slab_sweep(tree.slab_mu(), tree.slab_size(), tree.slab_parent,
+                          tree.slab_level, tree.slab_is_leaf, tree.slab_valid,
+                          root_parent_expand, cam_pos, focal, tau,
+                          max_depth=tree.meta.slab_max_depth)
+
+
+def _root_parent_expand(tree: LodTree, top_expand: torch.Tensor) -> torch.Tensor:
+    """Exact parent-expand bit for every slab root."""
+    if tree.meta.P == 0:
+        return torch.ones((tree.meta.Ns,), dtype=torch.bool, device=tree.device)
+    return top_expand[tree.slab_root_parent_top.long()]
+
+
+def _cam(tree: LodTree, cam_pos) -> torch.Tensor:
+    if torch.is_tensor(cam_pos):
+        return cam_pos.to(device=tree.device, dtype=torch.float32).reshape(3)
+    return torch.tensor(np.asarray(cam_pos, np.float32), device=tree.device).reshape(3)
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+
+def full_search(tree: LodTree, cam_pos, focal: float, tau: float
+                ) -> Tuple[CutResult, TemporalState]:
+    """Initial-frame traversal; also (re)initializes the temporal state."""
+    m = tree.meta
+    cam_pos = _cam(tree, cam_pos)
+    top_expand, top_cut = top_sweep(tree, cam_pos, focal, tau)
+    rpe = _root_parent_expand(tree, top_expand)
+    slab_cut, root_expand, rho = _slab_sweep_all(tree, cam_pos, focal, tau, rpe)
+    dev = tree.device
+    cut = CutResult(
+        top_cut=top_cut, slab_cut=slab_cut, root_expand=root_expand,
+        resweep=torch.ones((m.Ns,), dtype=torch.bool, device=dev),
+        nodes_touched=torch.tensor(m.T + m.Ns * m.S, dtype=torch.int32, device=dev),
+    )
+    state = TemporalState(
+        cam0=cam_pos.expand(m.Ns, 3).clone(), rho=rho, parent_expand0=rpe,
+        slab_cut0=slab_cut, root_expand0=root_expand,
+        swept=torch.ones((m.Ns,), dtype=torch.bool, device=dev),
+    )
+    return cut, state
+
+
+def temporal_search(tree: LodTree, state: TemporalState, cam_pos,
+                    focal: float, tau: float) -> Tuple[CutResult, TemporalState]:
+    """Temporal-aware search: sweeps every slab through K1, then keeps the
+    fresh result only for stale slabs. Exact against `full_search`."""
+    m = tree.meta
+    cam_pos = _cam(tree, cam_pos)
+    top_expand, top_cut = top_sweep(tree, cam_pos, focal, tau)
+    rpe = _root_parent_expand(tree, top_expand)
+
+    moved = slab_dist(cam_pos, state.cam0)
+    stale = (~state.swept) | (moved >= state.rho) | (rpe != state.parent_expand0)
+
+    fresh_cut, fresh_root_expand, fresh_rho = _slab_sweep_all(
+        tree, cam_pos, focal, tau, rpe)
+
+    sel = stale[:, None]
+    slab_cut = torch.where(sel, fresh_cut, state.slab_cut0)
+    root_expand = torch.where(stale, fresh_root_expand, state.root_expand0)
+    new_state = TemporalState(
+        cam0=torch.where(sel, cam_pos[None, :], state.cam0),
+        rho=torch.where(stale, fresh_rho, state.rho),
+        parent_expand0=rpe,
+        slab_cut0=slab_cut,
+        root_expand0=root_expand,
+        swept=torch.ones((m.Ns,), dtype=torch.bool, device=tree.device),
+    )
+    cut = CutResult(
+        top_cut=top_cut, slab_cut=slab_cut, root_expand=root_expand,
+        resweep=stale,
+        nodes_touched=(m.T + stale.sum() * m.S).to(torch.int32),
+    )
+    return cut, new_state
+
+
+def pow2_bucket(n: int, cap: int) -> int:
+    """Round `n` up to a power of two, clamped to [1, cap]."""
+    b = 1 << int(np.ceil(np.log2(max(n, 1))))
+    return max(1, min(b, cap))
+
+
+# ---------------------------------------------------------------------------
+# cut extraction
+# ---------------------------------------------------------------------------
+
+
+def compact_ids(mask: torch.Tensor, budget: int) -> torch.Tensor:
+    """The first `budget` set positions of `mask`, ascending, padded with -1
+    (int32)."""
+    (ids,) = torch.nonzero(mask, as_tuple=True)
+    out = torch.full((budget,), -1, dtype=torch.int32, device=mask.device)
+    k = min(budget, ids.numel())
+    out[:k] = ids[:k].to(torch.int32)
+    return out
+
+
+def cut_gids(cut: CutResult, tree: LodTree, budget: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact the cut mask to (budget,) sorted global ids padded with -1.
+
+    Returns (gids, count, overflow)."""
+    mask = cut.mask(tree)
+    count = mask.sum().to(torch.int32)
+    return compact_ids(mask, budget), count, count > budget

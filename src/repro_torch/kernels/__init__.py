@@ -1,0 +1,35 @@
+"""Hand-written Hopper kernels (CUDA C++ under `csrc/`, one shared library
+built by `_build`), each beside its wrapper and its plain PyTorch version:
+
+    K1 lod_cut.lod_slab_sweep          ← repro/kernels/lod_cut.py:lod_slab_sweep_pallas
+    K2 rasterize.rasterize_slabs       ← repro/kernels/rasterize.py:rasterize_slabs_pallas
+    K3 preprocess.preprocess           ← repro/kernels/preprocess.py:preprocess_pallas
+    K4 stereo_shift.stereo_merge_kernel ← repro/kernels/stereo_shift.py:stereo_merge_pallas
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises. Each wrapper counts its launches in a plain
+integer attribute, `launches`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """name → kernel wrapper, for every kernel of the library."""
+    from repro_torch.kernels.lod_cut import lod_slab_sweep
+    from repro_torch.kernels.preprocess import preprocess
+    from repro_torch.kernels.rasterize import rasterize_slabs
+    from repro_torch.kernels.stereo_shift import stereo_merge_kernel
+    return {"lod_slab_sweep": lod_slab_sweep, "preprocess": preprocess,
+            "stereo_merge": stereo_merge_kernel, "rasterize_slabs": rasterize_slabs}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0

@@ -1,0 +1,24 @@
+"""Client render subsystem: stereo rasterization from projection to pixels
+(port of `repro.render`, single client).
+
+    common  — the one definition of eye-view selection + the α test
+    config  — RenderConfig: static tile/resolution/stereo geometry
+    plan    — RenderPlan
+    stages  — project / bin_shared / stereo_merge / rasterize,
+              render_stereo(plan), the plain rasterizers
+"""
+
+from repro_torch.render.common import entry_alpha, eye_views, pixel_alpha, splat_alpha
+from repro_torch.render.config import RenderConfig
+from repro_torch.render.plan import RenderPlan
+from repro_torch.render.stages import (bin_shared, build_plan, project, rasterize,
+                                       render_reference, render_stereo,
+                                       render_stereo_reference, render_tiles,
+                                       stereo_merge)
+
+__all__ = [
+    "entry_alpha", "eye_views", "pixel_alpha", "splat_alpha",
+    "RenderConfig", "RenderPlan",
+    "project", "bin_shared", "stereo_merge", "rasterize", "build_plan",
+    "render_stereo", "render_stereo_reference", "render_tiles", "render_reference",
+]

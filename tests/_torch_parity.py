@@ -1,0 +1,88 @@
+"""Flatten the JAX package's objects to numpy arrays + plain dicts, and build
+their `repro_torch` counterparts on the CPU through `repro_torch.convert`.
+
+The port imports nothing of JAX; the parity tests cross between the two
+packages only here, through numpy (the same pattern as
+`_hypothesis_compat.py`: a helper module the test files import by name).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+
+CPU = "cpu"
+
+GAUSSIAN_FIELDS = ("mu", "log_scale", "quat", "opacity", "sh")
+TREE_FIELDS = ("size", "top_parent", "top_is_leaf", "slab_parent", "slab_is_leaf",
+               "slab_valid", "slab_level", "slab_root_parent_top")
+SPLAT_FIELDS = ("mean2d", "depth", "conic", "ext", "color_l", "color_r", "opacity",
+                "disparity", "visible")
+
+
+def np_(x) -> np.ndarray:
+    """A JAX array or a torch tensor as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def gaussians_arrays(g) -> dict:
+    return {k: np_(getattr(g, k)) for k in GAUSSIAN_FIELDS}
+
+
+def tree_arrays(tree):
+    arrays = gaussians_arrays(tree.gaussians)
+    arrays.update({k: np_(getattr(tree, k)) for k in TREE_FIELDS})
+    return arrays, dataclasses.asdict(tree.meta)
+
+
+def camera_arrays(cam):
+    arrays = {"pos": np_(cam.pos), "rot": np_(cam.rot), "focal": np_(cam.focal)}
+    meta = {k: getattr(cam, k) for k in ("width", "height", "near", "far", "cx", "cy")}
+    return arrays, meta
+
+
+def to_torch_gaussians(g):
+    return convert.gaussians_from_arrays(gaussians_arrays(g), CPU)
+
+
+def to_torch_tree(tree):
+    return convert.tree_from_arrays(*tree_arrays(tree), device=CPU)
+
+
+def to_torch_camera(cam):
+    return convert.camera_from_arrays(*camera_arrays(cam), device=CPU)
+
+
+def to_torch_rig(rig):
+    arrays, meta = camera_arrays(rig.left)
+    return convert.rig_from_arrays(arrays, {**meta, "baseline": rig.baseline}, CPU)
+
+
+def to_torch_splats(s):
+    return convert.splats_from_arrays({k: np_(getattr(s, k)) for k in SPLAT_FIELDS}, CPU)
+
+
+def to_torch_tile_lists(tl):
+    return convert.tile_lists_from_arrays(
+        {"lists": np_(tl.lists), "counts": np_(tl.counts), "overflow": np_(tl.overflow)},
+        {"tiles_x": tl.tiles_x, "tiles_y": tl.tiles_y}, CPU)
+
+
+def to_torch_codec(codec):
+    return convert.codec_from_arrays(
+        {k: np_(getattr(codec, k)) for k in ("codebook", "pos_lo", "pos_hi",
+                                             "scale_lo", "scale_hi")}, CPU)
+
+
+def assert_equal(a, b, msg=""):
+    np.testing.assert_array_equal(np_(a), np_(b), err_msg=msg)
+
+
+def assert_close(a, b, rtol, atol, msg=""):
+    np.testing.assert_allclose(np_(a), np_(b), rtol=rtol, atol=atol, err_msg=msg)

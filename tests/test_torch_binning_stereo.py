@@ -1,0 +1,124 @@
+"""Port parity: tile binning and the stereo shift-merge (K4's front end and
+plain merge) of `repro_torch` against the JAX package, on the same splats."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close, assert_equal, to_torch_splats, to_torch_tile_lists
+
+from repro.core import binning as jbin
+from repro.core import stereo as jst
+from repro.core.camera import StereoRig, make_camera
+from repro.core.gaussians import random_gaussians
+from repro.core.projection import depth_ranks, project
+from repro.kernels import ops as kops
+from repro.kernels import ref as kref
+from repro.kernels.stereo_shift import stereo_merge_pallas
+from repro_torch import kernels as tkernels
+from repro_torch.core import binning as tbin
+from repro_torch.core import stereo as tst
+from repro_torch.kernels import stereo_shift as tshift
+
+
+def _scene(n, seed, list_len=64, max_pairs=1 << 14, width=96, height=64):
+    """The JAX kernel tests' scene (tests/test_kernels.py::_scene)."""
+    g = random_gaussians(np.random.default_rng(seed), n, sh_degree=1, extent=5.0)
+    cam = make_camera([0, -15, 2], [0, 0, 0], focal_px=200.0, width=width,
+                      height=height, near=0.25)
+    rig = StereoRig(left=cam, baseline=0.06)
+    tile = 16
+    n_cat = jst.n_categories(rig.max_disparity_px(), tile)
+    wide = dataclasses.replace(cam, width=(-(-cam.width // tile) + n_cat - 1) * tile)
+    s = project(g, rig, wide)
+    ranks = depth_ranks(s)
+    cfg = jbin.BinConfig(tile=tile, max_pairs=max_pairs, list_len=list_len)
+    return dict(cam=cam, wide=wide, s=s, ranks=ranks, n_cat=n_cat, tile=tile,
+                jcfg=cfg, tcfg=tbin.BinConfig(tile=tile, max_pairs=max_pairs,
+                                              list_len=list_len),
+                ts=to_torch_splats(s), tranks=torch.tensor(np.asarray(ranks)))
+
+
+def _same_lists(got, ref):
+    assert_equal(got.lists, ref.lists, "lists")
+    assert_equal(got.counts, ref.counts, "counts")
+    assert bool(got.overflow) == bool(ref.overflow)
+    assert (got.tiles_x, got.tiles_y) == (ref.tiles_x, ref.tiles_y)
+    assert got.lists.dtype == torch.int32 and got.counts.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,seed,list_len,max_pairs", [
+    (400, 0, 64, 1 << 14), (400, 1, 64, 1 << 14), (800, 2, 64, 1 << 14),
+    (400, 3, 16, 1 << 14), (400, 4, 64, 1 << 9)])
+def test_bin_left_right_exact(n, seed, list_len, max_pairs):
+    """TileLists ids, counts and overflow (list and pair budgets) exact."""
+    sc = _scene(n, seed, list_len, max_pairs)
+    ref = jbin.bin_left(sc["s"], sc["wide"].width, sc["cam"].height, sc["jcfg"], sc["ranks"])
+    got = tbin.bin_left(sc["ts"], sc["wide"].width, sc["cam"].height, sc["tcfg"],
+                        sc["tranks"])
+    _same_lists(got, ref)
+    ref_r = jbin.bin_right(sc["s"], sc["cam"].width, sc["cam"].height, sc["jcfg"],
+                           sc["ranks"])
+    got_r = tbin.bin_right(sc["ts"], sc["cam"].width, sc["cam"].height, sc["tcfg"],
+                           sc["tranks"])
+    _same_lists(got_r, ref_r)
+    assert_close(tbin.corner_r2(sc["ts"].conic, sc["ts"].opacity),
+                 jbin.corner_r2(sc["s"].conic, sc["s"].opacity), 1e-6, 0.0)
+
+
+@pytest.mark.parametrize("n,seed,list_len", [(400, 0, 64), (400, 1, 64),
+                                             (800, 2, 64), (400, 3, 12)])
+def test_stereo_merge_exact(n, seed, list_len):
+    """The port's K4 front end + plain merge equals the JAX `stereo_lists`,
+    the JAX merge front end + Pallas merge kernel, and the port's own
+    sort-based `stereo_lists` — ids, counts and the overflow flag."""
+    sc = _scene(n, seed, list_len)
+    kw = dict(tile=sc["tile"], width=sc["cam"].width, n_cat=sc["n_cat"])
+    left = jbin.bin_left(sc["s"], sc["wide"].width, sc["cam"].height, sc["jcfg"],
+                         sc["ranks"])
+    tleft = to_torch_tile_lists(left)
+    ref = jst.stereo_lists(left, sc["s"], sc["ranks"], **kw)
+
+    tkernels.reset_launch_counts()
+    got = tst.stereo_merge(tleft, sc["ts"], sc["tranks"], **kw)
+    assert tkernels.launch_counts()["stereo_merge"] == 0  # CPU: plain version
+    _same_lists(got, ref)
+    _same_lists(tst.stereo_lists(tleft, sc["ts"], sc["tranks"], **kw), ref)
+
+    # the merge front end and the merge itself, piece by piece
+    jr, ji = kops.build_merge_sources(left, sc["s"], sc["ranks"], **kw)
+    tr, ti = tst.build_merge_sources(tleft, sc["ts"], sc["tranks"], **kw)
+    assert_equal(tr, jr)
+    assert_equal(ti, ji)
+    out, count, ovf = tshift.stereo_merge_kernel(tr, ti)
+    p_out, p_count, p_ovf = stereo_merge_pallas(jr, ji)
+    assert_equal(out, p_out)
+    assert_equal(count, p_count)
+    assert_equal(ovf, p_ovf)
+    r_out, r_count = kref.ref_stereo_merge(jr, ji)
+    assert_equal(out, r_out)
+    assert_equal(count, r_count)
+    if list_len == 12:
+        assert bool(ovf.any())  # the narrow list really overflows
+
+
+def test_n_categories_and_stats():
+    assert tst.n_categories(336.0, 16) == jst.n_categories(336.0, 16) == 23
+    sc = _scene(400, 5)
+    left = tbin.bin_left(sc["ts"], sc["wide"].width, sc["cam"].height, sc["tcfg"],
+                         sc["tranks"])
+    right = tst.stereo_merge(left, sc["ts"], sc["tranks"], tile=sc["tile"],
+                             width=sc["cam"].width, n_cat=sc["n_cat"])
+    hits = torch.rand(left.lists.shape, generator=torch.Generator().manual_seed(0)) < 0.5
+    jl = jbin.TileLists(lists=np.asarray(left.lists), counts=np.asarray(left.counts),
+                        overflow=np.asarray(left.overflow), tiles_x=left.tiles_x,
+                        tiles_y=left.tiles_y)
+    jr = jbin.TileLists(lists=np.asarray(right.lists), counts=np.asarray(right.counts),
+                        overflow=np.asarray(right.overflow), tiles_x=right.tiles_x,
+                        tiles_y=right.tiles_y)
+    ref = jst.alpha_skip_stats(jl, jr, np.asarray(hits), sc["s"])
+    got = tst.alpha_skip_stats(left, right, hits, sc["ts"])
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.right_candidates > 0

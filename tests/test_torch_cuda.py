@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device (marker `cuda`) and skips without one.
+The file imports nothing of JAX, so it also runs on a machine that has only
+PyTorch:
+
+    PYTHONPATH=src:tests python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch import render as R
+from repro_torch.core import camera as C
+from repro_torch.core import gaussians as G
+from repro_torch.core import lod_search as LS
+from repro_torch.core import pipeline as P
+from repro_torch.core.lod_tree import build_lod_tree
+from repro_torch.core.stereo import build_merge_sources
+from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene(dev):
+    leaves = G.generate_city(G.CityConfig(blocks_x=2, blocks_y=2, leaf_density=0.3,
+                                          seed=1), device=dev)
+    tree = build_lod_tree(leaves, target_subtrees=16, seed=0, device=dev)
+    rig = C.StereoRig(left=C.make_camera([30, 30, 1.7], [60, 60, 1.5], focal_px=400.0,
+                                         width=256, height=192, near=0.2, device=dev))
+    return tree, rig
+
+
+def test_k1_lod_sweep(scene):
+    tree, rig = scene
+    cam = rig.left.pos
+    top_expand, _ = LS.top_sweep(tree, cam, 400.0, 16.0)
+    rpe = LS._root_parent_expand(tree, top_expand)
+    args = (tree.slab_mu(), tree.slab_size(), tree.slab_parent, tree.slab_level,
+            tree.slab_is_leaf, tree.slab_valid, rpe, cam, 400.0, 16.0)
+    before = lod_cut.lod_slab_sweep.launches
+    k = lod_cut.lod_slab_sweep(*args, max_depth=tree.meta.slab_max_depth)
+    p = lod_cut.slab_sweep_plain(*args, max_depth=tree.meta.slab_max_depth)
+    torch.cuda.synchronize()
+    assert lod_cut.lod_slab_sweep.launches == before + 1
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.allclose(k[2], p[2], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("sh_degree", [0, 1, 2])
+def test_k3_preprocess(dev, scene, sh_degree):
+    _, rig = scene
+    g = G.random_gaussians(np.random.default_rng(sh_degree), 3000, sh_degree=sh_degree,
+                           extent=40.0, device=dev)
+    g = dataclasses.replace(g, mu=g.mu + torch.tensor([45.0, 45.0, 0.0], device=dev))
+    wide = dataclasses.replace(rig.left, width=rig.left.width + 96)
+    k = preprocess.preprocess(g, rig, wide)
+    p = preprocess.preprocess_plain(g, rig, wide)
+    torch.cuda.synchronize()
+    for f in ("mean2d", "depth", "conic", "ext", "color_l", "color_r", "opacity",
+              "disparity"):
+        assert torch.allclose(getattr(k, f), getattr(p, f), rtol=2e-5, atol=2e-5,
+                              equal_nan=True), f
+    assert torch.equal(k.visible, p.visible) and bool(k.visible.any())
+
+
+def _plan(tree, rig):
+    cut, _ = LS.full_search(tree, rig.left.pos, 400.0, 16.0)
+    gids = LS.compact_ids(cut.mask(tree), 4096)
+    q = P._render_queue(tree.gaussians, gids)
+    cfg = R.RenderConfig.for_rig(rig, list_len=64, max_pairs=1 << 18)
+    return R.build_plan(q, rig, cfg), cfg
+
+
+def test_k4_stereo_merge(scene):
+    tree, rig = scene
+    plan, cfg = _plan(tree, rig)
+    src_r, src_i = build_merge_sources(plan.left, plan.splats, plan.ranks, tile=cfg.tile,
+                                       width=cfg.width, n_cat=cfg.n_cat)
+    k = stereo_shift.stereo_merge_kernel(src_r, src_i)
+    p = stereo_shift.stereo_merge_plain(src_r, src_i)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert int(k[1].sum()) > 0
+
+
+def test_k2_raster(scene):
+    tree, rig = scene
+    plan, cfg = _plan(tree, rig)
+    for lists, eye in ((plan.left, "left"), (plan.right, "right")):
+        ent, counts = rasterize.gather_entries(lists, plan.splats, eye)
+        origins = rasterize.tile_origins(ent.shape[0], lists.tiles_x, cfg.tile, ent.device)
+        counts = counts.contiguous()
+        k = rasterize.rasterize_slabs(ent, counts, origins, tile=cfg.tile)
+        p = rasterize.rasterize_slabs_plain(ent, counts, origins, tile=cfg.tile)
+        torch.cuda.synchronize()
+        assert torch.allclose(k[0], p[0], rtol=1e-5, atol=1e-6)
+        assert torch.equal(k[1], p[1]) and float(k[0].max()) > 0
+
+
+def test_session_launches_every_kernel(scene):
+    tree, rig = scene
+    cfg = P.SessionConfig(tau=16.0, w=2, cut_budget=4096, list_len=64, max_pairs=1 << 18,
+                          use_compression=False)
+    sess = P.CollaborativeSession(tree, cfg, rig)
+    K.reset_launch_counts()
+    for i in range(4):
+        shifted = C.StereoRig(left=rig.left.translated(
+            torch.tensor([0.3 * i, 0.0, 0.0], device=rig.left.pos.device)))
+        st, (il, ir, _) = sess.step(shifted, render=True)
+        assert torch.isfinite(il).all() and float(il.max()) > 0
+    counts = K.launch_counts()
+    assert counts == {"lod_slab_sweep": 2, "preprocess": 4, "stereo_merge": 4,
+                      "rasterize_slabs": 8}, counts
