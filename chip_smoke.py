@@ -23,6 +23,7 @@ limit, and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -30,6 +31,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -99,13 +101,14 @@ def main() -> int:
     from repro_torch.core import gaussians as G
     from repro_torch.core import lod_search as LS
     from repro_torch.core import pipeline as P
-    from repro_torch.core.binning import tile_span
+    from repro_torch.core.binning import pair_spans
     from repro_torch.core.lod_tree import build_lod_tree
     from repro_torch.core.projection import depth_ranks
     from repro_torch.core.stereo import build_merge_sources
     from repro_torch.kernels import _build
     from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift
     from repro_torch import render as R
+    from repro_torch.render import stages as RS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -155,24 +158,14 @@ def main() -> int:
     rcfg0 = R.RenderConfig.for_rig(rigs[0], tile=base.tile, list_len=base.list_len)
 
     def queue_of(mask, budget):
-        gids = LS.compact_ids(mask, budget)
-        q = tree.gaussians.slice_rows(gids.clamp_min(0))
-        return dataclasses.replace(q, opacity=torch.where(
-            gids >= 0, q.opacity, torch.zeros((), device=dev)))
+        return P._render_queue(tree.gaussians, LS.compact_ids(mask, budget))
 
     max_total = 0
     for i, rig in enumerate(rigs):
-        q = queue_of(cuts[(i // base.w) * base.w], cut_budget)
-        s, _ = R.project(q, rig, rcfg0)
-        tx = rcfg0.tiles_x_wide
-        x0, x1, y0, y1 = tile_span(s.mean2d, s.ext, base.tile, tx, rcfg0.tiles_y)
-        vis = (s.visible & (s.mean2d[:, 0] + s.ext[:, 0] >= 0)
-               & (s.mean2d[:, 0] - s.ext[:, 0] <= rcfg0.wide_width)
-               & (s.mean2d[:, 1] + s.ext[:, 1] >= 0)
-               & (s.mean2d[:, 1] - s.ext[:, 1] <= rcfg0.height))
-        total = int(torch.where(vis, (x1 - x0 + 1).long() * (y1 - y0 + 1).long(),
-                                torch.zeros((), dtype=torch.long, device=dev)).sum())
-        max_total = max(max_total, total)
+        s, _ = R.project(queue_of(cuts[(i // base.w) * base.w], cut_budget), rig, rcfg0)
+        _x0, _y0, span_w, span_h = pair_spans(s.mean2d, s.ext, s.visible,
+                                              rcfg0.wide_width, rcfg0.height, base.tile)
+        max_total = max(max_total, int((span_w * span_h).sum()))
     max_pairs = pow2_at_least(max_total)
     cfg = dataclasses.replace(base, cut_budget=cut_budget, max_pairs=max_pairs)
     rcfg = R.RenderConfig.for_rig(rigs[0], tile=cfg.tile, list_len=cfg.list_len,
@@ -271,14 +264,18 @@ def main() -> int:
     origins = rasterize.tile_origins(ent.shape[0], left.tiles_x, rcfg.tile, dev)
     counts = counts.contiguous()
     rk = rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile)
-    rp = rasterize.rasterize_slabs_plain(ent, counts, origins, tile=rcfg.tile)
+    rp = rasterize.rasterize_slabs_plain(ent, counts, origins, tile=rcfg.tile,
+                                         with_processed=True)
     torch.cuda.synchronize()
     if not torch.allclose(rk[0], rp[0], rtol=1e-5, atol=1e-6):
         raise AssertionError("K2: tile image differs from the plain version beyond "
                              "rtol 1e-5 / atol 1e-6")
     if not torch.equal(rk[1], rp[1]):
         raise AssertionError(f"K2: hits differ on {int((rk[1] != rp[1]).sum())} entries")
-    n_t, n_ent = ent.shape[0], int(counts.clamp_max(ent.shape[1]).sum())
+    # the kernel blends a tile's entries until no pixel lets light through:
+    # its work is the entries blended, not the entries gathered
+    n_t, n_gathered = ent.shape[0], int(counts.clamp_max(ent.shape[1]).sum())
+    n_ent = int(rp[2].sum())
     px = rcfg.tile * rcfg.tile
     kernels["rasterize_slabs"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/rasterize.cu",
@@ -294,7 +291,8 @@ def main() -> int:
         log(f"[kernel] {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max |err| {k['max_abs_err']:.3g}")
     shapes = dict(slabs=[m.Ns, m.S], queue=n_q, left_tiles=n_t, right_tiles=n_rt,
-                  live_merge_entries=live, raster_entries=n_ent)
+                  live_merge_entries=live, raster_entries_gathered=n_gathered,
+                  raster_entries_blended=n_ent)
     log(f"[kernel] shapes {json.dumps(shapes)}")
     report["kernel_shapes"] = shapes
     del src_r, src_i, ent, rk, rp, mk, mp
@@ -364,27 +362,30 @@ def main() -> int:
             raise AssertionError(f"frame {i}: temporal cut differs from a full search")
     log(f"[session] the {len(sync_cuts)} temporal cuts equal full searches")
 
-    # per-stage times of one more sync frame and its render
+    # per-stage times of one more sync frame and its render: the session's
+    # own calls, each stage function wrapped with a synchronize on both sides
     stages = {}
 
     def timed(name, fn):
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        stages[name] = (time.perf_counter() - t2) * 1e3
-        return r
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t2) * 1e3
+            return r
+        return run
 
     rig = rigs[-1]
     state = dataclasses.replace(sess.state, frame_index=0)
-    state, _ = timed("cloud_sync", lambda: P.session_step(
-        sess.tree, sess.codec, cfg, state, rig.left.pos, focal, sess.bytes_per_g))
-    queue = timed("gather_queue", lambda: P._render_queue(state.client_store, state.cut_gids))
-    splats, ranks = timed("project_K3+sort", lambda: R.project(queue, rig, rcfg))
-    left = timed("bin_shared", lambda: R.bin_shared(splats, ranks, rcfg))
-    right = timed("stereo_merge_front+K4", lambda: R.stereo_merge(splats, ranks, left, rcfg))
-    plan = R.RenderPlan(splats=splats, ranks=ranks, left=left, right=right)
-    timed("raster_K2_both_eyes", lambda: R.rasterize(plan, rcfg))
+    with contextlib.ExitStack() as patches:
+        for mod, name in ((P, "session_step"), (P, "_render_queue"), (RS, "project"),
+                          (RS, "bin_shared"), (RS, "stereo_merge"),
+                          (RS, "rasterize"), (P, "alpha_skip_stats")):
+            patches.enter_context(mock.patch.object(mod, name, timed(name, getattr(mod, name))))
+        state, _ = P.session_step(sess.tree, sess.codec, cfg, state, rig.left.pos, focal,
+                                  sess.bytes_per_g)
+        timed("client_render_step", P.client_render_step)(cfg, state, rig)
     log(f"[stages] {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
     report["stages_ms"] = stages
 

@@ -59,6 +59,25 @@ def tile_span(mean2d, ext, tile: int, tiles_x: int, tiles_y: int):
     return x0, x1, y0, y1
 
 
+def pair_spans(mean2d: torch.Tensor, ext: torch.Tensor, visible: torch.Tensor,
+               width: int, height: int, tile: int):
+    """Each splat's tile span on a width×height grid, empty where it is culled:
+    (x0, y0, span_w, span_h). span_w·span_h is its (splat, tile) pair count
+    before the precise cull, which is what the pair budget must hold."""
+    tiles_x = -(-width // tile)
+    tiles_y = -(-height // tile)
+    vis = (visible
+           & (mean2d[:, 0] + ext[:, 0] >= 0.0)
+           & (mean2d[:, 0] - ext[:, 0] <= width)
+           & (mean2d[:, 1] + ext[:, 1] >= 0.0)
+           & (mean2d[:, 1] - ext[:, 1] <= height))
+    x0, x1, y0, y1 = tile_span(mean2d, ext, tile, tiles_x, tiles_y)
+    zero = torch.zeros_like(x0)
+    span_w = torch.where(vis, x1 - x0 + 1, zero).long()
+    span_h = torch.where(vis, y1 - y0 + 1, zero).long()
+    return x0, y0, span_w, span_h
+
+
 def bin_tiles(mean2d: torch.Tensor, ext: torch.Tensor, ranks: torch.Tensor,
               visible: torch.Tensor, width: int, height: int, cfg: BinConfig,
               conic: torch.Tensor = None, opacity: torch.Tensor = None) -> TileLists:
@@ -70,16 +89,7 @@ def bin_tiles(mean2d: torch.Tensor, ext: torch.Tensor, ranks: torch.Tensor,
     n_tiles = tiles_x * tiles_y
     m = mean2d.shape[0]
 
-    vis = (visible
-           & (mean2d[:, 0] + ext[:, 0] >= 0.0)
-           & (mean2d[:, 0] - ext[:, 0] <= width)
-           & (mean2d[:, 1] + ext[:, 1] >= 0.0)
-           & (mean2d[:, 1] - ext[:, 1] <= height))
-
-    x0, x1, y0, y1 = tile_span(mean2d, ext, tile, tiles_x, tiles_y)
-    zero = torch.zeros_like(x0)
-    span_w = torch.where(vis, x1 - x0 + 1, zero).long()
-    span_h = torch.where(vis, y1 - y0 + 1, zero).long()
+    x0, y0, span_w, span_h = pair_spans(mean2d, ext, visible, width, height, tile)
     counts = span_w * span_h
 
     offsets = torch.cumsum(counts, 0)

@@ -1,7 +1,6 @@
 """Builds and loads every `csrc/*.cu` kernel as one library.
 
-At first use, each source is compiled to an object by its own `nvcc`
-process (all started together), and one `nvcc` link makes
+At first use, one `nvcc` call compiles every source into
 `build/repro_torch/libnebula_kernels.so` at the root of the checkout. The
 library has a plain C interface and is loaded with `ctypes`: every pointer
 and the stream are `c_void_p`, and every entry point returns
@@ -65,9 +64,9 @@ def _sources_digest(sources) -> str:
 
 
 def build() -> dict:
-    """Compile and link the library if its sources changed. Returns a report:
-    {'path', 'seconds', 'rebuilt', 'ptxas'} (ptxas: the compiler's register
-    and shared-memory lines)."""
+    """Build the library if its sources changed. Returns a report: {'path',
+    'seconds', 'rebuilt', 'ptxas'} (ptxas: the compiler's register and
+    shared-memory lines)."""
     sources = sorted(CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / LIB_NAME
@@ -79,28 +78,12 @@ def build() -> dict:
                 "ptxas": log.read_text() if log.exists() else ""}
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    procs = []
-    for src in sources:
-        obj = BUILD_DIR / (src.stem + ".o")
-        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    outputs, failed = [], []
-    for src, _obj, p in procs:
-        out, _ = p.communicate()
-        outputs.append(f"== {src.name}\n{out}")
-        if p.returncode != 0:
-            failed.append(src.name)
-    log.write_text("\n".join(outputs))
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(outputs))
-    tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
-    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-                           *[str(o) for _s, o, _p in procs]],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, lib)
+    out = subprocess.run([nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-shared",
+                          *[str(s) for s in sources], "-o", str(lib)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log.write_text(out.stdout)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{out.stdout}")
     stamp.write_text(digest)
     return {"path": str(lib), "seconds": time.perf_counter() - t0,
             "rebuilt": True, "ptxas": log.read_text()}

@@ -45,9 +45,12 @@ def tile_origins(n_tiles: int, tiles_x: int, tile: int, device) -> torch.Tensor:
 
 
 def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
-                          origins: torch.Tensor, *, tile: int, eps_t: float = 0.0):
+                          origins: torch.Tensor, *, tile: int, eps_t: float = 0.0,
+                          with_processed: bool = False):
     """The plain version of K2 (the reference's `ref_rasterize_slabs`),
-    batched over tiles. Returns (tiles (n, T, T, 3), hits (n, L))."""
+    batched over tiles. Returns (tiles (n, T, T, 3), hits (n, L)), and with
+    `with_processed` also the (n,) number of entries each tile blended
+    before it stopped (the work the kernel does, entry by entry)."""
     n, l_max, _ = entries.shape
     dev = entries.device
     ar = torch.arange(tile, device=dev, dtype=torch.float32)
@@ -58,6 +61,7 @@ def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
     t_acc = torch.ones((n, tile, tile), dtype=torch.float32, device=dev)
     hits = torch.zeros((n, l_max), dtype=torch.bool, device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    processed = torch.zeros((n,), dtype=torch.int32, device=dev)
     zero = torch.zeros((), device=dev)
     # entries past the largest count are inactive everywhere: they add 0 to
     # the color and multiply T by 1, so the loop may stop there
@@ -71,8 +75,9 @@ def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
         color = color + contrib[..., None] * e[:, None, None, 5:8]
         t_acc = t_acc * (1.0 - a)
         hits[:, i] = active & (a > 0.0).flatten(1).any(1)
+        processed += active.to(torch.int32)
         alive = alive & (t_acc.flatten(1).amax(1) > eps_t)
-    return color, hits
+    return (color, hits, processed) if with_processed else (color, hits)
 
 
 def rasterize_slabs(entries: torch.Tensor, counts: torch.Tensor, origins: torch.Tensor,

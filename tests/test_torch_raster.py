@@ -91,6 +91,26 @@ def test_early_termination_bounded():
     assert float((img0 - img1).abs().max()) <= 1e-3 + 1e-6
 
 
+@pytest.mark.parametrize("eps_t", [0.0, 0.05])
+def test_processed_entries_are_where_tiles_stop(eps_t):
+    """The plain version's per-tile count of blended entries: no hit lies at
+    or past it, and blending only that many entries gives the same image."""
+    cam, s, lists = _scene(800, 5)
+    ent, counts = traster.gather_entries(to_torch_tile_lists(lists), to_torch_splats(s),
+                                         "left")
+    origins = traster.tile_origins(ent.shape[0], lists.tiles_x, 16, CPU)
+    img, hits, done = traster.rasterize_slabs_plain(ent, counts, origins, tile=16,
+                                                    eps_t=eps_t, with_processed=True)
+    assert bool((done <= counts).all()) and int(done.sum()) > 0
+    if eps_t > 0:
+        assert bool((done < counts).any())  # some tile stopped early
+    past = torch.arange(ent.shape[1])[None, :] >= done[:, None]
+    assert not bool(hits[past].any())
+    img2, hits2 = traster.rasterize_slabs_plain(ent, done, origins, tile=16, eps_t=eps_t)
+    assert_equal(img2, img)
+    assert_equal(hits2, hits)
+
+
 def _trig(baseline=0.06):
     cam = t_make_camera([0, -18, 2], [0, 0, 0], focal_px=220.0, width=128, height=96,
                         near=0.2, device=CPU)

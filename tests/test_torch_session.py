@@ -94,6 +94,25 @@ def test_functional_core_steps(setup):
     assert torch.isfinite(img_l).all() and img_l.shape == (64, 96, 3)
 
 
+def test_apply_payload_writes_gid_zero(setup):
+    """A Δcut that carries gid 0 beside -1 padding writes the tree's row 0
+    into the store: padding writes nothing, so it cannot put the old row 0
+    back."""
+    _tree, ttree, *_ = setup
+    store = tpipe.session_init(ttree, tpipe.SessionConfig(**CFG)).client_store
+    ids = torch.tensor([0, 5, -1, -1, 3, -1], dtype=torch.int32)
+    dec = ttree.gaussians.slice_rows(ids.clamp_min(0))
+    new = tpipe._apply_payload(store, ids, dec)
+    written = torch.zeros(ttree.n_pad, dtype=torch.bool)
+    written[[0, 3, 5]] = True
+    for f in ("mu", "log_scale", "quat", "opacity", "sh"):
+        a, tree_rows, old = (getattr(new, f), getattr(ttree.gaussians, f),
+                             getattr(store, f))
+        assert torch.equal(a[written], tree_rows[written]), f
+        assert torch.equal(a[~written], old[~written]), f
+    assert not torch.equal(store.mu[0], ttree.gaussians.mu[0])  # row 0 really changed
+
+
 def test_fit_codec_and_wire_format(setup):
     tree, ttree, *_ = setup
     jc = jcomp.fit_codec(tree.gaussians, k_codes=64, iters=6)
