@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    PYTHONPATH=src python3 chip_smoke.py [--frames 16] [--blocks 24] [--out FILE]
+    PYTHONPATH=src python3 chip_smoke.py [--frames 16] [--syncs 8] [--clients 8]
+                                         [--blocks 24] [--out FILE]
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. build every CUDA kernel of the port from `src/repro_torch/kernels/csrc`;
   2. build the city scene and its LoD tree, size the session's budgets;
-  3. hold each kernel against its plain PyTorch version on the card, at the
+  3. hold K1-K4 against their plain PyTorch versions on the card, at the
      shapes of the session's first frames, and time both;
   4. check, on a small input, that the tiled stereo render agrees with the
      untiled per-pixel reference;
-  5. run the single-client collaborative session (LoD sync every 4 frames,
-     stereo render every frame) with every launch counter set to 0 first,
-     and require that every kernel launched; then check each sync's cut
-     against a full search and time the stages of one more frame;
+  5. run the single-client collaborative session with the compressed Δcut
+     wire (LoD sync every 4 frames, stereo render every frame) with every
+     launch counter set to 0 first, and require that K1, K3, K4, K2 and K5
+     launched; then check each sync's cut against a full search and time
+     the stages of one more frame;
   6. trace one more sync and rendered frame with torch.profiler (device
-     busy time and the kernels that take it).
+     busy time and the kernels that take it);
+  7. run the fleet: B clients on the same tree in a pooled `LodService`
+     (foveated τ, encode-once Δ stream), one sync every 4 frames of each
+     client's walk, then one pooled fallback render of every client, with
+     the counters set to 0 first; require that K6, K5 and K2 launched, K2
+     once; time each sync's stages;
+  8. hold K5 and K6 against their plain versions at the fleet's shapes (the
+     cold sync's Δ-union, the first warm sync's pooled bucket), the pooled
+     fallback render against the per-client one, and two pooled syncs of a
+     fresh fleet against two vmapped ones.
 The last three lines are the kernel report (JSON), the card's name and power
 limit, and {"ok": true, "device": ...}.
 """
@@ -80,9 +91,63 @@ def pow2_at_least(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
 
+def require_launched(path: str, counts: dict, names) -> None:
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+
+
+def profiled(torch, what: str, fn) -> dict:
+    """Run `fn` under torch.profiler; log and return the wall ms, the device
+    busy ms (device-side events only: kernels, copies, sets), the idle share
+    and the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    if busy_ms > 0:
+        log(f"[profile] {what}: wall {wall_ms:.2f} ms (profiler on), device busy "
+            f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        for name, t in top:
+            log(f"[profile]   {t:9.3f} ms  {name[:90]}")
+    else:
+        log(f"[profile] {what}: the profiler recorded no device time: not measured")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=top)
+
+
+class StageTimer:
+    """Host-clock ms of wrapped calls, with a synchronize on both sides."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {}
+
+    def wrap(self, name, fn):
+        def run(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return r
+        return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--syncs", type=int, default=8, help="fleet syncs")
+    ap.add_argument("--clients", type=int, default=8, help="fleet clients")
     ap.add_argument("--blocks", type=int, default=24)
     ap.add_argument("--out", type=str, default=None, help="also write the report here")
     args = ap.parse_args()
@@ -105,10 +170,15 @@ def main() -> int:
     from repro_torch.core.lod_tree import build_lod_tree
     from repro_torch.core.projection import depth_ranks
     from repro_torch.core.stereo import build_merge_sources
+    from repro_torch.core import compression as CP
+    from repro_torch.core import manager as MG
     from repro_torch.kernels import _build
-    from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift
+    from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift, vq_assign
     from repro_torch import render as R
+    from repro_torch.render import batched as RB
     from repro_torch.render import stages as RS
+    from repro_torch.serve import delta_path as DP
+    from repro_torch.serve import lod_service as SV
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -146,7 +216,7 @@ def main() -> int:
             for cam in C.walk_trajectory(C.TrajectoryConfig(), args.frames, city.extent,
                                          focal_px=1400.0, width=width, height=height,
                                          device=dev)]
-    base = P.SessionConfig(tau=48.0, w=4, w_star=32, use_compression=False)
+    base = P.SessionConfig(tau=48.0, w=4, w_star=32)
     focal = 1400.0
     sync_frames = list(range(0, args.frames, base.w))
     cuts = {}
@@ -160,12 +230,14 @@ def main() -> int:
     def queue_of(mask, budget):
         return P._render_queue(tree.gaussians, LS.compact_ids(mask, budget))
 
-    max_total = 0
-    for i, rig in enumerate(rigs):
-        s, _ = R.project(queue_of(cuts[(i // base.w) * base.w], cut_budget), rig, rcfg0)
+    def pair_total(queue, rig, rc):
+        s, _ = R.project(queue, rig, rc)
         _x0, _y0, span_w, span_h = pair_spans(s.mean2d, s.ext, s.visible,
-                                              rcfg0.wide_width, rcfg0.height, base.tile)
-        max_total = max(max_total, int((span_w * span_h).sum()))
+                                              rc.wide_width, rc.height, rc.tile)
+        return int((span_w * span_h).sum())
+
+    max_total = max(pair_total(queue_of(cuts[(i // base.w) * base.w], cut_budget), rig,
+                               rcfg0) for i, rig in enumerate(rigs))
     max_pairs = pow2_at_least(max_total)
     cfg = dataclasses.replace(base, cut_budget=cut_budget, max_pairs=max_pairs)
     rcfg = R.RenderConfig.for_rig(rigs[0], tile=cfg.tile, list_len=cfg.list_len,
@@ -346,12 +418,14 @@ def main() -> int:
             f"{row['right_overflow']}) right_candidates={sst.right_candidates} "
             f"alpha_skipped={sst.right_alpha_skipped} {ms:.1f} ms")
     run_s = time.perf_counter() - t_run
-    counts_run = K.launch_counts()
-    log(f"kernels {json.dumps(counts_run)}")
-    missing = [k for k, v in counts_run.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    log(f"[session] {args.frames} frames in {run_s:.2f} s")
+    counts_session = K.launch_counts()
+    log(f"[session] kernels {json.dumps(counts_session)}")
+    require_launched("session", counts_session, ("lod_slab_sweep", "preprocess",
+                                                 "stereo_merge", "rasterize_slabs",
+                                                 "vq_assign"))
+    log(f"[session] {args.frames} frames in {run_s:.2f} s; compressed wire "
+        f"{sess.bytes_per_g:.0f} B a Gaussian (raw rows would be "
+        f"{4 * (3 + 3 + 4 + 1 + 3 * tree.gaussians.sh.shape[1])} B)")
     report["frames"] = frames
 
     # every sync's cut equals a full search at the same camera
@@ -364,64 +438,263 @@ def main() -> int:
 
     # per-stage times of one more sync frame and its render: the session's
     # own calls, each stage function wrapped with a synchronize on both sides
-    stages = {}
-
-    def timed(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t2) * 1e3
-            return r
-        return run
-
+    stage_timer = StageTimer(torch)
     rig = rigs[-1]
     state = dataclasses.replace(sess.state, frame_index=0)
     with contextlib.ExitStack() as patches:
         for mod, name in ((P, "session_step"), (P, "_render_queue"), (RS, "project"),
                           (RS, "bin_shared"), (RS, "stereo_merge"),
                           (RS, "rasterize"), (P, "alpha_skip_stats")):
-            patches.enter_context(mock.patch.object(mod, name, timed(name, getattr(mod, name))))
+            patches.enter_context(mock.patch.object(
+                mod, name, stage_timer.wrap(name, getattr(mod, name))))
         state, _ = P.session_step(sess.tree, sess.codec, cfg, state, rig.left.pos, focal,
                                   sess.bytes_per_g)
-        timed("client_render_step", P.client_render_step)(cfg, state, rig)
+        stage_timer.wrap("client_render_step", P.client_render_step)(cfg, state, rig)
+    stages = stage_timer.ms
     log(f"[stages] {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
     report["stages_ms"] = stages
 
     # 6. device time of one sync + one rendered frame (torch.profiler) ------
-    from torch.profiler import ProfilerActivity, profile
     state = dataclasses.replace(state, frame_index=0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t3 = time.perf_counter()
+
+    def sync_and_render():
+        nonlocal state
         state, _ = P.session_step(sess.tree, sess.codec, cfg, state, rig.left.pos, focal,
                                   sess.bytes_per_g)
         P.client_render_step(cfg, state, rig)
+
+    report["profile"] = profiled(torch, "sync + render frame", sync_and_render)
+
+    del sess, state
+    torch.cuda.empty_cache()
+
+    # 7. the fleet ----------------------------------------------------------------
+    b_cl = args.clients
+    sync_frames = [i * base.w for i in range(args.syncs)]
+    walks = [list(C.walk_trajectory(C.TrajectoryConfig(seed=c), sync_frames[-1] + base.w + 1,
+                                    city.extent, focal_px=focal, width=width,
+                                    height=height, device=dev)) for c in range(b_cl)]
+    cams = np.stack([[walks[c][f].pos.cpu().numpy() for c in range(b_cl)]
+                     for f in sync_frames + [sync_frames[-1] + base.w]]
+                    ).astype(np.float32)     # (syncs + 1, B, 3); the last is profiled
+    taus = np.where(np.arange(b_cl) % 2 == 0, 48.0, 84.0).astype(np.float32)
+    fleet_max_cut = max(int(LS.full_search(tree, cams[f, c], focal, float(taus[c]))[0]
+                            .count()) for f in range(len(cams)) for c in range(b_cl))
+    fcfg = P.SessionConfig(tau=48.0, w=base.w, w_star=32,
+                           cut_budget=pow2_at_least(fleet_max_cut))
+    log(f"[fleet] {b_cl} clients, taus {taus.tolist()}, largest cut {fleet_max_cut} -> "
+        f"cut_budget {fcfg.cut_budget}; {args.syncs} syncs every {base.w} frames")
+    service = SV.LodService(tree, fcfg, b_cl, focal=focal, mode="pooled", taus=taus)
+    log(f"[fleet] delta_budget {service.delta_budget}, page_size {service.page_size}, "
+        f"{service.bytes_per_g:.0f} B a Gaussian")
+    fleet_rigs = [C.StereoRig(left=dataclasses.replace(walks[c][sync_frames[-1]],
+                                                       near=0.25), baseline=0.06)
+                  for c in range(b_cl)]
+    timer = StageTimer(torch)
+    captured = {}
+
+    def recording(name, fn, keep):
+        def run(*a, **kw):
+            if keep(len(sync_rows)) and name not in captured:
+                captured[name] = (a, kw)
+            return fn(*a, **kw)
+        return run
+
+    sync_rows = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t_fleet = time.perf_counter()
+    with contextlib.ExitStack() as patches:
+        for mod, name, label in ((LS, "batched_top_and_staleness", "top_and_staleness"),
+                                 (SV, "_compact_stale_pairs", "compaction"),
+                                 (SV, "_pooled_pair_sweep", "k6_sweep"),
+                                 (SV, "_apply_pooled_updates", "scatter"),
+                                 (MG, "batched_cloud_sync", "tables"),
+                                 (DP, "build_delta_batch", "union_and_encode")):
+            patches.enter_context(mock.patch.object(
+                mod, name, timer.wrap(label, getattr(mod, name))))
+        patches.enter_context(mock.patch.object(
+            SV, "lod_pair_sweep", recording("k6_warm", SV.lod_pair_sweep, lambda i: i > 0)))
+        patches.enter_context(mock.patch.object(
+            CP, "vq_assign", recording("k5_cold", CP.vq_assign, lambda i: i == 0)))
+        for f in range(args.syncs):
+            timer.ms = {}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st = service.sync(cams[f])
+            torch.cuda.synchronize()
+            sync_ms = (time.perf_counter() - t1) * 1e3
+            t2 = time.perf_counter()
+            for c in range(b_cl):
+                ids, dec = service.client_delta(c)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t2) * 1e3
+            n_stale = int(st.resweeps.sum())
+            batch = service.last_delta
+            row = dict(sync=f, ms=sync_ms, stale_pairs=n_stale, pairs=b_cl * m.Ns,
+                       bucket=LS.pow2_bucket(n_stale, b_cl * m.Ns) if n_stale else 0,
+                       union=int(batch.n_union), shipped=int(batch.n_shipped),
+                       width=int(batch.union_gids.shape[0]),
+                       bytes=st.sync_bytes.tolist(), cut=st.cut_size.tolist(),
+                       delta=st.delta_size.tolist(), unique=int(st.unique_delta.sum()),
+                       overflow=bool(st.overflow.any()),
+                       stages_ms=dict(timer.ms, decode_all_clients=decode_ms))
+            sync_rows.append(row)
+            log(f"[fleet sync {f}] {sync_ms:.2f} ms; stale pairs {n_stale}/{b_cl * m.Ns} "
+                f"-> bucket {row['bucket']}; Δ-union {row['union']} (unique "
+                f"{row['unique']} of {sum(row['delta'])} requested), shipped "
+                f"{row['shipped']} in width {row['width']}; bytes/client "
+                f"{[round(x) for x in row['bytes']]}; cut/client {row['cut']}")
+            log(f"[fleet sync {f}] stages ms {json.dumps({k: round(v, 3) for k, v in row['stages_ms'].items()})}")
+        if any(r["overflow"] for r in sync_rows):
+            raise AssertionError("a fleet cut overflowed its cut budget")
+        # sizing the render's pair budget projects every queue: not the path
+        counts_syncs = K.launch_counts()
+        queues = [SV._masked_queue(service.tree.gaussians, g) for g in service.state.cut_gids]
+        rcfg_f = R.RenderConfig.for_fleet(fleet_rigs, tile=base.tile, list_len=base.list_len)
+        fleet_pairs = pow2_at_least(max(pair_total(q, r, rcfg_f)
+                                        for q, r in zip(queues, fleet_rigs)))
+        del queues
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t3) * 1e3
-    by_name = {}  # device-side events only (kernels, copies, sets)
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    if busy_ms > 0:
-        log(f"[profile] sync + render frame: wall {wall_ms:.2f} ms (profiler on), device "
-            f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-        for name, t in top:
-            log(f"[profile]   {t:9.3f} ms  {name[:90]}")
-    else:
-        log("[profile] the profiler recorded no device time: not measured")
-    report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=top)
+        K.reset_launch_counts()
+        t3 = time.perf_counter()
+        gather = RB._gather_fleet_slabs
+
+        def gather_and_keep(*a, **kw):
+            captured["k2_slabs"] = gather(*a, **kw)
+            return captured["k2_slabs"]
+
+        # the pooled launch's inputs: the fleet's slabs and the bucket `sel`
+        # that picks the occupied ones (the kernel module itself is not
+        # patched: its wrapper counts launches under its own name)
+        with mock.patch.object(RB, "_gather_fleet_slabs", gather_and_keep), \
+                mock.patch.object(RB, "_scatter_slabs", recording(
+                    "k2_sel", RB._scatter_slabs, lambda i: True)):
+            fl, fr, fst = service.render_fallback(fleet_rigs, list_len=base.list_len,
+                                                  max_pairs=fleet_pairs, path="pooled")
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t3) * 1e3
+    counts_fleet = {k: v + counts_syncs[k] for k, v in K.launch_counts().items()}
+    fleet_s = time.perf_counter() - t_fleet
+    log(f"[fleet] kernels {json.dumps(counts_fleet)}")
+    require_launched("fleet", counts_fleet, ("lod_pair_sweep", "vq_assign",
+                                             "rasterize_slabs"))
+    if counts_fleet["rasterize_slabs"] != 1:
+        raise AssertionError(f"the pooled fallback render launched K2 "
+                             f"{counts_fleet['rasterize_slabs']} times, not once")
+    if tuple(fl.shape) != (b_cl, height, width, 3) or not (
+            torch.isfinite(fl).all() and torch.isfinite(fr).all()):
+        raise AssertionError(f"fallback frames: shape {tuple(fl.shape)} or non-finite")
+    if bool((fl.flatten(1).amax(1) <= 0).any()):
+        raise AssertionError("a fallback frame is blank")
+    log(f"[fleet] pooled fallback render of {b_cl} clients at {width}x{height} per eye "
+        f"(max_pairs {fleet_pairs}): {render_ms:.1f} ms; left blends/client "
+        f"{fst.left_blends.tolist()}; {args.syncs} syncs + render in {fleet_s:.2f} s")
+    report["fleet"] = dict(clients=b_cl, taus=taus.tolist(), cut_budget=fcfg.cut_budget,
+                           delta_budget=service.delta_budget, syncs=sync_rows,
+                           render_ms=render_ms, max_pairs=fleet_pairs)
+
+    # 8. fleet cross-checks on the card ------------------------------------------
+    vl, vr, vst = service.render_fallback(fleet_rigs, list_len=base.list_len,
+                                          max_pairs=fleet_pairs, path="vmap")
+    torch.cuda.synchronize()
+    if not (torch.equal(fl, vl) and torch.equal(fr, vr)):
+        raise AssertionError("pooled fallback render differs from the per-client render")
+    for fld in dataclasses.fields(fst):
+        if not torch.equal(getattr(fst, fld.name), getattr(vst, fld.name)):
+            raise AssertionError(f"fallback frame stats differ: {fld.name}")
+    log("[check] pooled fallback render == per-client render, bit for bit")
+    del fl, fr, vl, vr
+    # the pooled K2 launch at its fleet shape: time, and a bound over the
+    # entries its tiles blend before they stop
+    sel = captured.pop("k2_sel")[0][0]
+    e2, c2, o2 = (x[sel] for x in captured.pop("k2_slabs"))
+    kw2 = dict(tile=rcfg_f.tile, eps_t=rcfg_f.eps_t)
+    k2_ms = cuda_ms(torch, lambda: rasterize.rasterize_slabs(e2, c2, o2, **kw2), REPS)
+    n2 = int(rasterize.rasterize_slabs_plain(e2, c2, o2, with_processed=True, **kw2)[2].sum())
+    px = kw2["tile"] ** 2
+    k2_bound = bound(n2 * 36 + e2.shape[0] * (4 + 8 + px * 12 + e2.shape[1]), n2 * px * 25)
+    log(f"[kernel] rasterize_slabs pooled: {k2_ms:.4f} ms for {e2.shape[0]} tiles "
+        f"({n2} entries blended), bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    report["fleet"]["k2_pooled"] = dict(ms=k2_ms, tiles=e2.shape[0], blended=n2,
+                                        bound_ms=k2_bound[0], bound_by=k2_bound[1])
+    del e2, c2, o2
+
+    (x5, cb5), _ = captured["k5_cold"]
+    k5 = vq_assign.vq_assign(x5, cb5)
+    p5 = vq_assign.vq_assign_plain(x5, cb5)
+    torch.cuda.synchronize()
+    if not torch.equal(k5, p5):
+        raise AssertionError(f"K5: codes differ from the plain version on "
+                             f"{int((k5 != p5).sum())} of {x5.shape[0]} rows")
+    m5, d5 = x5.shape
+    kc5 = cb5.shape[0]
+    kernels["vq_assign"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/vq_assign.cu",
+        replaces="src/repro/kernels/vq_assign.py:41", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: vq_assign.vq_assign(x5, cb5), REPS),
+        plain_ms=cuda_ms(torch, lambda: vq_assign.vq_assign_plain(x5, cb5), 3),
+        library_ms=cuda_ms(torch, lambda: torch.cdist(x5, cb5).argmin(1), REPS),
+        bytes=m5 * d5 * 4 + kc5 * d5 * 4 + m5 * 4,
+        ops=m5 * kc5 * (2 * d5 + 2) + kc5 * 2 * d5)
+    log(f"[check] K5 == plain on the cold sync's Δ-union rows ({m5} x {d5}, "
+        f"{kc5} codes)")
+
+    if "k6_warm" not in captured:
+        raise AssertionError("no warm fleet sync had a stale pair to sweep")
+    a6, kw6 = captured["k6_warm"]
+    k6 = lod_cut.lod_pair_sweep(*a6, **kw6)
+    p6 = lod_cut.pair_sweep_plain(*a6, **kw6)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("in_cut", "root_expand", "rho"), k6, p6):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"K6: {name} differs from the plain version")
+    n6, s6 = a6[1].shape
+    kernels["lod_pair_sweep"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lod_cut.cu",
+        replaces="src/repro/kernels/lod_cut.py:81", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: lod_cut.lod_pair_sweep(*a6, **kw6), REPS),
+        plain_ms=cuda_ms(torch, lambda: lod_cut.pair_sweep_plain(*a6, **kw6), 3),
+        bytes=n6 * s6 * (12 + 4 + 4 + 4 + 1 + 1) + n6 * (1 + 12 + 4) + n6 * s6 + n6 * 5,
+        ops=n6 * s6 * 22)
+    log(f"[check] K6 == plain on the first warm sync's bucket ({n6} pairs x {s6})")
+    del captured, k5, p5, x5, k6, p6, a6
+
+    pooled = SV.LodService(tree, fcfg, b_cl, focal=focal, mode="pooled", taus=taus)
+    vmapped = SV.LodService(tree, fcfg, b_cl, focal=focal, mode="vmapped", taus=taus)
+    pooled.codec = vmapped.codec = service.codec
+    for f in range(2):
+        a, b_ = pooled.sync(cams[f]), vmapped.sync(cams[f])
+        for fld in dataclasses.fields(a):
+            if not torch.equal(getattr(a, fld.name), getattr(b_, fld.name)):
+                raise AssertionError(f"fleet sync {f}: pooled and vmapped {fld.name} differ")
+        if not torch.equal(pooled.state.cut_gids, vmapped.state.cut_gids):
+            raise AssertionError(f"fleet sync {f}: pooled and vmapped cuts differ")
+    log("[check] two pooled fleet syncs == two vmapped ones (cut ids, every ServiceStats "
+        "field)")
+    del pooled, vmapped
+    report["fleet"]["profile"] = profiled(torch, "one more warm fleet sync",
+                                          lambda: service.sync(cams[-1]))
+    del service
+
+    for name in ("vq_assign", "lod_pair_sweep"):
+        k = kernels[name]
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+        log(f"[kernel] {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
+            f"{k.get('library_ms') or float('nan'):.4f} ms, max |err| {k['max_abs_err']:.3g}")
+    shapes.update(k5_rows=m5, k5_dim=d5, k5_codes=kc5, k6_pairs=n6, k6_slab=s6)
+    log(f"[kernel] shapes {json.dumps(shapes)}")
 
     rows = []
     for name, k in kernels.items():
+        by_path = {"session": counts_session[name], "fleet": counts_fleet[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
-                         replaces=k["replaces"], launches=counts_run[name],
+                         replaces=k["replaces"], launches=sum(by_path.values()),
+                         launches_by_path=by_path,
                          max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-                         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None))
+                         bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                         library_ms=k.get("library_ms")))
     report["kernels"] = rows
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

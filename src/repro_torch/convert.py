@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.binning import TileLists
 from repro_torch.core.camera import Camera, StereoRig
-from repro_torch.core.compression import Codec
+from repro_torch.core.compression import Codec, EncodedGaussians
 from repro_torch.core.gaussians import Gaussians
 from repro_torch.core.lod_tree import LodTree, TreeMeta
 from repro_torch.core.projection import Splats
@@ -74,6 +74,16 @@ def codec_from_arrays(arrays: Arrays, device: DeviceLike = None) -> Codec:
     device = resolve_device(device)
     return Codec(**{k: _t(np.asarray(arrays[k]), device)
                     for k in ("codebook", "pos_lo", "pos_hi", "scale_lo", "scale_hi")})
+
+
+def encoded_from_arrays(arrays: Arrays, device: DeviceLike = None) -> EncodedGaussians:
+    """keys: dc, code, pos_q, scale_q, quat_q, opa_q. The uint16 fields
+    become int32, as the port carries them."""
+    device = resolve_device(device)
+    wide = {"pos_q", "scale_q", "opa_q"}
+    return EncodedGaussians(**{
+        k: _t(np.asarray(arrays[k], np.int32) if k in wide else arrays[k], device)
+        for k in ("dc", "code", "pos_q", "scale_q", "quat_q", "opa_q")})
 
 
 def splats_from_arrays(arrays: Arrays, device: DeviceLike = None) -> Splats:

@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.lod_search import compact_ids
+from repro_torch.numerics import xla_row_sum
 
 ID_BYTES = 4          # plain 32-bit ids on the wire
 ID_BYTES_DELTA = 2    # delta-coded ids (sorted ascending) — model
@@ -60,18 +61,18 @@ class SyncPlan:
                 + ids * ID_BYTES_DELTA + SYNC_HEADER_BYTES)
 
 
-def cloud_sync(state: ManagerState, cut_mask: torch.Tensor, t: int,
+def cloud_sync(state: ManagerState, cut_mask: torch.Tensor, t,
                w_star: int) -> Tuple[ManagerState, SyncPlan]:
     """One management-table update on the cloud (paper Fig. 9, left).
 
-    t is the sync counter; w_star the shared reuse threshold (in syncs)."""
+    t is the sync counter; w_star the shared reuse threshold (in syncs).
+    Leaves may lead with a client axis (B, N), with t then (B, 1)."""
     delta_data = cut_mask & ~state.client_has
     cut_add = cut_mask & ~state.cut_prev
     cut_remove = state.cut_prev & ~cut_mask
 
-    last_used = torch.where(cut_mask, torch.tensor(t, dtype=torch.int32,
-                                                   device=cut_mask.device),
-                            state.last_used)
+    t = torch.as_tensor(t, dtype=torch.int32, device=cut_mask.device)
+    last_used = torch.where(cut_mask, t, state.last_used)
     has = state.client_has | cut_mask
     evicted = has & ((t - last_used) > w_star)
     has = has & ~evicted
@@ -80,8 +81,8 @@ def cloud_sync(state: ManagerState, cut_mask: torch.Tensor, t: int,
     plan = SyncPlan(
         delta_data=delta_data, cut_add=cut_add, cut_remove=cut_remove,
         evicted=evicted,
-        n_delta=delta_data.sum().to(torch.int32),
-        n_resident=has.sum().to(torch.int32),
+        n_delta=delta_data.sum(-1).to(torch.int32),
+        n_resident=has.sum(-1).to(torch.int32),
     )
     return new_state, plan
 
@@ -118,3 +119,56 @@ def client_sync(state: ClientState, delta_data: torch.Tensor, cut_add: torch.Ten
 def gather_payload(tree_gaussians, delta_mask: torch.Tensor, budget: int):
     """Compact Δcut ids (sorted, -1 padded) for the payload gather."""
     return compact_ids(delta_mask, budget), delta_mask.sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# batched multi-client tables
+# ---------------------------------------------------------------------------
+
+
+def batched_cloud_sync(states: ManagerState, cut_masks: torch.Tensor,
+                       ts: torch.Tensor, w_star: int) -> Tuple[ManagerState, SyncPlan]:
+    """`cloud_sync` for B clients on one tree: leaves (B, N), cut_masks
+    (B, N), ts (B,). Each client's slice equals its own `cloud_sync`."""
+    return cloud_sync(states, cut_masks, ts[:, None], w_star)
+
+
+def batched_wire_bytes(plan: SyncPlan, bytes_per_gaussian: float, *,
+                       shared_payload: bool = False, active=None, delivered=None,
+                       client_pages=None) -> torch.Tensor:
+    """(B,) float32 downlink bytes of each client for a batched SyncPlan.
+
+    shared_payload=False — the unicast format: each client receives its own
+    encoded Δcut (payload ∝ its n_delta; Δ ids implicit).
+    shared_payload=True — the encode-once fleet format
+    (`repro_torch.serve.delta_path`): the union Δcut is multicast once as
+    [union gids + encoded rows], and each shared row's cost (attributes +
+    its id) is split evenly across the clients that ingested it, so the
+    per-client figures sum to the fleet total. `delivered` (B, N) is what
+    each client actually ingested this sync (default: every requested row);
+    `client_pages` (B,) adds PAGE_HEADER_BYTES per priority page pulled.
+
+    `active` (B,) bool: an inactive slot is charged nothing, header
+    included, and is left out of the requester split.
+
+    The float32 operations and the row sums' order are the reference's on
+    its CPU backend (`numerics.xla_row_sum`), so the bytes are the same
+    bits."""
+    delta = plan.delta_data if delivered is None else delivered
+    if active is not None:
+        delta = delta & active[:, None]
+    ids = (plan.cut_add.sum(1) + plan.cut_remove.sum(1)).to(torch.float32)
+    base = ids * ID_BYTES_DELTA + SYNC_HEADER_BYTES
+    if not shared_payload:
+        out = plan.n_delta.to(torch.float32) * bytes_per_gaussian + base
+    else:
+        share = delta.sum(0).to(torch.int32)
+        one = torch.ones((), dtype=torch.float32, device=delta.device)
+        inv = one / torch.clamp_min(share, 1).to(torch.float32)
+        frac = xla_row_sum(torch.where(delta, inv[None, :], torch.zeros_like(one)))
+        out = frac * (bytes_per_gaussian + ID_BYTES_DELTA) + base
+        if client_pages is not None:
+            out = out + client_pages.to(torch.float32) * PAGE_HEADER_BYTES
+    if active is not None:
+        out = torch.where(active, out, torch.zeros_like(out))
+    return out

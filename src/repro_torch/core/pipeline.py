@@ -11,9 +11,10 @@ Client side (every frame):
 
 The core is functional: `SessionState` goes in, a new one comes out
 (`cloud_sync_step` / `idle_step` / `session_step` / `client_render_step`);
-`CollaborativeSession` is a thin stateful wrapper. This port carries the Δcut
-rows raw (`SessionConfig(use_compression=False)`); the compressed wire
-format needs the codec's encode/decode, which is not ported yet.
+`CollaborativeSession` is a thin stateful wrapper. The Δcut travels
+compressed by default (`SessionConfig(use_compression=True)`: the codec's
+encode, with its codeword assignment on K5, then decode on the client) or
+as raw rows (`use_compression=False`).
 """
 
 from __future__ import annotations
@@ -135,18 +136,18 @@ def cloud_sync_step(tree: LodTree, codec: comp.Codec, cfg: SessionConfig,
                     bytes_per_g: float) -> Tuple[SessionState, StepStats]:
     """One LoD sync: temporal-aware search → management sync → Δcut payload →
     client mirror + store update."""
-    if cfg.use_compression:
-        raise NotImplementedError(
-            "the compressed Δcut wire format (codec encode/decode and its VQ "
-            "codeword-assignment kernel) is the next slice of the port; run the "
-            "session with SessionConfig(use_compression=False)")
     cut, temporal = ls.temporal_search(tree, state.temporal, cam_pos, focal, cfg.tau)
     mask = cut.mask(tree)
     t = state.sync_index
     mgr_state, plan = mgr.cloud_sync(state.mgr_state, mask, t, cfg.w_star)
-    # single-client unicast wire format: Δ rows travel raw
+    # single-client unicast wire format (one stream, implicit Δ ids); the
+    # fleet service dedups it per sync through the same encode_rows
     ids, n_delta = mgr.gather_payload(tree.gaussians, plan.delta_data, cfg.cut_budget)
-    dec = tree.gaussians.slice_rows(ids.clamp_min(0))
+    if cfg.use_compression:
+        enc = comp.encode_rows(codec, tree.gaussians, ids)
+        dec = comp.decode(codec, enc, tree.gaussians.sh.shape[1])
+    else:
+        dec = tree.gaussians.slice_rows(ids.clamp_min(0))
     client = mgr.client_sync(state.client, plan.delta_data, plan.cut_add,
                              plan.cut_remove, t, cfg.w_star)
     client_store = _apply_payload(state.client_store, ids, dec)

@@ -5,6 +5,8 @@ built by `_build`), each beside its wrapper and its plain PyTorch version:
     K2 rasterize.rasterize_slabs       ← repro/kernels/rasterize.py:rasterize_slabs_pallas
     K3 preprocess.preprocess           ← repro/kernels/preprocess.py:preprocess_pallas
     K4 stereo_shift.stereo_merge_kernel ← repro/kernels/stereo_shift.py:stereo_merge_pallas
+    K5 vq_assign.vq_assign             ← repro/kernels/vq_assign.py:vq_assign_pallas
+    K6 lod_cut.lod_pair_sweep          ← repro/kernels/lod_cut.py:lod_pair_sweep_pallas
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
@@ -18,12 +20,14 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """name → kernel wrapper, for every kernel of the library."""
-    from repro_torch.kernels.lod_cut import lod_slab_sweep
+    from repro_torch.kernels.lod_cut import lod_pair_sweep, lod_slab_sweep
     from repro_torch.kernels.preprocess import preprocess
     from repro_torch.kernels.rasterize import rasterize_slabs
     from repro_torch.kernels.stereo_shift import stereo_merge_kernel
+    from repro_torch.kernels.vq_assign import vq_assign
     return {"lod_slab_sweep": lod_slab_sweep, "preprocess": preprocess,
-            "stereo_merge": stereo_merge_kernel, "rasterize_slabs": rasterize_slabs}
+            "stereo_merge": stereo_merge_kernel, "rasterize_slabs": rasterize_slabs,
+            "vq_assign": vq_assign, "lod_pair_sweep": lod_pair_sweep}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,7 +1,12 @@
-// K1 — fully-streaming LoD slab sweep (paper §4.2).
+// K1 — fully-streaming LoD slab sweep (paper §4.2), and K6 — the same
+// sweep over pooled (client, slab) pairs.
 //
-// Replaces: src/repro/kernels/lod_cut.py:lod_slab_sweep_pallas (body
-// _sweep_body), the TPU kernel that sweeps one subtree slab per grid cell.
+// Replaces: src/repro/kernels/lod_cut.py:lod_slab_sweep_pallas (K1; body
+// _sweep_body), the TPU kernel that sweeps one subtree slab per grid cell
+// with one shared camera and τ, and lod_pair_sweep_pallas (K6), which runs
+// the same body over K gathered (client, slab) pairs, each with its own
+// camera and τ. One kernel template serves both: kPerPair reads cam[slab]
+// and tau[slab] where K1 reads the shared camera and τ.
 //
 // What bounds it on the H100: bytes. Each node is read once (mu 12 B, size,
 // parent and level 4 B each, leaf and valid 1 B each) and its cut bit is
@@ -35,12 +40,14 @@ constexpr float kEpsDist = 1e-6f;
 __device__ __forceinline__ float max_nan(float a, float b) {
   return isnan(a) ? a : fmaxf(a, b);
 }
-__global__ void lod_slab_sweep_kernel(
+template <bool kPerPair>
+__global__ void lod_sweep_kernel(
     const float* __restrict__ mu, const float* __restrict__ size,
     const int32_t* __restrict__ parent, const int32_t* __restrict__ level,
     const uint8_t* __restrict__ leaf, const uint8_t* __restrict__ valid,
-    const uint8_t* __restrict__ rpe, const float* __restrict__ cam,
-    float focal, float tau, uint8_t* __restrict__ out_cut,
+    const uint8_t* __restrict__ rpe, const float* __restrict__ cams,
+    const float* __restrict__ taus, float focal, float tau_shared,
+    uint8_t* __restrict__ out_cut,
     uint8_t* __restrict__ out_rexp, float* __restrict__ out_rho, int S,
     int max_depth) {
   extern __shared__ unsigned char smem[];
@@ -53,7 +60,9 @@ __global__ void lod_slab_sweep_kernel(
 
   const int slab = blockIdx.x;
   const size_t base = static_cast<size_t>(slab) * S;
+  const float* cam = kPerPair ? cams + 3 * static_cast<size_t>(slab) : cams;
   const float c0 = cam[0], c1 = cam[1], c2 = cam[2];
+  const float tau = kPerPair ? taus[slab] : tau_shared;
   const uint8_t root_pe = rpe[slab] != 0;
 
   float local_min = INFINITY;
@@ -112,23 +121,53 @@ extern "C" int nebula_lod_slab_sweep_smem_bytes(int S) {
   return S * (4 + 4 + 1 + 1 + 1);
 }
 
+namespace {
+
+template <bool kPerPair>
+int launch(const void* mu, const void* size, const void* parent,
+           const void* level, const void* leaf, const void* valid,
+           const void* rpe, const void* cams, const void* taus, float focal,
+           float tau, void* out_cut, void* out_rexp, void* out_rho, int n,
+           int S, int max_depth, void* stream) {
+  int smem = nebula_lod_slab_sweep_smem_bytes(S);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lod_sweep_kernel<kPerPair>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  lod_sweep_kernel<kPerPair>
+      <<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(mu), static_cast<const float*>(size),
+          static_cast<const int32_t*>(parent), static_cast<const int32_t*>(level),
+          static_cast<const uint8_t*>(leaf), static_cast<const uint8_t*>(valid),
+          static_cast<const uint8_t*>(rpe), static_cast<const float*>(cams),
+          static_cast<const float*>(taus), focal, tau,
+          static_cast<uint8_t*>(out_cut), static_cast<uint8_t*>(out_rexp),
+          static_cast<float*>(out_rho), S, max_depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1: ns slabs, one camera (3 floats) and one τ.
 extern "C" int nebula_lod_slab_sweep(
     const void* mu, const void* size, const void* parent, const void* level,
     const void* leaf, const void* valid, const void* rpe, const void* cam,
     float focal, float tau, void* out_cut, void* out_rexp, void* out_rho,
     int ns, int S, int max_depth, void* stream) {
-  int smem = nebula_lod_slab_sweep_smem_bytes(S);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lod_slab_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  lod_slab_sweep_kernel<<<ns, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mu), static_cast<const float*>(size),
-      static_cast<const int32_t*>(parent), static_cast<const int32_t*>(level),
-      static_cast<const uint8_t*>(leaf), static_cast<const uint8_t*>(valid),
-      static_cast<const uint8_t*>(rpe), static_cast<const float*>(cam), focal,
-      tau, static_cast<uint8_t*>(out_cut), static_cast<uint8_t*>(out_rexp),
-      static_cast<float*>(out_rho), S, max_depth);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(mu, size, parent, level, leaf, valid, rpe, cam, nullptr,
+                       focal, tau, out_cut, out_rexp, out_rho, ns, S, max_depth,
+                       stream);
+}
+
+// K6: k gathered (client, slab) pairs, a camera (k, 3) and a τ (k,) each.
+extern "C" int nebula_lod_pair_sweep(
+    const void* mu, const void* size, const void* parent, const void* level,
+    const void* leaf, const void* valid, const void* rpe, const void* cams,
+    const void* taus, float focal, void* out_cut, void* out_rexp,
+    void* out_rho, int k, int S, int max_depth, void* stream) {
+  return launch<true>(mu, size, parent, level, leaf, valid, rpe, cams, taus,
+                      focal, 0.0f, out_cut, out_rexp, out_rho, k, S, max_depth,
+                      stream);
 }

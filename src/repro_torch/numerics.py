@@ -32,3 +32,29 @@ def div_rn(x: torch.Tensor, y) -> torch.Tensor:
     if not torch.is_tensor(y):
         y = torch.tensor(y, dtype=x.dtype, device=x.device)
     return x / y
+
+
+_XLA_REDUCE_WINDOW = 32
+
+
+def xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis in the order the reference's CPU
+    backend takes it: a row longer than 32 is summed in windows of 32
+    (zero-padded evenly at both ends), one element after another, and the
+    window sums again so, until 32 or fewer remain, which are summed in
+    order. Makes a float32 byte count come out as the same bits."""
+    while x.shape[-1] > _XLA_REDUCE_WINDOW:
+        n = x.shape[-1]
+        n_out = -(-n // _XLA_REDUCE_WINDOW)
+        pad = n_out * _XLA_REDUCE_WINDOW - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(x.shape[:-1] + (n_out, _XLA_REDUCE_WINDOW))
+        x = _sequential_sum(x)
+    return _sequential_sum(x)
+
+
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc

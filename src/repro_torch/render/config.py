@@ -5,6 +5,7 @@ budgets, the stereo line-buffer width n_cat and the α thresholds."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 from repro_torch.core.binning import BinConfig
 from repro_torch.core.camera import Camera, StereoRig
@@ -42,6 +43,24 @@ class RenderConfig:
         return cls(width=rig.left.width, height=rig.left.height, tile=tile,
                    list_len=list_len, max_pairs=max_pairs,
                    n_cat=n_categories(rig.max_disparity_px(), tile), eps_t=eps_t)
+
+    @classmethod
+    def for_fleet(cls, rigs: Iterable[StereoRig], *, tile: int = 16, list_len: int = 256,
+                  max_pairs: int = 1 << 16, eps_t: float = 0.0) -> "RenderConfig":
+        """Config covering a fleet of rigs: one shared resolution; n_cat is
+        the largest over the rigs, so the widened plane covers every
+        client's disparity range."""
+        rigs = list(rigs)
+        if not rigs:
+            raise ValueError("for_fleet needs at least one rig")
+        w, h = rigs[0].left.width, rigs[0].left.height
+        for r in rigs[1:]:
+            if (r.left.width, r.left.height) != (w, h):
+                raise ValueError("fleet rigs must share one resolution: "
+                                 f"{(w, h)} vs {(r.left.width, r.left.height)}")
+        n_cat = max(n_categories(r.max_disparity_px(), tile) for r in rigs)
+        return cls(width=w, height=h, tile=tile, list_len=list_len,
+                   max_pairs=max_pairs, n_cat=n_cat, eps_t=eps_t)
 
     @property
     def tiles_x(self) -> int:

@@ -1,6 +1,7 @@
 """RenderPlan — everything the rasterization stage needs (port of
 `repro.render.plan`): projected splats, the shared front-to-back depth
-ranks, and both eyes' tile lists."""
+ranks, and both eyes' tile lists. `StereoFrameStats` is the tensor-valued
+per-frame accounting that the fleet render stacks per client."""
 
 from __future__ import annotations
 
@@ -22,3 +23,40 @@ class RenderPlan:
     ranks: torch.Tensor
     left: TileLists
     right: TileLists
+
+
+@dataclasses.dataclass(frozen=True)
+class StereoFrameStats:
+    """One stereo frame's work-sharing accounting, as 0-d tensors.
+
+    shared_preprocess:   int32 — splats projected once instead of twice
+    left_blends:         int32 — (tile, entry) pairs blended, left eye
+    right_candidates:    int32 — entries merged for the right eye
+    right_alpha_skipped: int32 — right candidates prunable by the left α-check
+    overflow:            bool  — any plan budget exceeded
+    """
+
+    shared_preprocess: torch.Tensor
+    left_blends: torch.Tensor
+    right_candidates: torch.Tensor
+    right_alpha_skipped: torch.Tensor
+    overflow: torch.Tensor
+
+
+def frame_stats(plan: RenderPlan, left_hits: torch.Tensor) -> StereoFrameStats:
+    """Tensor-valued counterpart of `core.stereo.alpha_skip_stats` (the
+    paper's step-② forwarding accounting)."""
+    s = plan.splats
+    m = s.m
+    hit_any = torch.zeros((m + 1,), dtype=torch.bool, device=left_hits.device)
+    g = torch.where(plan.left.lists >= 0, plan.left.lists, m).long().reshape(-1)
+    hit_any[g[left_hits.reshape(-1)]] = True
+    r_valid = plan.right.lists >= 0
+    r_hit = hit_any[torch.where(r_valid, plan.right.lists, m).long()] & r_valid
+    return StereoFrameStats(
+        shared_preprocess=s.visible.sum().to(torch.int32),
+        left_blends=(plan.left.lists >= 0).sum().to(torch.int32),
+        right_candidates=r_valid.sum().to(torch.int32),
+        right_alpha_skipped=(r_valid & ~r_hit).sum().to(torch.int32),
+        overflow=plan.left.overflow | plan.right.overflow,
+    )

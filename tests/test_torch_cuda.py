@@ -21,7 +21,8 @@ from repro_torch.core import lod_search as LS
 from repro_torch.core import pipeline as P
 from repro_torch.core.lod_tree import build_lod_tree
 from repro_torch.core.stereo import build_merge_sources
-from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift
+from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift, vq_assign
+from repro_torch.serve.lod_service import LodService
 
 pytestmark = pytest.mark.cuda
 
@@ -124,4 +125,79 @@ def test_session_launches_every_kernel(scene):
         assert torch.isfinite(il).all() and float(il.max()) > 0
     counts = K.launch_counts()
     assert counts == {"lod_slab_sweep": 2, "preprocess": 4, "stereo_merge": 4,
-                      "rasterize_slabs": 8}, counts
+                      "rasterize_slabs": 8, "vq_assign": 0, "lod_pair_sweep": 0}, counts
+
+
+@pytest.mark.parametrize("d", [9, 24, 45])
+def test_k5_vq_assign(dev, d):
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(20000, d)).astype(np.float32)
+    cb = rng.normal(size=(256, d)).astype(np.float32)
+    cb[200] = cb[17]                     # an exact tie across the 128-blocks
+    x[:5] = cb[17] + 1e-3
+    x[5] = np.nan                        # NaN scores: torch.argmin's answer
+    xt, ct = torch.from_numpy(x).to(dev), torch.from_numpy(cb).to(dev)
+    before = vq_assign.vq_assign.launches
+    k = vq_assign.vq_assign(xt, ct)
+    p = vq_assign.vq_assign_plain(xt, ct)
+    torch.cuda.synchronize()
+    assert vq_assign.vq_assign.launches == before + 1
+    assert torch.equal(k, p)
+    assert k[:5].tolist() == [17] * 5
+
+
+def test_k6_pair_sweep(scene):
+    tree, rig = scene
+    m = tree.meta
+    g = torch.Generator().manual_seed(0)
+    k = 3 * m.Ns
+    sel = torch.randint(0, m.Ns, (k,), generator=g).to(tree.device)
+    cams = (rig.left.pos[None, :] + 20.0 * torch.randn(k, 3, generator=g).to(tree.device))
+    taus = torch.tensor([8.0, 16.0, 48.0], device=tree.device)[torch.arange(k) % 3]
+    rpe = (torch.rand(k, generator=g) < 0.8).to(tree.device)
+    args = (tree.slab_mu()[sel], tree.slab_size()[sel], tree.slab_parent[sel],
+            tree.slab_level[sel], tree.slab_is_leaf[sel], tree.slab_valid[sel], rpe,
+            cams.contiguous(), 400.0, taus.contiguous())
+    before = lod_cut.lod_pair_sweep.launches
+    kk = lod_cut.lod_pair_sweep(*args, max_depth=m.slab_max_depth)
+    pp = lod_cut.pair_sweep_plain(*args, max_depth=m.slab_max_depth)
+    torch.cuda.synchronize()
+    assert lod_cut.lod_pair_sweep.launches == before + 1
+    for a, b in zip(kk, pp):
+        assert torch.equal(a, b)
+    assert bool(kk[0].any())
+
+
+def test_fleet_pooled_matches_vmapped_and_launches(scene):
+    """A 3-client fleet on the card: the pooled sync (K6 + K5) equals the
+    vmapped one (K1 per client), and the pooled fallback render (one K2
+    launch) equals the per-client render (two K2 launches per client)."""
+    tree, rig = scene
+    cfg = P.SessionConfig(tau=16.0, cut_budget=4096)
+    taus = [16.0, 28.0, 16.0]
+    pooled = LodService(tree, cfg, 3, focal=400.0, mode="pooled", taus=taus)
+    vmapped = LodService(tree, cfg, 3, focal=400.0, mode="vmapped", taus=taus)
+    vmapped.codec = pooled.codec
+    base = rig.left.pos.cpu().numpy()
+    K.reset_launch_counts()
+    for i in range(3):
+        cams = np.stack([base + [0.4 * i * c, 0.0, 0.0] for c in range(3)])
+        a, b = pooled.sync(cams), vmapped.sync(cams)
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+        assert torch.equal(pooled.state.cut_gids, vmapped.state.cut_gids)
+    counts = K.launch_counts()
+    assert counts["lod_pair_sweep"] >= 1 and counts["vq_assign"] >= 6, counts
+    assert counts["lod_slab_sweep"] == 9, counts
+    rigs = [C.StereoRig(left=rig.left.translated(
+        torch.tensor([0.4 * c, 0.0, 0.0], device=rig.left.pos.device)))
+        for c in range(3)]
+    K.reset_launch_counts()
+    pl, pr, ps = pooled.render_fallback(rigs, list_len=64, max_pairs=1 << 18,
+                                        path="pooled")
+    assert K.launch_counts()["rasterize_slabs"] == 1
+    vl, vr, vs = pooled.render_fallback(rigs, list_len=64, max_pairs=1 << 18, path="vmap")
+    torch.cuda.synchronize()
+    assert torch.equal(pl, vl) and torch.equal(pr, vr) and float(pl.max()) > 0
+    for f in dataclasses.fields(ps):
+        assert torch.equal(getattr(ps, f.name), getattr(vs, f.name)), f.name

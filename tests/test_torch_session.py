@@ -1,7 +1,7 @@
 """Port parity for the slice as a whole: the single-client collaborative
-session of `repro_torch` (raw Δcut rows, `use_compression=False`) against
-the JAX session on the same tree and trajectory, built through
-`repro_torch.convert`."""
+session of `repro_torch` against the JAX session on the same tree and
+trajectory, built through `repro_torch.convert`, with raw Δcut rows
+(`use_compression=False`) and with the default compressed wire."""
 
 import dataclasses
 
@@ -20,6 +20,7 @@ from repro.core.lod_tree import build_lod_tree
 from repro_torch import kernels as tkernels
 from repro_torch.core import compression as tcomp
 from repro_torch.core import pipeline as tpipe
+from repro_torch.kernels.vq_assign import vq_assign_plain
 
 N_FRAMES = 9
 
@@ -125,7 +126,7 @@ def test_fit_codec_and_wire_format(setup):
     assert_equal(carried.codebook, jc.codebook)
     assert carried.code_bytes() == jc.code_bytes()
     x = torch.randn(50, tc.codebook.shape[1], generator=torch.Generator().manual_seed(0))
-    assert_equal(tcomp.vq_assign_ref(x, tc.codebook),
+    assert_equal(vq_assign_plain(x, tc.codebook),
                  jcomp.vq_assign_ref(x.numpy(), np.asarray(tc.codebook)))
     _, jbpg = jpipe.session_wire_format(tree, jpipe.SessionConfig())
     _, tbpg = tpipe.session_wire_format(ttree, tpipe.SessionConfig())
@@ -133,12 +134,39 @@ def test_fit_codec_and_wire_format(setup):
 
 
 def test_compressed_sync_is_not_ported_and_default_device_raises(setup):
+    """The default `SessionConfig()` (compressed wire) syncs; the default
+    device is the card, and without one the session raises."""
     _tree, ttree, rig0, rigs = setup
     sess = tpipe.CollaborativeSession(ttree, tpipe.SessionConfig(), to_torch_rig(rig0),
                                       device=CPU)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sess.step(to_torch_rig(rigs[0]), render=False)
+    st, _ = sess.step(to_torch_rig(rigs[0]), render=False)
+    assert st.synced and st.delta_size > 0
+    assert sess.bytes_per_g == tcomp.wire_bytes_per_gaussian(sess.codec) == 29
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tpipe.CollaborativeSession(ttree, tpipe.SessionConfig(**CFG),
                                        to_torch_rig(rig0))
+
+
+def test_compressed_session_exact_over_frames(setup):
+    """The default compressed wire: per-frame stats exact, the client store
+    within the decode tolerance, images within the raw session's tolerance,
+    given the JAX session's codec."""
+    tree, ttree, rig0, rigs = setup
+    cfg = dict(CFG, use_compression=True)
+    js = jpipe.CollaborativeSession(tree, jpipe.SessionConfig(**cfg), rig0)
+    ts = tpipe.CollaborativeSession(ttree, tpipe.SessionConfig(**cfg), to_torch_rig(rig0),
+                                    device=CPU)
+    ts.codec = to_torch_codec(js.codec)
+    assert ts.bytes_per_g == js.bytes_per_g == 29.0
+    for rig in rigs:
+        jst, jout = js.step(rig, render=True)
+        tst, tout = ts.step(to_torch_rig(rig), render=True)
+        assert dataclasses.asdict(tst) == dataclasses.asdict(jst), tst.frame
+        assert_equal(ts.state.cut_gids, js.state.cut_gids)
+        for f in ("mu", "log_scale", "quat", "opacity", "sh"):
+            assert_close(getattr(ts.client_store, f), getattr(js.client_store, f),
+                         1e-6, 1e-6, f)
+        assert_close(tout[0], jout[0], 1e-4, 1e-5)
+        assert_close(tout[1], jout[1], 1e-4, 1e-5)
+    assert ts.sync_index == 3
