@@ -26,7 +26,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
   8. hold K5 and K6 against their plain versions at the fleet's shapes (the
      cold sync's Δ-union, the first warm sync's pooled bucket), the pooled
      fallback render against the per-client one, and two pooled syncs of a
-     fresh fleet against two vmapped ones.
+     fresh fleet against two vmapped ones;
+  9. serve qwen2.5-3b as published (36 layers, bf16, seeded weights) through
+     `model_zoo.get_model`: with the counters set to 0, prefill 4 requests
+     of 2048 tokens (max_len 2048 + 32) and take 32 greedy decode steps;
+     require that K7 launched 36 times, once a layer, all in the prefill;
+     time the prefill and the steps, read the peak memory and profile one
+     more prefill (K7's share) and one more decode step (the device's idle
+     share). Then, in float32 at full width and 4 layers,
+     hold (a) the prefill logits against the same model with K7's plain
+     version substituted, and (b) decode step t's logits against a prefill
+     over the prompt and the t tokens decoded, each within 1e-4 of the
+     largest |logit|. In bf16 at full depth, report the prefill logits' gap
+     and the greedy tokens' agreement (teacher-forced) against the model
+     with K7's plain version substituted (the same rounding points) and
+     against the model with `models.attention.attention_plain` substituted
+     (the JAX serving path's rounding: q and p kept in float32);
+ 10. hold K7 against its plain version at phase 9's prefill shape (bf16 and
+     float32), a gemma3-4b local layer (head dim 320, window 1024; bf16 and
+     float32) and a non-causal one, each shape taken from its config, and
+     time each beside its bound and `scaled_dot_product_attention`.
 The last three lines are the kernel report (JSON), the card's name and power
 limit, and {"ok": true, "device": ...}.
 """
@@ -36,6 +55,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -50,6 +70,14 @@ sys.path.insert(0, str(ROOT / "src"))
 REPS = 10                    # timed kernel launches (median)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH = 4                 # phase 9: requests
+LM_PROMPT = 2048             # prompt tokens each
+LM_STEPS = 32                # greedy decode steps
+LM_CHECK_LAYERS = 4          # depth of the float32 checks of phase 9
+LM_REL_TOL = 1e-4            # of the largest |logit|
+WINDOW_ARCH = "gemma3-4b"    # phase 10's sliding-window case, head dim 320
 
 
 def log(msg: str) -> None:
@@ -122,7 +150,7 @@ def profiled(torch, what: str, fn) -> dict:
             log(f"[profile]   {t:9.3f} ms  {name[:90]}")
     else:
         log(f"[profile] {what}: the profiler recorded no device time: not measured")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=top)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=top, by_name=by_name)
 
 
 class StageTimer:
@@ -141,6 +169,241 @@ class StageTimer:
             self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
             return r
         return run
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def lm_serving(torch, dev) -> dict:
+    """Phase 9: the dense LM serving path at full width and depth, then its
+    float32 checks. Returns the phase's report, with the launch counts of
+    the main path under "counts"."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model_zoo
+
+    def plain_k7(q, k, v, *, causal, window):
+        return FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    def serving_plain(q, k, v, *, causal, window):
+        # the JAX serving `attention`'s rounding: q and p kept in float32
+        t = (lambda x: x.transpose(1, 2))
+        return t(MA.attention_plain(t(q), t(k), t(v), causal=causal, window=window))
+
+    def substituted(fn=plain_k7):
+        # `fn` in K7's place in the model: no switch in the package
+        return mock.patch.object(MA, "flash_attention", fn)
+
+    cfg = get_arch(LM_ARCH)
+    bundle = model_zoo.get_model(cfg)
+    b, s0, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    max_len = s0 + steps
+    t0 = time.perf_counter()
+    model = bundle.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, vocab {cfg.vocab} (padded "
+        f"{cfg.vocab_padded}), {cfg.dtype}; {n_params} parameters from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (b, s0), generator=gen, device=dev)
+    warm = torch.randint(0, cfg.vocab, (b, 128), generator=gen, device=dev)
+    bundle.decode_step(model, bundle.prefill(model, {"tokens": warm}, max_len=130)[1],
+                       {"token": warm[:, 0]})          # first-call set-up, not timed
+
+    def greedy(logits):
+        return logits[:, :cfg.vocab].argmax(-1)
+
+    # the main path: counters at 0, one prefill, `steps` greedy decode steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(model, {"tokens": tokens}, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    k7_prefill = K.launch_counts()["flash_attention"]
+    prefill_logits = logits
+    toks = [greedy(logits)]
+    step_ms = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        logits, cache = bundle.decode_step(model, cache, {"token": toks[-1]})
+        toks.append(greedy(logits))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = torch.stack(toks, 1)                          # (B, steps + 1)
+    log(f"[lm] kernels {json.dumps(counts)}")
+    if k7_prefill != cfg.n_layers or counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"K7 launched {k7_prefill} times in the prefill and "
+                             f"{counts['flash_attention']} in all, not {cfg.n_layers} "
+                             f"(once a layer, in the prefill only)")
+    if tuple(logits.shape) != (b, cfg.vocab_padded) or not torch.isfinite(logits).all():
+        raise AssertionError(f"decode logits: shape {tuple(logits.shape)} or non-finite")
+    if cache["pos"] != max_len or tuple(cache["layers"][0]["k"].shape) != (
+            b, max_len, cfg.n_kv_heads, cfg.hd):
+        raise AssertionError(f"cache: pos {cache['pos']}, k {tuple(cache['layers'][0]['k'].shape)}")
+    step_med = statistics.median(step_ms)
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, params=n_params,
+               batch=b, prompt=s0, steps=steps, max_len=max_len, prefill_ms=prefill_ms,
+               prefill_tokens_per_s=b * s0 / prefill_ms * 1e3, decode_step_ms=step_ms,
+               decode_step_ms_median=step_med, decode_tokens_per_s=b / step_med * 1e3,
+               peak_bytes=peak, counts=counts)
+    log(f"[lm] prefill {b}x{s0}: {prefill_ms:.2f} ms ({out['prefill_tokens_per_s']:.0f} "
+        f"tokens/s); decode step median {step_med:.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}; {out['decode_tokens_per_s']:.1f} tokens/s at batch {b}); "
+        f"peak memory {peak / 2**30:.2f} GiB")
+
+    prof = profiled(torch, f"one more prefill {b}x{s0}",
+                    lambda: bundle.prefill(model, {"tokens": tokens}, max_len=max_len))
+    k7_ms = sum(t for name, t in prof["by_name"].items() if "flash_attention_kernel" in name)
+    out["profile"] = dict(wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+                          k7_ms=k7_ms, top=prof["top"])
+    if prof["device_busy_ms"] > 0:
+        out["k7_share"] = k7_ms / prof["device_busy_ms"]
+        log(f"[lm] K7 takes {k7_ms:.2f} ms of the prefill's {prof['device_busy_ms']:.2f} ms "
+            f"device time: share {out['k7_share']:.3f}")
+    else:
+        out["k7_share"] = None
+    # the cache is full (pos = max_len): this step writes the clamped last slot,
+    # with the same shapes as the last timed step
+    dprof = profiled(torch, f"one more decode step at batch {b}",
+                     lambda: bundle.decode_step(model, cache, {"token": toks[:, -1]}))
+    out["decode_profile"] = dict(wall_ms=dprof["wall_ms"],
+                                 device_busy_ms=dprof["device_busy_ms"], top=dprof["top"])
+
+    # bf16, full depth: the prefill logits and the greedy tokens with another
+    # function in K7's place, fed the same tokens (teacher-forced), so that
+    # one flip does not cascade
+    for key, fn, what in (("plain_k7", plain_k7, "K7's plain version"),
+                          ("serving_plain", serving_plain, "attention_plain (JAX serving "
+                                                           "rounding)")):
+        with substituted(fn):
+            lp, cp = bundle.prefill(model, {"tokens": tokens}, max_len=max_len)
+            gap = rel_err(prefill_logits.float(), lp.float())
+            ptoks = [greedy(lp)]
+            for t in range(steps):
+                lp, cp = bundle.decode_step(model, cp, {"token": toks[:, t]})
+                ptoks.append(greedy(lp))
+        agree = float((torch.stack(ptoks, 1) == toks).float().mean())
+        out[f"bf16_vs_{key}"] = dict(prefill_logits_rel_gap=gap, greedy_agreement=agree)
+        log(f"[lm] bf16, K7 vs {what} substituted: prefill logits max |diff| / max |logit| "
+            f"= {gap:.4g}; greedy tokens (teacher-forced, {b} x {steps + 1}) agree "
+            f"{agree:.4f}")
+        del lp, cp
+    del model, cache, logits, prefill_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 checks at full width, LM_CHECK_LAYERS layers
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype="float32")
+    b32 = model_zoo.get_model(cfg32)
+    m32 = b32.init(seed=0, device=dev)
+    la, ca = b32.prefill(m32, {"tokens": tokens}, max_len=max_len)
+    with substituted():
+        lb, _ = b32.prefill(m32, {"tokens": tokens}, max_len=max_len)
+    err_a = rel_err(la, lb)
+    log(f"[lm check a] float32, {LM_CHECK_LAYERS} layers: prefill logits with K7 vs its "
+        f"plain version: max |diff| / max |logit| = {err_a:.3g}")
+    if not err_a <= LM_REL_TOL:
+        raise AssertionError(f"check (a): {err_a:.3g} > {LM_REL_TOL}")
+    dec_logits, dtoks = [], [greedy(la)]
+    for _ in range(steps):
+        la, ca = b32.decode_step(m32, ca, {"token": dtoks[-1]})
+        dec_logits.append(la)
+        dtoks.append(greedy(la))
+    err_b = {}
+    for t in sorted({1, max(1, steps // 2), steps}):
+        full = torch.cat([tokens, torch.stack(dtoks[:t], 1)], 1)
+        lf, _ = b32.prefill(m32, {"tokens": full})
+        err_b[t] = rel_err(dec_logits[t - 1], lf)
+        log(f"[lm check b] decode step {t} logits vs a prefill over the prompt + {t} "
+            f"decoded tokens ({full.shape[1]} positions): {err_b[t]:.3g}")
+    if not max(err_b.values()) <= LM_REL_TOL:
+        raise AssertionError(f"check (b): {err_b} > {LM_REL_TOL}")
+    out["check_a_rel_err"] = err_a
+    out["check_b_rel_err"] = err_b
+    del m32, ca
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def k7_case_list() -> list:
+    """Phase 10's cases, (name, B, H, Hkv, L, D, dtype, causal, window), each
+    shape taken from its config. The first is phase 9's prefill attention."""
+    from repro_torch.configs import get_arch
+
+    lm, wa = get_arch(LM_ARCH), get_arch(WINDOW_ARCH)
+    prefill = (LM_BATCH, lm.n_heads, lm.n_kv_heads, LM_PROMPT, lm.hd)
+    local = (1, wa.n_heads, wa.n_kv_heads, LM_PROMPT, wa.hd)
+    return [(f"{lm.name} prefill", *prefill, lm.dtype, True, lm.sliding_window),
+            (f"{lm.name} prefill f32", *prefill, "float32", True, lm.sliding_window),
+            (f"{wa.name} local layer", *local, wa.dtype, True, wa.sliding_window),
+            (f"{wa.name} local layer f32", *local, "float32", True, wa.sliding_window),
+            (f"{lm.name} non-causal", *prefill, lm.dtype, False, 0)]
+
+
+def k7_cases(torch, dev) -> list:
+    """Phase 10: K7 against its plain version at the LM shapes, each timed
+    beside its bound and `scaled_dot_product_attention` (a yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    rows = []
+    for name, b, h, hkv, length, d, dtype_name, causal, window in k7_case_list():
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(length + d)
+        # (B, L, H, D) tensors as transposed views, as models.attention passes them
+        q, k, v = (torch.randn((b, length, n, d), generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+        kw = dict(causal=causal, window=window)
+        out = FA.flash_attention(q, k, v, **kw)
+        ref = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        err = float((out.float() - ref.float()).abs().max())
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"K7 {name}: differs from its plain version "
+                                 f"(max |err| {err:.3g}, tolerance {tol})")
+        rows_ = torch.arange(length)
+        hi = rows_ if causal else torch.full_like(rows_, length - 1)
+        lo = (rows_ - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(rows_)
+        pairs = int((hi - lo + 1).clamp_min(0).sum())
+        es = q.element_size()
+        n_bytes = 2 * b * h * length * d * es + 2 * b * hkv * length * d * es
+        ops = 4 * d * b * h * pairs
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        if window > 0:   # the library call takes the window as an explicit mask
+            r, c = rows_[:, None].to(dev), rows_[None, :].to(dev)
+            lib_kw = dict(attn_mask=(c <= r) & (c > r - window))
+        else:
+            lib_kw = dict(is_causal=causal)
+        row = dict(case=name, shape=[b, h, hkv, length, d], dtype=dtype_name,
+                   causal=causal, window=window, max_abs_err=err, tolerance=tol,
+                   ms=cuda_ms(torch, lambda: FA.flash_attention(q, k, v, **kw), REPS),
+                   plain_ms=cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v, **kw), 3),
+                   library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                       q, k, v, enable_gqa=True, **lib_kw), REPS),
+                   visible_pairs=pairs, bytes=n_bytes, ops=ops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[K7] {name} {row['shape']} {row['dtype']} causal={causal} window={window}: "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, sdpa {row['library_ms']:.3f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{row['bound_ms'] / row['ms']:.4f} of it), max |err| {err:.3g}")
+        rows.append(row)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -686,9 +949,40 @@ def main() -> int:
     shapes.update(k5_rows=m5, k5_dim=d5, k5_codes=kc5, k6_pairs=n6, k6_slab=s6)
     log(f"[kernel] shapes {json.dumps(shapes)}")
 
+    # free the city before the LM phases
+    del tree, leaves, cuts, sync_cuts, rigs, walks, fleet_rigs, q0, sk, sp, left, ranks
+    del origins, counts, k_out, p_out, sweep_args, rpe, top_expand, il, ir, ll, rl
+    del ref_l, ref_r, g_small
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated from "
+        f"phases 1-8")
+
+    # 9. the LM serving path -------------------------------------------------------
+    t_lm = time.perf_counter()
+    lm = lm_serving(torch, dev)
+    counts_lm = lm.pop("counts")
+    report["lm"] = lm
+    t_k7 = time.perf_counter()
+
+    # 10. K7 against its plain version at the LM shapes ----------------------------
+    k7 = k7_cases(torch, dev)
+    report["k7_cases"] = k7
+    report["phases"]["lm_s"] = t_k7 - t_lm
+    report["phases"]["k7_cases_s"] = time.perf_counter() - t_k7
+    log(f"[lm] phase 9 took {t_k7 - t_lm:.1f} s, phase 10 "
+        f"{report['phases']['k7_cases_s']:.1f} s")
+    main_case = k7[0]            # phase 9's prefill shape, by construction
+    kernels["flash_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:59",
+        **{key: main_case[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")})
+
     rows = []
     for name, k in kernels.items():
-        by_path = {"session": counts_session[name], "fleet": counts_fleet[name]}
+        by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
+                   "lm": counts_lm[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch/CUDA port of the Nebula collaborative-rendering
 system (city-scale 3DGS LoD search on the cloud, stereo rasterization on the
-client), written for one NVIDIA H100.
+client) and of its LM scaffold, written for one NVIDIA H100.
 
 Module paths and public names mirror the JAX package `repro` one to one
 (`repro_torch.core.lod_search` ↔ `repro.core.lod_search`), but nothing here
@@ -14,6 +14,10 @@ Layout:
                          fit, projection, binning, stereo merge, session.
   repro_torch.render   — the client render stages (project → bin_shared →
                          stereo_merge → rasterize).
+  repro_torch.serve    — the multi-client LoD service (fleet, Δ stream).
+  repro_torch.models   — the LM family's serving path (dense: prefill and
+                         cached decode); `repro_torch.configs` holds the
+                         architectures.
   repro_torch.kernels  — hand-written Hopper kernels (CUDA C++, `csrc/`)
                          with their wrappers, launch counters and plain
                          PyTorch versions.

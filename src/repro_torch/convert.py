@@ -4,12 +4,13 @@ metadata, on a given device.
 The JAX package's objects cross into the port this way: a caller flattens
 them to numpy (the parity tests do so in `tests/_torch_parity.py`), and the
 functions here rebuild them as tensors, so the port never imports JAX.
-Every array keeps its dtype; float arrays must already be float32.
+Every array keeps its dtype; float arrays must already be float32, except
+the LM weights of `dense_params_from_jax`, which take the config's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +22,9 @@ from repro_torch.core.gaussians import Gaussians
 from repro_torch.core.lod_tree import LodTree, TreeMeta
 from repro_torch.core.projection import Splats
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.dense import DenseLM, layer_pattern
+from repro_torch.models.layers import dtype_of
 
 Arrays = Mapping[str, np.ndarray]
 
@@ -102,3 +106,46 @@ def tile_lists_from_arrays(arrays: Arrays, meta: Mapping,
                      counts=_t(arrays["counts"], device),
                      overflow=_t(np.asarray(arrays["overflow"], bool), device),
                      tiles_x=int(meta["tiles_x"]), tiles_y=int(meta["tiles_y"]))
+
+
+# the parameters of one dense layer, as '/'-joined paths of the JAX tree
+_DENSE_LAYER_PARAMS = ("attn_norm", "mlp_norm", "attn/wq", "attn/wk", "attn/wv",
+                       "attn/wo", "attn/bq", "attn/bk", "attn/bv", "mlp/w_gate",
+                       "mlp/w_up", "mlp/w_down")
+
+
+def dense_layer_keys(cfg: ModelConfig) -> List[Tuple[str, Optional[int]]]:
+    """Where each `DenseLM` layer sits in the JAX parameter and cache trees,
+    in layer order: ("groups/sub{si}", g) for layer g·len(pat)+si (index g
+    of the stacked leading axis), then ("rem{ri}", None)."""
+    pat, n_groups, rem = layer_pattern(cfg)
+    keys: List[Tuple[str, Optional[int]]] = [
+        (f"groups/sub{si}", g) for g in range(n_groups) for si in range(len(pat))]
+    return keys + [(f"rem{ri}", None) for ri in range(len(rem))]
+
+
+def dense_params_from_jax(arrays: Arrays, cfg: ModelConfig,
+                          device: DeviceLike = None) -> DenseLM:
+    """A `DenseLM` holding the JAX `dense.init` tree. arrays: that tree
+    flattened to numpy with '/'-joined keys ("embed", "final_norm",
+    "groups/sub0/attn/wq", "rem1/mlp/w_up", ...). bfloat16 arrays reach
+    numpy as `ml_dtypes.bfloat16`, which torch does not take; they cross
+    through float32, which is exact, and are cast to the config's dtype."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+
+    def param(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device,
+                                                                   dtype=dtype)
+
+    state = {k: param(arrays[k]) for k in ("embed", "unembed", "final_norm")}
+    for i, (prefix, g) in enumerate(dense_layer_keys(cfg)):
+        for name in _DENSE_LAYER_PARAMS:
+            key = f"{prefix}/{name}"
+            if key in arrays:
+                a = np.asarray(arrays[key])
+                state[f"layers.{i}.{name.replace('/', '.')}"] = param(
+                    a if g is None else a[g])
+    model = DenseLM(cfg, seed=0, device=device)
+    model.load_state_dict(state, strict=True)
+    return model

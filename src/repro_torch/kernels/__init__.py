@@ -7,6 +7,7 @@ built by `_build`), each beside its wrapper and its plain PyTorch version:
     K4 stereo_shift.stereo_merge_kernel ← repro/kernels/stereo_shift.py:stereo_merge_pallas
     K5 vq_assign.vq_assign             ← repro/kernels/vq_assign.py:vq_assign_pallas
     K6 lod_cut.lod_pair_sweep          ← repro/kernels/lod_cut.py:lod_pair_sweep_pallas
+    K7 flash_attention.flash_attention ← repro/kernels/flash_attention.py:flash_attention_pallas
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
@@ -20,6 +21,7 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """name → kernel wrapper, for every kernel of the library."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lod_cut import lod_pair_sweep, lod_slab_sweep
     from repro_torch.kernels.preprocess import preprocess
     from repro_torch.kernels.rasterize import rasterize_slabs
@@ -27,7 +29,8 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.vq_assign import vq_assign
     return {"lod_slab_sweep": lod_slab_sweep, "preprocess": preprocess,
             "stereo_merge": stereo_merge_kernel, "rasterize_slabs": rasterize_slabs,
-            "vq_assign": vq_assign, "lod_pair_sweep": lod_pair_sweep}
+            "vq_assign": vq_assign, "lod_pair_sweep": lod_pair_sweep,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:

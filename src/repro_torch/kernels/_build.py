@@ -3,8 +3,8 @@
 At first use, one `nvcc` call compiles every source into
 `build/repro_torch/libnebula_kernels.so` at the root of the checkout. The
 library has a plain C interface and is loaded with `ctypes`: every pointer
-and the stream are `c_void_p`, and every entry point returns
-`cudaGetLastError()`, which `check` turns into an exception.
+and the stream are `c_void_p`, strides `c_longlong`, and every entry point
+returns `cudaGetLastError()`, which `check` turns into an exception.
 
 Flags: `sm_90a`, `-O3`, no fast math and `--fmad=false`, because the α
 test, `proj > τ` and the visibility bits are decided by float rounding and
@@ -33,8 +33,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
-# C entry point → argument types (pointers and the stream are c_void_p).
+# C entry point → argument types (pointers and the stream are c_void_p,
+# strides c_longlong).
 SIGNATURES = {
     "nebula_lod_slab_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
                               _P, _P, _P, _I, _I, _I, _P],
@@ -46,6 +48,8 @@ SIGNATURES = {
     "nebula_preprocess": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "nebula_stereo_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "nebula_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               *[_L] * 12, _I, _I, _F, _P],
 }
 
 

@@ -1,0 +1,224 @@
+"""Dense decoder-only transformer family: the serving path.
+
+Covers qwen2.5 (QKV bias), mistral-large, stablelm (partial rotary) and
+gemma3 (5:1 local:global sliding-window pattern). The prefix-LM branch of
+the `vlm` family (paligemma's image prefix) and `loss` come with later
+slices.
+
+`DenseLM` holds the layers in order. The JAX package stacks them as
+pattern groups (`groups/sub{si}` with a leading n_groups axis) plus
+remainder layers (`rem{ri}`) so that XLA can scan them; layer g·len(pat)+si
+comes first, then the remainder, and `layer_windows` gives each layer's
+window in that order. Eager PyTorch needs no scan, so the port keeps a flat
+list (`convert.dense_params_from_jax` unstacks a JAX tree into it).
+
+Caches: one {"k", "v"} per layer in the same order, each (B, S_cache, Hkv,
+Dh) with RoPE applied. Global layers cache `max_len` positions (padded at
+prefill); sliding-window layers keep a ring of `window` slots, position p
+in slot p % window (softmax is permutation-invariant, so ring order is
+harmless). `pos` is the number of positions consumed, a Python int.
+`decode_step` writes the new token's k/v into the cache in place (the JAX
+package returns new arrays), which saves a copy of every cache per step.
+
+Prefill's self-attention launches kernel K7 on the card (`models.attention`);
+decode attends the cache with the plain chunked softmax, as the JAX package
+leaves that pattern to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (MLP, Attention, apply_rope, dense_init, dtype_of,
+                                       embed_init, param, qkv, rmsnorm)
+
+Cache = Dict[str, object]
+
+
+# -- layer pattern -------------------------------------------------------------
+
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[Tuple[int, ...], int, Tuple[int, ...]]:
+    """(group_pattern, n_groups, remainder_pattern) of per-layer windows."""
+    if cfg.local_global_ratio > 0:
+        pat = (cfg.sliding_window,) * cfg.local_global_ratio + (0,)
+    elif cfg.sliding_window > 0:
+        pat = (cfg.sliding_window,)
+    else:
+        pat = (0,)
+    n_groups = cfg.n_layers // len(pat)
+    rem = cfg.n_layers - n_groups * len(pat)
+    if cfg.local_global_ratio > 0:
+        rem_pat = (cfg.sliding_window,) * rem
+    else:
+        rem_pat = (0,) * rem if pat == (0,) else (cfg.sliding_window,) * rem
+    return pat, n_groups, rem_pat
+
+
+def layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Each layer's window (0 = global) in layer order: the groups, then
+    the remainder."""
+    pat, n_groups, rem = layer_pattern(cfg)
+    return pat * n_groups + rem
+
+
+# -- params ---------------------------------------------------------------------
+
+
+class DenseBlock(nn.Module):
+    """One pre-norm decoder layer: attention and SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, window: int, dtype: torch.dtype, device,
+                 gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.window = window
+        self.attn = Attention(cfg, dtype, device, gen)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gen)
+        self.attn_norm = param(torch.ones((cfg.d_model,), dtype=dtype, device=device))
+        self.mlp_norm = param(torch.ones((cfg.d_model,), dtype=dtype, device=device))
+
+    def qkv_rope(self, h: torch.Tensor, positions: torch.Tensor):
+        cfg = self.cfg
+        q, k, v = qkv(h, self.attn, cfg)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+        return q, k, v
+
+    def finish(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """Output projection, residual, MLP and residual."""
+        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ self.attn.wo
+        h = rmsnorm(x, self.mlp_norm, self.cfg.norm_eps)
+        return x + self.mlp(h)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, kv_chunk: int = 1024):
+        """→ (x, k, v): the layer's output and its roped k and v."""
+        h = rmsnorm(x, self.attn_norm, self.cfg.norm_eps)
+        q, k, v = self.qkv_rope(h, positions)
+        o = attention(q, k, v, causal=True, window=self.window, kv_chunk=kv_chunk)
+        return self.finish(x, o), k, v
+
+
+class DenseLM(nn.Module):
+    """The dense family's parameters (the counterpart of the JAX `init`):
+    embed (Vp, d) and unembed (d, Vp) over the padded vocabulary, the
+    final norm, and `cfg.n_layers` `DenseBlock`s in layer order. Weights
+    are drawn from a `torch.Generator` seeded with `seed`, on `device`
+    (the card unless the caller asks for the CPU), in `cfg.dtype`."""
+
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(f"DenseLM serves the dense family, not {cfg.family!r}")
+        device = resolve_device(device)
+        dtype = dtype_of(cfg.dtype)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        vp = cfg.vocab_padded
+        self.cfg = cfg
+        self.embed = param(embed_init(gen, (vp, cfg.d_model), dtype, device))
+        self.unembed = param(dense_init(gen, (cfg.d_model, vp), dtype, device))
+        self.final_norm = param(torch.ones((cfg.d_model,), dtype=dtype, device=device))
+        self.layers = nn.ModuleList(DenseBlock(cfg, w, dtype, device, gen)
+                                    for w in layer_windows(cfg))
+
+    def forward(self, tokens: torch.Tensor, kv_chunk: int = 1024) -> torch.Tensor:
+        return forward(self, tokens, kv_chunk=kv_chunk)
+
+
+# -- forward --------------------------------------------------------------------
+
+
+def forward(model: DenseLM, tokens: torch.Tensor, *, kv_chunk: int = 1024) -> torch.Tensor:
+    """tokens (B, S) → final hidden states (B, S, D)."""
+    x = F.embedding(tokens, model.embed)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for blk in model.layers:
+        x, _k, _v = blk(x, positions, kv_chunk)
+    return rmsnorm(x, model.final_norm, model.cfg.norm_eps)
+
+
+# -- serving (cache) ---------------------------------------------------------------
+
+
+def make_cache(cfg: ModelConfig, batch: int, seq: int, device: DeviceLike = None) -> Cache:
+    """Zero KV caches: a ring of `window` slots for sliding-window layers,
+    `seq` slots for global ones."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+
+    def one(win):
+        s = min(win, seq) if win > 0 else seq
+        shape = (batch, s, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return {"pos": 0, "layers": [one(w) for w in layer_windows(cfg)]}
+
+
+def _cache_entry(t: torch.Tensor, win: int, s: int, max_len: int) -> torch.Tensor:
+    """A prefill's (B, S, Hkv, Dh) keys or values as the layer caches them."""
+    if win > 0:  # keep the last `win` positions, ring-aligned (slot = pos % win)
+        wlen = min(win, s)
+        t = t[:, s - wlen:]
+        if wlen == win:
+            return torch.roll(t, shifts=s % win, dims=1)
+        return F.pad(t, (0, 0, 0, 0, 0, win - wlen))   # pos p already sits at slot p
+    if max_len > s:  # room for subsequent decode steps
+        return F.pad(t, (0, 0, 0, 0, 0, max_len - s))
+    return t.contiguous()
+
+
+@torch.no_grad()
+def prefill(model: DenseLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1024,
+            max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+    """Full-sequence forward that also fills the caches. Global-attention
+    caches are padded to `max_len` (≥ S + decode budget); sliding-window
+    layers keep a `window`-sized ring regardless. → (logits (B, Vp) float32
+    at the last position, cache)."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    x = F.embedding(tokens, model.embed)
+    positions = torch.arange(s, device=tokens.device)
+    layers: List[Dict[str, torch.Tensor]] = []
+    for blk in model.layers:
+        x, k, v = blk(x, positions, kv_chunk)
+        layers.append({"k": _cache_entry(k, blk.window, s, max_len),
+                       "v": _cache_entry(v, blk.window, s, max_len)})
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    logits = (x[:, -1] @ model.unembed).float()
+    return logits, {"pos": s, "layers": layers}
+
+
+@torch.no_grad()
+def decode_step(model: DenseLM, cache: Cache, batch: Dict[str, torch.Tensor], *,
+                kv_chunk: int = 2048) -> Tuple[torch.Tensor, Cache]:
+    """One-token decode. batch = {"token": (B,) integer ids}. Writes the
+    token's k/v into `cache` in place and returns (logits (B, Vp) float32,
+    cache) with `pos` advanced."""
+    cfg = model.cfg
+    tok = batch["token"]
+    pos = int(cache["pos"])
+    x = F.embedding(tok[:, None], model.embed)
+    positions = torch.arange(pos, pos + 1, device=tok.device)
+    for blk, kvc in zip(model.layers, cache["layers"]):
+        h = rmsnorm(x, blk.attn_norm, cfg.norm_eps)
+        q, k, v = blk.qkv_rope(h, positions)
+        s_cache = kvc["k"].shape[1]
+        slot = pos % s_cache if blk.window > 0 else min(pos, s_cache - 1)
+        kvc["k"][:, slot] = k[:, 0]
+        kvc["v"][:, slot] = v[:, 0]
+        o = attention(q, kvc["k"], kvc["v"], causal=False,
+                      kv_valid_len=min(pos + 1, s_cache), kv_chunk=kv_chunk)
+        x = blk.finish(x, o)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    logits = (x[:, 0] @ model.unembed).float()
+    cache["pos"] = pos + 1
+    return logits, cache

@@ -1,0 +1,151 @@
+"""Shared layer primitives of the LM family: RMSNorm, RoPE, SwiGLU, the QKV
+projection, the initializers, and the attention and MLP parameter sets as
+`nn.Module`s (the serving half of the JAX package's `models/layers.py`).
+
+Weights keep the JAX layout, (in, out), so a projection is `x @ w` and a
+JAX parameter tree converts without a transpose (`convert.dense_params_from_jax`).
+Random weights come from an explicit `torch.Generator` with the JAX
+package's std rules; the numbers differ from `jax.random`'s for the same
+seed, so the parity tests convert the JAX tree instead.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# -- init helpers -------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, device,
+               in_axis: int = -2) -> torch.Tensor:
+    """N(0, 1/fan_in) in float32, cast to `dtype`; fan_in = shape[in_axis]."""
+    std = 1.0 / np.sqrt(shape[in_axis])
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            * 0.02).to(dtype)
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# -- norms ---------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+# -- rope ----------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, rotary_pct: float = 1.0,
+               device=None) -> Tuple[torch.Tensor, int]:
+    rot_dim = int(head_dim * rotary_pct) // 2 * 2
+    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim
+    inv = 1.0 / torch.pow(theta, exps)
+    return inv, rot_dim
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_pct: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (S,) or (B, S). Rotates interleaved
+    pairs (x[2i], x[2i+1]) of the first `rot_dim` channels, as the JAX
+    package does (not the rotate-half convention)."""
+    hd = x.shape[-1]
+    inv, rot_dim = rope_freqs(hd, theta, rotary_pct, device=x.device)
+    if rot_dim == 0:
+        return x
+    ang = positions.float()[..., None] * inv      # (S, rd/2) or (B, S, rd/2)
+    if ang.ndim == 2:
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot_dim].float()
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(x.shape[:-1] + (rot_dim,))
+    return torch.cat([out.to(x.dtype), x[..., rot_dim:]], dim=-1)
+
+
+# -- mlp -----------------------------------------------------------------------
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    return (F.silu(g) * u) @ w_down
+
+
+class MLP(nn.Module):
+    """SwiGLU weights: w_gate, w_up (d, f) and w_down (f, d)."""
+
+    def __init__(self, d: int, f: int, dtype: torch.dtype, device,
+                 gen: torch.Generator):
+        super().__init__()
+        self.w_gate = param(dense_init(gen, (d, f), dtype, device))
+        self.w_up = param(dense_init(gen, (d, f), dtype, device))
+        self.w_down = param(dense_init(gen, (f, d), dtype, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+
+
+# -- attention projections -------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """The attention projections: wq (d, H·Dh), wk and wv (d, Hkv·Dh), wo
+    (H·Dh, d), and with `cfg.qkv_bias` the biases bq, bk, bv (zeros at
+    init, as in the JAX package)."""
+
+    def __init__(self, cfg, dtype: torch.dtype, device, gen: torch.Generator):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.hd
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        self.wq = param(dense_init(gen, (d, h * hd), dtype, device))
+        self.wk = param(dense_init(gen, (d, hkv * hd), dtype, device))
+        self.wv = param(dense_init(gen, (d, hkv * hd), dtype, device))
+        self.wo = param(dense_init(gen, (h * hd, d), dtype, device))
+        self.bq: Optional[nn.Parameter] = None
+        self.bk: Optional[nn.Parameter] = None
+        self.bv: Optional[nn.Parameter] = None
+        if cfg.qkv_bias:
+            self.bq = param(torch.zeros((h * hd,), dtype=dtype, device=device))
+            self.bk = param(torch.zeros((hkv * hd,), dtype=dtype, device=device))
+            self.bv = param(torch.zeros((hkv * hd,), dtype=dtype, device=device))
+
+
+def qkv(x: torch.Tensor, p: Attention, cfg) -> Tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    """(B, S, d) → q (B, S, H, Dh), k and v (B, S, Hkv, Dh)."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if p.bq is not None:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    b, s = x.shape[:2]
+    return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
+            v.reshape(b, s, hkv, hd))

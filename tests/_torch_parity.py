@@ -86,3 +86,31 @@ def assert_equal(a, b, msg=""):
 
 def assert_close(a, b, rtol, atol, msg=""):
     np.testing.assert_allclose(np_(a), np_(b), rtol=rtol, atol=atol, err_msg=msg)
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays (a JAX parameter or cache tree) as
+    {'a/b/c': numpy array}, the form `convert.dense_params_from_jax` takes."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(flatten_tree(val, path + "/"))
+        else:
+            out[path] = np_(val)
+    return out
+
+
+def to_torch_dense(params, cfg):
+    return convert.dense_params_from_jax(flatten_tree(params), cfg, CPU)
+
+
+def dense_cache_layers(cache, cfg) -> list:
+    """The JAX dense cache's per-layer {'k', 'v'} numpy arrays in layer order
+    (the port's `cache['layers']` order)."""
+    flat = flatten_tree(cache)
+    out = []
+    for prefix, g in convert.dense_layer_keys(cfg):
+        kv = {n: flat[f"{prefix}/{n}"] for n in ("k", "v")}
+        out.append({n: a if g is None else a[g] for n, a in kv.items()})
+    return out

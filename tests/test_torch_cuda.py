@@ -21,7 +21,11 @@ from repro_torch.core import lod_search as LS
 from repro_torch.core import pipeline as P
 from repro_torch.core.lod_tree import build_lod_tree
 from repro_torch.core.stereo import build_merge_sources
-from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift, vq_assign
+from repro_torch.configs import get_arch
+from repro_torch.kernels import (flash_attention, lod_cut, preprocess, rasterize,
+                                 stereo_shift, vq_assign)
+from repro_torch.models import dense
+from repro_torch.models.config import reduced
 from repro_torch.serve.lod_service import LodService
 
 pytestmark = pytest.mark.cuda
@@ -125,7 +129,8 @@ def test_session_launches_every_kernel(scene):
         assert torch.isfinite(il).all() and float(il.max()) > 0
     counts = K.launch_counts()
     assert counts == {"lod_slab_sweep": 2, "preprocess": 4, "stereo_merge": 4,
-                      "rasterize_slabs": 8, "vq_assign": 0, "lod_pair_sweep": 0}, counts
+                      "rasterize_slabs": 8, "vq_assign": 0, "lod_pair_sweep": 0,
+                      "flash_attention": 0}, counts
 
 
 @pytest.mark.parametrize("d", [9, 24, 45])
@@ -201,3 +206,74 @@ def test_fleet_pooled_matches_vmapped_and_launches(scene):
     assert torch.equal(pl, vl) and torch.equal(pr, vr) and float(pl.max()) > 0
     for f in dataclasses.fields(ps):
         assert torch.equal(getattr(ps, f.name), getattr(vs, f.name)), f.name
+
+
+# K7: every mask, both types, head dims 16..320, lengths that are not a
+# multiple of the kernel's 64-row blocks (tolerances of tests/test_kernels.py).
+# Every row sees at least one column in each case.
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d", [
+    (1, 4, 4, 64, 64, 32),
+    (2, 8, 2, 200, 200, 16),     # GQA, ragged
+    (1, 4, 1, 77, 77, 128),      # MQA, ragged
+    (1, 2, 1, 130, 130, 320),    # gemma3's head dim
+    (2, 4, 2, 50, 90, 64),       # Lq != Lk
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0), (False, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_flash_attention(dev, b, h, hkv, lq, lk, d, causal, window, dtype):
+    g = torch.Generator(device=dev).manual_seed(lq * d + window)
+    q = torch.randn((b, h, lq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dtype)
+    before = flash_attention.flash_attention.launches
+    out = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol), \
+        float((out.float() - ref.float()).abs().max())
+
+
+def test_k7_takes_strided_views_and_raises_on_what_it_cannot_take(dev):
+    """(B, S, H, D) tensors as transposed views, as models.attention passes
+    them; the output keeps q's layout."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 100, 8, 32), generator=g, device=dev)
+    k = torch.randn((2, 100, 2, 32), generator=g, device=dev)
+    v = torch.randn((2, 100, 2, 32), generator=g, device=dev)
+    out = flash_attention.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2))
+    ref = flash_attention.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                                v.transpose(1, 2))
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.allclose(out, ref, rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention(q[..., :24].transpose(1, 2),
+                                        k[..., :24].transpose(1, 2),
+                                        v[..., :24].transpose(1, 2))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(*(t.transpose(1, 2).half() for t in (q, k, v)))
+
+
+def test_dense_prefill_launches_k7_and_matches_the_cpu(dev):
+    """A reduced qwen2.5 on the card: prefill launches K7 once a layer, and
+    its logits, caches and decoded logits match the same model on the CPU."""
+    cfg = reduced(get_arch("qwen2.5-3b"))
+    model = dense.DenseLM(cfg, seed=0, device=dev)
+    cpu_model = dense.DenseLM(cfg, seed=0, device="cpu")
+    cpu_model.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 70)))
+    before = flash_attention.flash_attention.launches
+    lg, cache = dense.prefill(model, {"tokens": tok.to(dev)}, max_len=74)
+    assert flash_attention.flash_attention.launches == before + cfg.n_layers
+    lc, cache_c = dense.prefill(cpu_model, {"tokens": tok}, max_len=74)
+    assert torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for a, b in zip(cache["layers"], cache_c["layers"]):
+        assert torch.allclose(a["k"].cpu(), b["k"], rtol=1e-4, atol=1e-4)
+    t = torch.argmax(lc[:, :cfg.vocab], -1)
+    lg, cache = dense.decode_step(model, cache, {"token": t.to(dev)})
+    lc, cache_c = dense.decode_step(cpu_model, cache_c, {"token": t})
+    assert flash_attention.flash_attention.launches == before + cfg.n_layers
+    assert torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4) and cache["pos"] == 71
