@@ -8,7 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. build every CUDA kernel of the port from `src/repro_torch/kernels/csrc`;
   2. build the city scene and its LoD tree, size the session's budgets;
   3. hold K1-K4 against their plain PyTorch versions on the card, at the
-     shapes of the session's first frames, and time both;
+     shapes of the session's first frames, and time both; hold K4 also at
+     n_cat = 44 (the VR rig at tile 8) and with ranks repeated inside a
+     row, on the session's own ranks;
   4. check, on a small input, that the tiled stereo render agrees with the
      untiled per-pixel reference;
   5. run the single-client collaborative session with the compressed Δcut
@@ -45,7 +47,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
  10. hold K7 against its plain version at phase 9's prefill shape (bf16 and
      float32), a gemma3-4b local layer (head dim 320, window 1024; bf16 and
      float32) and a non-causal one, each shape taken from its config, and
-     time each beside its bound and `scaled_dot_product_attention`.
+     time each beside its bound and `scaled_dot_product_attention` (K7's
+     share of its bound, and its time over the library call's).
+The build phase prints each kernel's registers, static shared memory and
+spills from the compiler's `-Xptxas -v` lines.
 The last three lines are the kernel report (JSON), the card's name and power
 limit, and {"ok": true, "device": ...}.
 """
@@ -78,6 +83,7 @@ LM_STEPS = 32                # greedy decode steps
 LM_CHECK_LAYERS = 4          # depth of the float32 checks of phase 9
 LM_REL_TOL = 1e-4            # of the largest |logit|
 WINDOW_ARCH = "gemma3-4b"    # phase 10's sliding-window case, head dim 320
+K4_TILES = 4096              # phase 3's extra K4 cases: this many of the session's tiles
 
 
 def log(msg: str) -> None:
@@ -94,19 +100,25 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Median milliseconds of `fn` on the card (CUDA events, after a warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    """Median milliseconds of `fn` on the card: CUDA events around a run of
+    back-to-back calls (enough for about 1 ms, at most 50), after a
+    warm-up, over the count; `reps` such runs. A call shorter than the
+    host's time to issue it would otherwise be timed with the idle gap
+    before it."""
+    def run(n: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / n
+
+    fn()
+    torch.cuda.synchronize()
+    n = min(50, max(1, round(1.0 / max(run(1), 1e-3))))
+    return statistics.median(run(n) for _ in range(reps))
 
 
 def bound(bytes_moved: float, ops: float):
@@ -169,6 +181,36 @@ class StageTimer:
             self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
             return r
         return run
+
+
+def ptxas_report(text: str) -> list:
+    """One row per kernel of the build log's `-Xptxas -v` lines: a short
+    name (the kernel's identifier and its template numbers), registers,
+    static shared memory and spill bytes."""
+    import re
+    rows = []
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled, pos, ident = m.group(1), 0, m.group(1)
+            if mangled.startswith("_ZN"):   # <length><name> ... : the last name is the kernel
+                pos = 3
+                while (d := re.match(r"\d+", mangled[pos:])):
+                    n, pos = int(d.group()), pos + len(d.group())
+                    ident, pos = mangled[pos:pos + n], pos + n
+            args = re.findall(r"Li(\d+)E", mangled[pos:].split("EE", 1)[0] + "E")
+            rows.append(dict(kernel=ident + (f"<{','.join(args)}>" if args else ""),
+                             registers=None, smem=0, spill_stores=None, spill_loads=None))
+        elif rows:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                rows[-1]["spill_stores"], rows[-1]["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                rows[-1]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                rows[-1]["smem"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def rel_err(a, b) -> float:
@@ -263,7 +305,8 @@ def lm_serving(torch, dev) -> dict:
 
     prof = profiled(torch, f"one more prefill {b}x{s0}",
                     lambda: bundle.prefill(model, {"tokens": tokens}, max_len=max_len))
-    k7_ms = sum(t for name, t in prof["by_name"].items() if "flash_attention_kernel" in name)
+    k7_ms = sum(t for name, t in prof["by_name"].items()
+                if "flash_attention_wgmma" in name or "flash_attention_kernel" in name)
     out["profile"] = dict(wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
                           k7_ms=k7_ms, top=prof["top"])
     if prof["device_busy_ms"] > 0:
@@ -396,10 +439,12 @@ def k7_cases(torch, dev) -> list:
                    visible_pairs=pairs, bytes=n_bytes, ops=ops,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
         log(f"[K7] {name} {row['shape']} {row['dtype']} causal={causal} window={window}: "
-            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, sdpa {row['library_ms']:.3f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-            f"{row['bound_ms'] / row['ms']:.4f} of it), max |err| {err:.3g}")
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, sdpa {row['library_ms']:.4f} "
+            f"ms (K7 / sdpa {row['vs_library']:.3f}), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}; share {row['bound_share']:.4f}), max |err| {err:.3g}")
         rows.append(row)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
@@ -454,11 +499,12 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     b = _build.build()
     _build.library()
-    ptxas = [ln.strip() for ln in b["ptxas"].splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
     log(f"[build] {b['seconds']:.1f} s, rebuilt={b['rebuilt']} -> {b['path']}")
-    for ln in ptxas:
-        log(f"[build] {ln}")
+    report["ptxas"] = ptxas_report(b["ptxas"])
+    for k in report["ptxas"]:
+        log(f"[build] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} B static "
+            f"shared memory, {k['spill_stores']} B spill stores, {k['spill_loads']} B spill "
+            f"loads")
     report["phases"]["build_s"] = b["seconds"]
 
     # 2. scene, rigs, budgets --------------------------------------------------
@@ -586,13 +632,42 @@ def main() -> int:
         if not torch.equal(a, b_):
             raise AssertionError(f"K4: {name} differs from the plain version")
     live = int((src_r < stereo_shift.INF_RANK).sum())
+    written = int(mp[1].clamp_max(src_r.shape[-1]).sum())
     n_rt = src_r.shape[0]
+    # beyond the session's shape: the VR rig at tile 8 needs n_cat = 44 (here the
+    # session's rows and 21 of them again, with other ids: every rank tied across
+    # rows), and ranks repeated inside a row (each entry twice), on K4_TILES tiles
+    sub_r, sub_i = src_r[:K4_TILES], src_i[:K4_TILES]
+    more = max(0, 44 - rcfg.n_cat)
+    k4_cases = {
+        "n_cat 44": (torch.cat([sub_r, sub_r[:, :more]], 1).contiguous(),
+                     torch.cat([sub_i, sub_i[:, :more] + 1], 1).contiguous()),
+        "repeats in a row": (sub_r.repeat_interleave(2, -1)[..., :sub_r.shape[-1]].contiguous(),
+                             torch.arange(sub_r.numel(), device=dev, dtype=torch.int32)
+                             .reshape(sub_r.shape))}
+    k4_extra = {}
+    for name, (cr, ci) in k4_cases.items():
+        a4 = stereo_shift.stereo_merge_kernel(cr, ci)
+        p4 = stereo_shift.stereo_merge_plain(cr, ci)
+        torch.cuda.synchronize()
+        for field, a, b_ in zip(("ids", "count", "overflow"), a4, p4):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"K4 ({name}): {field} differs from the plain version")
+        k4_extra[name] = dict(shape=list(cr.shape), count_sum=int(p4[1].sum()),
+                              ms=cuda_ms(torch, lambda: stereo_shift.stereo_merge_kernel(cr, ci),
+                                         REPS))
+        log(f"[K4] {name} {list(cr.shape)}: == plain (ids, count, overflow); "
+            f"{k4_extra[name]['ms']:.4f} ms")
+    report["k4_cases"] = k4_extra
+    del k4_cases, sub_r, sub_i, cr, ci, a4, p4
     kernels["stereo_merge"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/stereo_shift.cu",
         replaces="src/repro/kernels/stereo_shift.py:57", max_abs_err=0.0,
         ms=cuda_ms(torch, lambda: stereo_shift.stereo_merge_kernel(src_r, src_i), REPS),
         plain_ms=cuda_ms(torch, lambda: stereo_shift.stereo_merge_plain(src_r, src_i), 3),
-        bytes=live * 8 + n_rt * (rcfg.n_cat * 4 + rcfg.list_len * 4 + 4 + 1),
+        # every live rank and one INF a row are read; an id only for the
+        # entries written (the first L emits of a tile)
+        bytes=live * 4 + written * 4 + n_rt * (rcfg.n_cat * 4 + rcfg.list_len * 4 + 4 + 1),
         ops=live * rcfg.n_cat)
 
     ent, counts = rasterize.gather_entries(left, sk, "left")
@@ -626,7 +701,8 @@ def main() -> int:
         log(f"[kernel] {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max |err| {k['max_abs_err']:.3g}")
     shapes = dict(slabs=[m.Ns, m.S], queue=n_q, left_tiles=n_t, right_tiles=n_rt,
-                  live_merge_entries=live, raster_entries_gathered=n_gathered,
+                  live_merge_entries=live, merge_ids_written=written,
+                  raster_entries_gathered=n_gathered,
                   raster_entries_blended=n_ent)
     log(f"[kernel] shapes {json.dumps(shapes)}")
     report["kernel_shapes"] = shapes

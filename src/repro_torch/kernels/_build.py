@@ -47,9 +47,10 @@ SIGNATURES = {
     "nebula_vq_assign_smem_bytes": [_I, _I],
     "nebula_preprocess": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "nebula_stereo_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nebula_stereo_merge_smem_bytes": [_I, _I],
     "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "nebula_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               *[_L] * 12, _I, _I, _F, _P],
+                               *[_L] * 12, _I, _I, _F, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -24,29 +24,67 @@
 // body would average the values it read.
 //
 // What bounds it on the H100: operations, 4 D per visible (row, col) pair.
-// The card's bound is the bf16 tensor-core rate; this kernel runs on the
-// float32 FMA units and is far from it (PERF.md has the ratio).
+// Two kernels, chosen by type:
 //
-// Design (right and simple first; wgmma, TMA and a warp-specialised
-// pipeline are later work): one block of 256 threads per (q block of 64
-// rows, head, batch). The scaled Q block and one K or V tile of 64 rows
-// live in shared memory as float32, rows padded to D + 1 words so that the
-// 16 rows a warp reads at once fall in 16 banks; the probabilities of the
-// tile go through shared memory too. Thread (ty, tx) of a 16 x 16 grid owns
-// rows 4 ty .. 4 ty + 3 of the block: it computes their scores against
-// columns tx + 16 j (j < 4) and accumulates their outputs in columns
-// tx + 16 j (j < D / 16) in registers. Row max and row sum are shuffles
-// over the 16 lanes that share a row. The running (m, l, acc) is float32 in
-// registers. Shared memory: (128 (D + 1) + 64 * 65) floats, 83 KB at
-// D = 128 and 181 KB at D = 320. Q blocks go from the last to the first,
-// so that the causal blocks with the most kv blocks start first.
+// bfloat16 — flash_attention_wgmma, on the tensor cores. bf16 operands with
+// a float32 sum are exactly what wgmma computes, so the rounding points
+// above hold. One block per (q block, head, batch): NWG consumer warpgroups
+// of 64 q rows each and one producer warpgroup. The producer's first thread
+// loads the Q block once and then a ring of two K/V stages by TMA (4-D
+// tensor maps over (D, L, head, batch) built on the host from the strides
+// it is given, 128-byte swizzle, boxes of 64 columns); each stage has its
+// own K-full, V-full and empty mbarriers, so Q K^T of a tile starts before
+// its V has arrived and the next tile's loads overlap this tile's math.
+// Rows past L and head-dim columns past D arrive as TMA's zero fill: the
+// padded Q/K columns add 0 to every score and the padded V columns are
+// never stored. Each consumer warpgroup scales its 64 Q rows in shared
+// memory once (rounded to bf16), fences the async proxy, then per kv tile:
+// S = Q K^T by wgmma (A and B from shared memory, both K-major), the mask
+// only on the tiles the host's plan marks as partial, the online softmax
+// in registers (row max and sum over the 4 lanes that share a row; expf of
+// s - m as the plain version takes it), P rounded to bf16 in registers and
+// fed back as wgmma's register A operand, O += P V with V as the MN-major B
+// operand (split over N in pieces of at most 256 columns). With two
+// consumer warpgroups setmaxnreg gives them 232 registers and the producer
+// 40; built that way D_pad 256 spilled (ptxas -v), so 256 and 320 run one
+// consumer warpgroup (up to 255 registers). The head dim is padded to D_pad
+// in {64, 128, 192, 256, 320}:
+//   D_pad   q block   kv tile   shared memory
+//   64      128       128       80 KB
+//   128     128       128       160 KB
+//   192     128       64        144 KB
+//   256     64        64        160 KB (one consumer warpgroup)
+//   320     64        64        200 KB (one consumer warpgroup)
+// The host (kernels/flash_attention.py) chooses D_pad and the blocks, and
+// hands over the plan: for each q block, in launch order (longest first),
+// its first and last kv tile and the tiles that need no mask. TMA needs
+// 16-byte aligned bases and strides; the host checks them and the entry
+// point refuses anything else.
+//
+// float32 — flash_attention_kernel, on the FMA units: on the tensor cores
+// float32 would run as TF32 and break the 2e-5 contract. One block of 256
+// threads per (q block of 64 rows, head, batch). The scaled Q block and one
+// K or V tile of 64 rows live in shared memory as float32, rows padded to
+// D + 1 words so that the 16 rows a warp reads at once fall in 16 banks;
+// the probabilities of the tile go through shared memory too. Thread (ty,
+// tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3 of the block: it
+// computes their scores against columns tx + 16 j (j < 4) and accumulates
+// their outputs in columns tx + 16 j (j < D / 16) in registers. Row max and
+// row sum are shuffles over the 16 lanes that share a row. Shared memory:
+// (128 (D + 1) + 64 * 65) floats, 83 KB at D = 128 and 181 KB at D = 320.
+// Q blocks go from the last to the first, so that the causal blocks with
+// the most kv blocks start first.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from
+                   // cudaGetDriverEntryPoint, so the library needs no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// ---- float32: scalar FMA kernel --------------------------------------------
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -57,41 +95,24 @@ constexpr int kLdP = kBlockK + 1;
 constexpr int kMaxD = 320;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// x rounded to T and back: the Pallas body's casts to the input type
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
 struct Strides {
   long long b, h, l;  // in elements; the last axis is contiguous
 };
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long sl,
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sl,
                                           int r0, int n_valid, int D, int ld) {
   for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    dst[r * ld + d] = r0 + r < n_valid ? to_f(src[(r0 + r) * sl + d]) : 0.f;
+    dst[r * ld + d] = r0 + r < n_valid ? src[(r0 + r) * sl + d] : 0.f;
   }
 }
 
 // NJ >= D / 16: the output columns a thread owns, fixed at compile time so
 // that the accumulator stays in registers.
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int group,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int group,
                        int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
                        Strides os, int causal, int window, float scale) {
   extern __shared__ float smem[];
@@ -104,15 +125,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
   const int q0 = qb * kBlockQ;
   const int nj = D / 16;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + hk * ks.h;
-  const T* vp = v + b * vs.b + hk * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + hk * ks.h;
+  const float* vp = v + b * vs.b + hk * vs.h;
+  float* op = o + b * os.b + h * os.h;
 
   for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     const int row = q0 + r;
-    s_q[r * ld + d] = row < Lq ? round_to<T>(to_f(qp[row * qs.l + d]) * scale) : 0.f;
+    s_q[r * ld + d] = row < Lq ? qp[row * qs.l + d] * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][NJ];
@@ -177,7 +198,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kCols; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
-        s_p[(ty * kRows + i) * kLdP + tx + 16 * j] = round_to<T>(p);
+        s_p[(ty * kRows + i) * kLdP + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -212,7 +233,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (j < nj) op[row * os.l + tx + 16 * j] = from_f<T>(acc[i][j] / den);
+      if (j < nj) op[row * os.l + tx + 16 * j] = acc[i][j] / den;
   }
 }
 
@@ -220,62 +241,657 @@ int smem_bytes(int D) {
   return ((kBlockQ + kBlockK) * (D + 1) + kBlockQ * kLdP) * static_cast<int>(sizeof(float));
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
            Strides os, int causal, int window, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(D);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, NJ>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H / Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window, scale);
+  flash_attention_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / Hkv, Lq, Lk, D, qs, ks,
+      vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
              int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
              Strides os, int causal, int window, float scale, cudaStream_t stream) {
   const int nj = D / 16;
   if (nj <= 2)
-    return launch<T, 2>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
-                        window, scale, stream);
+    return launch<2>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+                     scale, stream);
   if (nj <= 4)
-    return launch<T, 4>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
-                        window, scale, stream);
+    return launch<4>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+                     scale, stream);
   if (nj <= 8)
-    return launch<T, 8>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
-                        window, scale, stream);
-  return launch<T, kMaxD / 16>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os,
-                               causal, window, scale, stream);
+    return launch<8>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+                     scale, stream);
+  return launch<kMaxD / 16>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
+                            window, scale, stream);
 }
+
+
+// ---- bfloat16: wgmma + TMA kernel ------------------------------------------
+
+namespace tc {
+
+constexpr int kWarpgroup = 128;
+constexpr int kBox = 64;       // columns of one TMA box: 128 bytes, the swizzle span
+constexpr int kRowBytes = 128;
+constexpr int kStages = 2;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// D_pad -> kv tile rows and consumer warpgroups (64 q rows each)
+template <int DP>
+struct Shape;
+template <>
+struct Shape<64> { static constexpr int BN = 128, NWG = 2; };
+template <>
+struct Shape<128> { static constexpr int BN = 128, NWG = 2; };
+template <>
+struct Shape<192> { static constexpr int BN = 64, NWG = 2; };
+template <>
+struct Shape<256> { static constexpr int BN = 64, NWG = 1; };
+template <>
+struct Shape<320> { static constexpr int BN = 64, NWG = 1; };
+
+template <int DP>
+struct Layout {
+  static constexpr int BN = Shape<DP>::BN, NWG = Shape<DP>::NWG, BM = 64 * NWG;
+  static constexpr int NBOX = DP / kBox;
+  static constexpr int Q_BYTES = BM * DP * 2;   // NBOX boxes of BM rows x 128 bytes
+  static constexpr int KV_BYTES = BN * DP * 2;  // NBOX boxes of BN rows x 128 bytes
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + Q_BYTES;
+  static constexpr int V_OFF = K_OFF + kStages * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 64 + 1024;  // barriers; slack to align to 1024
+  static constexpr int THREADS = kWarpgroup * (NWG + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Returns once the phase of parity `parity` has completed. A wait of more
+// than two seconds (a load that never lands) traps, so that a fault shows
+// as a launch error rather than a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties the accumulator registers to this point, so that no read of them
+// moves above a wgmma wait and no write below a wgmma issue.
+template <int N>
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (64 x N) = A (64 x 16, shared, K-major) . B (N x 16, shared, K-major)^T,
+// accumulated onto S unless acc == 0. Accumulator layout (m64nNk16, f32):
+// warp w, lane (g = lane / 4, c = lane % 4) holds rows 16 w + g (+ 8) and
+// columns 8 j + 2 c (+ 1) in d[4 j + {0, 1}] (and d[4 j + {2, 3}] for + 8).
+template <int N>
+struct WgmmaSS;
+// O (64 x N) += A (64 x 16, registers: 4 packed bf16 pairs) . B (16 x N,
+// shared, MN-major)
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %32, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %33, %34, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(acc), "l"(da), "l"(db));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %64, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %65, %66, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(acc), "l"(da), "l"(db));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<192> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<256> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(Layout<DP>::THREADS, 1)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                      Strides os, const int* __restrict__ plan, int group, int Lq, int Lk,
+                      int D, int causal, int window, float scale) {
+  using Lt = Layout<DP>;
+  constexpr int BN = Lt::BN, BM = Lt::BM, NWG = Lt::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;  // swizzle atoms are 1024 bytes
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t s_q = raw + pad + Lt::Q_OFF;
+  const uint32_t s_k = raw + pad + Lt::K_OFF;
+  const uint32_t s_v = raw + pad + Lt::V_OFF;
+  const uint32_t bar = raw + pad + Lt::BAR_OFF;
+  const uint32_t q_full = bar;
+  auto k_full = [&](int s) { return bar + 8 + 8 * s; };
+  auto v_full = [&](int s) { return bar + 8 + 8 * kStages + 8 * s; };
+  auto empty = [&](int s) { return bar + 8 + 16 * kStages + 8 * s; };
+
+  // plan row: q block, first and end kv tile, first and end tile without a mask
+  const int* pr = plan + 5 * blockIdx.z;
+  const int qb = pr[0], kb0 = pr[1], kb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int q0 = qb * BM;
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer: one thread issues every load ----
+    if constexpr (NWG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == NWG * kWarpgroup) {
+      mbar_expect_tx(q_full, Lt::Q_BYTES);
+      for (int c = 0; c < Lt::NBOX; ++c)
+        tma_load(s_q + c * BM * kRowBytes, &tq, q_full, c * kBox, q0, h, b);
+      for (int kb = kb0, i = 0; kb < kb1; ++kb, ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(empty(s), (i / kStages - 1) & 1);
+        mbar_expect_tx(k_full(s), Lt::KV_BYTES);
+        for (int c = 0; c < Lt::NBOX; ++c)
+          tma_load(s_k + s * Lt::KV_BYTES + c * BN * kRowBytes, &tk, k_full(s), c * kBox,
+                   kb * BN, hk, b);
+        mbar_expect_tx(v_full(s), Lt::KV_BYTES);
+        for (int c = 0; c < Lt::NBOX; ++c)
+          tma_load(s_v + s * Lt::KV_BYTES + c * BN * kRowBytes, &tv, v_full(s), c * kBox,
+                   kb * BN, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    if constexpr (NWG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t = threadIdx.x - wg * kWarpgroup;
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, c4 = lane & 3;
+    const int row0 = q0 + wg * 64 + warp * 16 + g;  // and row0 + 8
+
+    // q * scale, rounded to bf16, in place: this warpgroup's 64 rows of every box
+    mbar_wait(q_full, 0);
+#pragma unroll
+    for (int c = 0; c < Lt::NBOX; ++c) {
+      uint4* p = reinterpret_cast<uint4*>(smem + Lt::Q_OFF + (c * BM + wg * 64) * kRowBytes);
+#pragma unroll
+      for (int i = t; i < 64 * kRowBytes / 16; i += kWarpgroup) {
+        uint4 u = p[i];
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(e[j]);
+          e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
+        p[i] = u;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, %1;\n" ::"r"(wg + 1), "n"(kWarpgroup) : "memory");
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's partial sums
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    uint32_t pk[BN / 4];
+
+    for (int kb = kb0, i = 0; kb < kb1; ++kb, ++i) {
+      const int st = i % kStages, ph = (i / kStages) & 1;
+      const uint32_t ks = s_k + st * Lt::KV_BYTES, vs = s_v + st * Lt::KV_BYTES;
+
+      mbar_wait(k_full(st), ph);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < DP / 16; ++kc) {
+        const uint32_t within = (kc % 4) * 32;  // 16 columns = 32 bytes into the box
+        const uint64_t da =
+            sw128_desc(s_q + ((kc / 4) * BM + wg * 64) * kRowBytes + within, 16,
+                       8 * kRowBytes);
+        const uint64_t db = sw128_desc(ks + (kc / 4) * BN * kRowBytes + within, 16,
+                                       8 * kRowBytes);
+        WgmmaSS<BN>::run(s, da, db, kc > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      reg_fence<BN / 2>(s);
+
+      if (kb < fb0 || kb >= fb1) {  // a partial tile: mask it
+        const int c0 = kb * BN;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + (e >> 1) * 8;
+            const int col = c0 + 8 * j + 2 * c4 + (e & 1);
+            bool ok = col < Lk;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && col > row - window;
+            if (!ok) s[4 * j + e] = kNegInf;
+          }
+      }
+
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[r] = expf(m[r] - mx);
+        m[r] = mx;
+      }
+      // exp(s - m), as the plain version computes it (not exp2 of a
+      // rescaled difference: p is rounded to bf16 next, and every extra
+      // rounding here moves some p across a bf16 rounding boundary)
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p0 = expf(s[4 * j + 0] - m[0]);
+        const float p1 = expf(s[4 * j + 1] - m[0]);
+        const float p2 = expf(s[4 * j + 2] - m[1]);
+        const float p3 = expf(s[4 * j + 3] - m[1]);
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pk[2 * j] = pack_bf16(p0, p1);
+        pk[2 * j + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j + 0] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+
+      mbar_wait(v_full(st), ph);
+      reg_fence<DP / 2>(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        // rows 16 kk .. 16 kk + 15 of V: two 8-row groups of 1024 bytes;
+        // the next 64 columns are the next box (leading byte offset)
+        const uint32_t rows = kk * 16 * kRowBytes;
+        constexpr int N0 = DP > 256 ? 256 : DP;
+        WgmmaRS<N0>::run(acc, &pk[4 * kk],
+                         sw128_desc(vs + rows, BN * kRowBytes, 8 * kRowBytes));
+        if constexpr (DP > 256)
+          WgmmaRS<DP - 256>::run(acc + 128, &pk[4 * kk],
+                                 sw128_desc(vs + 4 * BN * kRowBytes + rows, BN * kRowBytes,
+                                            8 * kRowBytes));
+      }
+      wg_commit();
+      wg_wait_all();
+      reg_fence<DP / 2>(acc);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    __nv_bfloat16* op = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Lq) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = op + row * os.l;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * c4;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (D, L, head, batch) of a bf16 tensor with element strides s, boxes of 64
+// columns x `rows` rows, 128-byte swizzle, zero fill out of bounds.
+bool encode(CUtensorMap* map, const void* ptr, int D, int L, int H, int B, Strides s,
+            int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.l) * 2,
+                                 static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), static_cast<cuuint32_t>(rows), 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool tma_ready(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.l * 2) % 16 == 0 &&
+         (s.h * 2) % 16 == 0 && (s.b * 2) % 16 == 0 && s.l > 0 && s.h >= 0 && s.b >= 0;
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+           int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
+           const int* plan, int n_plan, int block_q, int block_k, int causal, int window,
+           float scale, cudaStream_t stream) {
+  using Lt = Layout<DP>;
+  if (block_q != Lt::BM || block_k != Lt::BN || n_plan != (Lq + Lt::BM - 1) / Lt::BM ||
+      n_plan > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!encode(&mq, q, D, Lq, H, B, qs, Lt::BM) || !encode(&mk, k, D, Lk, Hkv, B, ks, Lt::BN) ||
+      !encode(&mv, v, D, Lk, Hkv, B, vs, Lt::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static uint64_t smem_set = 0;  // devices this instantiation was set up on
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= 64 || !(smem_set >> device & 1)) {
+    e = cudaFuncSetAttribute(flash_attention_wgmma<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (device < 64) smem_set |= 1ull << device;
+  }
+  const dim3 grid(H, B, n_plan);  // every head's longest q blocks first
+  flash_attention_wgmma<DP><<<grid, Lt::THREADS, Lt::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, plan, H / Hkv, Lq, Lk, D, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+             int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
+             const int* plan, int n_plan, int d_pad, int block_q, int block_k, int causal,
+             int window, float scale, cudaStream_t stream) {
+  if (!tma_ready(q, qs) || !tma_ready(k, ks) || !tma_ready(v, vs) ||
+      reinterpret_cast<uintptr_t>(o) % 4 != 0 || os.l % 2 != 0 || os.h % 2 != 0 ||
+      os.b % 2 != 0 || plan == nullptr || d_pad < D || d_pad - D >= 64 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define NEBULA_FA_TC(DP)                                                                      \
+  if (d_pad == DP)                                                                            \
+    return launch<DP>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, plan, n_plan, block_q, \
+                      block_k, causal, window, scale, stream);
+  NEBULA_FA_TC(64)
+  NEBULA_FA_TC(128)
+  NEBULA_FA_TC(192)
+  NEBULA_FA_TC(256)
+  NEBULA_FA_TC(320)
+#undef NEBULA_FA_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). Strides in elements,
 // (batch, head, row) for each tensor; the head-dim axis is contiguous.
 // D must be a multiple of 16 in [16, 320], and H a multiple of Hkv.
+// bfloat16 only: plan (device int32, n_plan rows of five: q block, first
+// and end kv tile, first and end tile without a mask, in launch order),
+// the padded head dim and the q and kv block rows, all from
+// kernels/flash_attention.py; the float32 kernel ignores them.
 extern "C" int nebula_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
     int Hkv, int Lq, int Lk, int D, long long qsb, long long qsh, long long qsl,
     long long ksb, long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, int causal,
-    int window, float scale, void* stream) {
+    int window, float scale, const void* plan, int n_plan, int d_pad, int block_q,
+    int block_k, void* stream) {
   if (D < 16 || D > kMaxD || D % 16 != 0 || B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
       Lq < 1 || Lk < 1 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl}, os{osb, osh, osl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
-                           window, scale, s);
+    return dispatch(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+                    scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os,
-                                   causal, window, scale, s);
+    return tc::dispatch(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os,
+                        static_cast<const int*>(plan), n_plan, d_pad, block_q, block_k,
+                        causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,10 +15,22 @@ Layout: q (B, H, Lq, D), k and v (B, Hkv, Lk, D) with H % Hkv == 0; head h
 reads kv head h // (H / Hkv). The kernel takes any strides with a
 contiguous last axis, so `models.attention` hands it (B, S, H, D) tensors
 as transposed views, and the output has q's layout.
+
+bfloat16 runs on the tensor cores (wgmma, fed by TMA), float32 on the FMA
+units (csrc/flash_attention.cu says why). The host decides what the
+bf16 kernel is given, in plain functions the CPU tests reach:
+`padded_head_dim` and `tc_blocks` (the head dim the kernel is built for
+and its q-block and kv-tile rows), `kv_tile_plan` (the kv tiles each q
+block visits, the ones among them that need no mask, and the launch
+order) and `check_tma_layout` (the 16-byte alignment TMA needs; nothing is
+copied to meet it).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +40,76 @@ _NEG_INF = -1e30
 MAX_HEAD_DIM = 320
 BLOCK_K = 128          # the Pallas kernel's kv block, which the plain version keeps
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel's padded head dims → (q block rows, kv tile rows): two
+# consumer warpgroups of 64 rows where registers and shared memory allow
+_TC_BLOCKS = {64: (128, 128), 128: (128, 128), 192: (128, 64), 256: (64, 64),
+              320: (64, 64)}
+TMA_ALIGN = 16           # bytes: base addresses and strides of TMA's tensors
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the bf16 kernel is built for that holds `d`: the
+    next of 64, 128, 192, 256, 320. TMA fills the padding with zeros."""
+    for d_pad in sorted(_TC_BLOCKS):
+        if d <= d_pad:
+            return d_pad
+    raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+
+
+def tc_blocks(d: int) -> tuple:
+    """(q block rows, kv tile rows) of the bf16 kernel at head dim `d`."""
+    return _TC_BLOCKS[padded_head_dim(d)]
+
+
+def kv_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
+                 window: int) -> np.ndarray:
+    """One int32 row per q block, in launch order: (q block, first kv tile,
+    end kv tile, first tile without a mask, end tile without a mask).
+
+    A q block visits the tiles [first, end) that hold a column visible to
+    one of its rows < lq; a tile in [first unmasked, end unmasked) is
+    visible to every such row at every column, so the kernel skips the
+    mask there. Blocks go longest first (stable), so the causal blocks
+    with the most tiles start first."""
+    n_qb, n_kb = -(-lq // block_q), -(-lk // block_k)
+    rows = []
+    for qb in range(n_qb):
+        r0, r1 = qb * block_q, min((qb + 1) * block_q, lq) - 1
+        # the columns visible to some row r0 .. r1: one interval
+        lo = max(0, r0 - window + 1) if window > 0 else 0
+        hi = min(lk - 1, r1) if causal else lk - 1
+        if lo > hi:
+            rows.append((qb, 0, 0, 0, 0))
+            continue
+        first, end = lo // block_k, hi // block_k + 1
+        # every column of the tile is < lk and visible to rows r0 .. r1
+        full_end = min(end, lk // block_k, (r0 + 1) // block_k if causal else n_kb)
+        full_first = first
+        if window > 0:
+            full_first = max(first, -(-max(0, r1 - window + 1) // block_k))
+        rows.append((qb, first, end, full_first, max(full_end, full_first)))
+    rows.sort(key=lambda r: r[1] - r[2])         # longest first; sort is stable
+    return np.asarray(rows, dtype=np.int32).reshape(n_qb, 5)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(lq, lk, block_q, block_k, causal, window, device) -> torch.Tensor:
+    plan = kv_tile_plan(lq, lk, block_q, block_k, causal, window)
+    return torch.from_numpy(plan).to(device)
+
+
+def check_tma_layout(name: str, t: torch.Tensor) -> None:
+    """Raise unless TMA can read `t` (B, H, L, D) as it lies: a 16-byte
+    aligned base and (batch, head, row) strides that are multiples of 16
+    bytes. Nothing is copied to meet this."""
+    es = t.element_size()
+    bad = [f"base address {t.data_ptr()}"] if t.data_ptr() % TMA_ALIGN else []
+    bad += [f"{axis} stride {st * es} B" for axis, st in zip(("batch", "head", "row"),
+                                                             t.stride()[:3])
+            if (st * es) % TMA_ALIGN]
+    if bad:
+        raise ValueError(f"flash_attention: the bf16 kernel reads {name} by TMA, which "
+                         f"needs {TMA_ALIGN}-byte alignment: {', '.join(bad)}")
 
 
 def _scale(d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -114,13 +196,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    plan_ptr, n_plan, d_pad, block_q, block_k = None, 0, 0, 0, 0
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, t)
+        d_pad = padded_head_dim(d)
+        block_q, block_k = tc_blocks(d)
+        plan = _device_plan(lq, lk, block_q, block_k, bool(causal), int(window), dev)
+        plan_ptr, n_plan = plan.data_ptr(), plan.shape[0]
     st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = _build.library()
     p = _build.ptr
     err = lib.nebula_flash_attention(
         p(q), p(k), p(v), p(out), _DTYPE_CODE[q.dtype], b, h, hkv, lq, lk, d, *st,
-        int(bool(causal)), int(window), float(_scale(d, q.dtype)),
-        _build.stream_handle(dev))
+        int(bool(causal)), int(window), float(_scale(d, q.dtype)), plan_ptr, n_plan,
+        d_pad, block_q, block_k, _build.stream_handle(dev))
     _build.check(err, "nebula_flash_attention")
     flash_attention.launches += 1
     return out

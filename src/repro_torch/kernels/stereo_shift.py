@@ -1,7 +1,8 @@
 """K4 — the SRU line-buffer k-way merge (paper §5) on Hopper.
 
-`stereo_merge_kernel` launches `csrc/stereo_shift.cu` (one warp per right-eye
-tile, one merge head per lane) for CUDA tensors and runs
+`stereo_merge_kernel` launches `csrc/stereo_shift.cu` (one block per right-eye
+tile: the tile's rows staged in shared memory, pairwise merge-path rounds,
+a block-wide scan for the emits) for CUDA tensors and runs
 `stereo_merge_plain` for CPU tensors. Inputs are the n_cat rank-sorted,
 INF_RANK-padded source rows of every right tile (`core.stereo.
 build_merge_sources`); the merge repeatedly takes the smallest head rank
@@ -17,7 +18,8 @@ import torch
 from repro_torch.kernels import _build
 
 INF_RANK = 2**30
-MAX_ROWS = 32  # one warp holds every head
+MAX_SMEM_BYTES = 232448  # a block's shared memory on the H100 (a tile takes
+                         # 12·n_cat·L bytes, so n_cat·L also fits 16-bit indices)
 
 
 def stereo_merge_plain(src_ranks: torch.Tensor, src_ids: torch.Tensor):
@@ -57,14 +59,17 @@ def stereo_merge_kernel(src_ranks: torch.Tensor, src_ids: torch.Tensor):
                              f"{tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"stereo_merge_kernel: {name} must be contiguous")
-    if n_cat > MAX_ROWS:
-        raise ValueError(f"stereo_merge_kernel: {n_cat} source rows exceed the "
-                         f"{MAX_ROWS} heads of one warp")
+    if n_cat < 1 or l_len < 1:
+        raise ValueError(f"stereo_merge_kernel: empty source rows ({n_cat} x {l_len})")
+    lib = _build.library()
+    smem = lib.nebula_stereo_merge_smem_bytes(n_cat, l_len)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"stereo_merge_kernel: {n_cat} rows of {l_len} need {smem} B of "
+                         f"shared memory, more than the {MAX_SMEM_BYTES} B a block has")
     out = torch.empty((n_tiles, l_len), dtype=torch.int32, device=dev)
     count = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     overflow = torch.empty((n_tiles,), dtype=torch.bool, device=dev)
     if n_tiles > 0:
-        lib = _build.library()
         p = _build.ptr
         err = lib.nebula_stereo_merge(p(src_ranks), p(src_ids), p(out), p(count),
                                       p(overflow), n_tiles, n_cat, l_len,

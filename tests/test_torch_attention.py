@@ -112,6 +112,92 @@ def test_flash_wrapper_runs_the_plain_version_on_the_cpu():
         fa.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"))
 
 
+# -- the bf16 kernel's host-side plan -------------------------------------------------
+
+
+@pytest.mark.parametrize("d,d_pad", [(16, 64), (64, 64), (80, 128), (128, 128),
+                                     (144, 192), (192, 192), (256, 256), (272, 320),
+                                     (320, 320)])
+def test_padded_head_dim(d, d_pad):
+    assert fa.padded_head_dim(d) == d_pad
+    bq, bk = fa.tc_blocks(d)
+    assert bq in (64, 128) and bk in (64, 128)
+
+
+def test_padded_head_dim_refuses_past_320():
+    with pytest.raises(ValueError, match="head dim 336"):
+        fa.padded_head_dim(336)
+
+
+def _visible(lq, lk, causal, window):
+    row, col = np.arange(lq)[:, None], np.arange(lk)[None, :]
+    vis = np.ones((lq, lk), bool)
+    if causal:
+        vis &= col <= row
+    if window > 0:
+        vis &= col > row - window
+    return vis
+
+
+@pytest.mark.parametrize("lq,lk", [(1, 1), (65, 65), (200, 200), (2049, 2049), (65, 200),
+                                   (300, 130)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (True, 1024), (False, 0),
+                                           (False, 24)])
+@pytest.mark.parametrize("block_q,block_k", [(128, 128), (128, 64), (64, 64)])
+def test_kv_tile_plan_matches_the_dense_mask(lq, lk, causal, window, block_q, block_k):
+    """Every q block visits exactly the kv tiles from its first to its last
+    visible one; the tiles it runs unmasked are visible to each of its rows
+    at every column; blocks go longest first."""
+    vis = _visible(lq, lk, causal, window)
+    plan = fa.kv_tile_plan(lq, lk, block_q, block_k, causal, window)
+    n_qb, n_kb = -(-lq // block_q), -(-lk // block_k)
+    assert plan.dtype == np.int32 and plan.shape == (n_qb, 5)
+    assert sorted(plan[:, 0].tolist()) == list(range(n_qb))
+    lengths = plan[:, 2] - plan[:, 1]
+    assert (np.diff(lengths) <= 0).all()
+    for qb, first, end, full_first, full_end in plan.tolist():
+        rows = vis[qb * block_q:(qb + 1) * block_q]
+        seen = [rows[:, kb * block_k:(kb + 1) * block_k].any() for kb in range(n_kb)]
+        hit = [kb for kb in range(n_kb) if seen[kb]]
+        assert (first, end) == ((hit[0], hit[-1] + 1) if hit else (first, first))
+        for kb in range(first, end):
+            cols = rows[:, kb * block_k:(kb + 1) * block_k]
+            full = cols.shape[1] == block_k and cols.all()
+            assert (full_first <= kb < full_end) == full, (qb, kb)
+
+
+def test_check_tma_layout():
+    """The bf16 kernel reads q, k and v by TMA as they lie: 16-byte aligned
+    bases and strides pass, anything else raises with what is wrong."""
+    x = torch.zeros((2, 100, 8, 32), dtype=torch.bfloat16)
+    fa.check_tma_layout("q", x.transpose(1, 2))
+    with pytest.raises(ValueError, match="head stride 72 B"):
+        fa.check_tma_layout("q", torch.zeros((2, 100, 8, 36),
+                                             dtype=torch.bfloat16)[..., :32].transpose(1, 2))
+    with pytest.raises(ValueError, match="base address"):
+        fa.check_tma_layout("k", torch.zeros(x.numel() + 8, dtype=torch.bfloat16)[1:1 + x.numel()]
+                            .view(x.shape))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b", "stablelm-1.6b",
+                                  "mistral-large-123b"])
+def test_model_views_meet_the_tma_layout(arch):
+    """The views the dense model hands K7 (separately projected q, k, v after
+    RoPE, seen as (B, H, L, D)) meet the bf16 kernel's alignment."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dense
+    from repro_torch.models.config import reduced
+    full = get_arch(arch)
+    cfg = reduced(full, head_dim=full.hd, dtype="bfloat16", n_layers=1)
+    model = dense.DenseLM(cfg, seed=0, device="cpu")
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    q, k, v = model.layers[0].qkv_rope(x.bfloat16(), torch.arange(40))
+    assert q.shape[-1] == full.hd
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        fa.check_tma_layout(name, t.transpose(1, 2))
+        assert fa.padded_head_dim(t.shape[-1]) >= t.shape[-1]
+
+
 # -- the port's attention against the JAX chunked attention -------------------------
 
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _merge_cases import merge_sources
 from _torch_parity import assert_close, assert_equal, to_torch_splats, to_torch_tile_lists
 
 from repro.core import binning as jbin
@@ -102,6 +103,27 @@ def test_stereo_merge_exact(n, seed, list_len):
     assert_equal(count, r_count)
     if list_len == 12:
         assert bool(ovf.any())  # the narrow list really overflows
+
+
+@pytest.mark.parametrize("n_cat,l_len", [(44, 16), (44, 7), (23, 7), (33, 1), (1, 7)])
+def test_stereo_merge_adversarial_sources(n_cat, l_len):
+    """The plain merge against the Pallas kernel (interpret mode) and
+    `kref.ref_stereo_merge` on numpy-seeded sources: n_cat up to 44 (the VR
+    rig at tile 8), ranks tied across rows and repeated inside a row,
+    all-INF tiles, and counts below, at and above L."""
+    r, i = merge_sources(n_cat * 100 + l_len, n_cat, l_len)
+    out, count, ovf = tshift.stereo_merge_plain(torch.from_numpy(r), torch.from_numpy(i))
+    p_out, p_count, p_ovf = stereo_merge_pallas(r, i)
+    assert_equal(out, p_out)
+    assert_equal(count, p_count)
+    assert_equal(ovf, p_ovf)
+    r_out, r_count = kref.ref_stereo_merge(r, i)
+    assert_equal(out, r_out)
+    assert_equal(count, r_count)
+    counts = count.tolist()
+    assert counts[:2] == [0, 1]
+    if n_cat * l_len > l_len + 1:
+        assert {l_len - 1, l_len, l_len + 1} <= set(counts) and bool(ovf.any())
 
 
 def test_n_categories_and_stats():

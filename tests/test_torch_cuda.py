@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _merge_cases import merge_sources
 from repro_torch import kernels as K
 from repro_torch import render as R
 from repro_torch.core import camera as C
@@ -89,14 +90,25 @@ def _plan(tree, rig):
     return R.build_plan(q, rig, cfg), cfg
 
 
-def test_k4_stereo_merge(scene):
-    tree, rig = scene
-    plan, cfg = _plan(tree, rig)
-    src_r, src_i = build_merge_sources(plan.left, plan.splats, plan.ranks, tile=cfg.tile,
-                                       width=cfg.width, n_cat=cfg.n_cat)
+# K4: the session's own sources, and adversarial ones (ties across rows,
+# repeats inside a row, all-INF tiles, count < L, = L, > L) at every n_cat
+# the rigs give up to the VR rig at tile 8 (44)
+@pytest.mark.parametrize("case", ["scene"] + [(n_cat, l_len) for n_cat in (1, 23, 33, 44)
+                                              for l_len in (1, 7, 256)])
+def test_k4_stereo_merge(dev, scene, case):
+    if case == "scene":
+        tree, rig = scene
+        plan, cfg = _plan(tree, rig)
+        src_r, src_i = build_merge_sources(plan.left, plan.splats, plan.ranks,
+                                           tile=cfg.tile, width=cfg.width, n_cat=cfg.n_cat)
+    else:
+        r, i = merge_sources(case[0] * 1000 + case[1], *case)
+        src_r, src_i = torch.from_numpy(r).to(dev), torch.from_numpy(i).to(dev)
+    before = stereo_shift.stereo_merge_kernel.launches
     k = stereo_shift.stereo_merge_kernel(src_r, src_i)
     p = stereo_shift.stereo_merge_plain(src_r, src_i)
     torch.cuda.synchronize()
+    assert stereo_shift.stereo_merge_kernel.launches == before + 1
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert int(k[1].sum()) > 0
@@ -208,15 +220,22 @@ def test_fleet_pooled_matches_vmapped_and_launches(scene):
         assert torch.equal(getattr(ps, f.name), getattr(vs, f.name)), f.name
 
 
-# K7: every mask, both types, head dims 16..320, lengths that are not a
-# multiple of the kernel's 64-row blocks (tolerances of tests/test_kernels.py).
-# Every row sees at least one column in each case.
+# K7: every mask, both types, every padded head dim of the bf16 kernel
+# (D 16..320), lengths that are not a multiple of the kernels' blocks,
+# GQA groups 1, 2 and 8 (tolerances of tests/test_kernels.py). Every row
+# sees at least one column in each case.
 @pytest.mark.parametrize("b,h,hkv,lq,lk,d", [
     (1, 4, 4, 64, 64, 32),
     (2, 8, 2, 200, 200, 16),     # GQA, ragged
     (1, 4, 1, 77, 77, 128),      # MQA, ragged
     (1, 2, 1, 130, 130, 320),    # gemma3's head dim
     (2, 4, 2, 50, 90, 64),       # Lq != Lk
+    (1, 8, 1, 1, 1, 64),         # one row, group 8
+    (1, 2, 2, 65, 65, 80),       # D padded to 128, group 1
+    (1, 4, 2, 2049, 2049, 128),  # qwen2.5's head dim, one row past 2048
+    (1, 8, 1, 200, 200, 192),
+    (2, 2, 1, 65, 65, 256),
+    (1, 8, 4, 65, 200, 128),     # Lq != Lk, 2 tiles of kv past the last row
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0), (False, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,23 +257,35 @@ def test_k7_flash_attention(dev, b, h, hkv, lq, lk, d, causal, window, dtype):
 
 def test_k7_takes_strided_views_and_raises_on_what_it_cannot_take(dev):
     """(B, S, H, D) tensors as transposed views, as models.attention passes
-    them; the output keeps q's layout."""
+    them; the output keeps q's layout. The bf16 kernel reads by TMA and
+    refuses what TMA cannot read as it lies."""
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((2, 100, 8, 32), generator=g, device=dev)
-    k = torch.randn((2, 100, 2, 32), generator=g, device=dev)
-    v = torch.randn((2, 100, 2, 32), generator=g, device=dev)
-    out = flash_attention.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                          v.transpose(1, 2))
-    ref = flash_attention.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                                v.transpose(1, 2))
-    assert out.transpose(1, 2).is_contiguous()
-    assert torch.allclose(out, ref, rtol=2e-5, atol=2e-5)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention.flash_attention(q[..., :24].transpose(1, 2),
-                                        k[..., :24].transpose(1, 2),
-                                        v[..., :24].transpose(1, 2))
+    q32 = torch.randn((2, 100, 8, 32), generator=g, device=dev)
+    k32 = torch.randn((2, 100, 2, 32), generator=g, device=dev)
+    v32 = torch.randn((2, 100, 2, 32), generator=g, device=dev)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        out = flash_attention.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2))
+        ref = flash_attention.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                                    v.transpose(1, 2))
+        assert out.transpose(1, 2).is_contiguous() and out.dtype == dtype
+        assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention.flash_attention(q[..., :24].transpose(1, 2),
+                                            k[..., :24].transpose(1, 2),
+                                            v[..., :24].transpose(1, 2))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention.flash_attention(*(t.transpose(1, 2).half() for t in (q, k, v)))
+    # bf16: a head stride of 36 elements (72 bytes), and a base 2 bytes off
+    wide = torch.randn((2, 100, 8, 36), generator=g, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte alignment: head stride 72 B"):
+        flash_attention.flash_attention(wide[..., :32].transpose(1, 2),
+                                        k.transpose(1, 2), v.transpose(1, 2))
+    shifted = torch.zeros(q.numel() + 8, dtype=q.dtype, device=dev)[1:1 + q.numel()]
+    with pytest.raises(ValueError, match="16-byte alignment: base address"):
+        flash_attention.flash_attention(shifted.view(q.shape).transpose(1, 2),
+                                        k.transpose(1, 2), v.transpose(1, 2))
 
 
 def test_dense_prefill_launches_k7_and_matches_the_cpu(dev):
