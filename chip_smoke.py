@@ -8,9 +8,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. build every CUDA kernel of the port from `src/repro_torch/kernels/csrc`;
   2. build the city scene and its LoD tree, size the session's budgets;
   3. hold K1-K4 against their plain PyTorch versions on the card, at the
-     shapes of the session's first frames, and time both; hold K4 also at
-     n_cat = 44 (the VR rig at tile 8) and with ranks repeated inside a
-     row, on the session's own ranks;
+     shapes of the session's first frames, and time both (CUDA events and
+     the profiler's device time); hold K4 also at n_cat = 44 (the VR rig at
+     tile 8) and with ranks repeated inside a row, on the session's own
+     ranks; K3 also on the queue less K3_TAIL rows (a tail block); K2 on
+     the session's tiles at eps_t > 0 (tiles that stop inside a window)
+     and on the adversarial tiles of `tests/_raster_cases.py`;
   4. check, on a small input, that the tiled stereo render agrees with the
      untiled per-pixel reference;
   5. run the single-client collaborative session with the compressed Δcut
@@ -50,7 +53,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      time each beside its bound and `scaled_dot_product_attention` (K7's
      share of its bound, and its time over the library call's).
 The build phase prints each kernel's registers, static shared memory and
-spills from the compiler's `-Xptxas -v` lines.
+spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
+of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
+kernel's time is printed by events and by device time (profiler).
 The last three lines are the kernel report (JSON), the card's name and power
 limit, and {"ok": true, "device": ...}.
 """
@@ -84,6 +89,9 @@ LM_CHECK_LAYERS = 4          # depth of the float32 checks of phase 9
 LM_REL_TOL = 1e-4            # of the largest |logit|
 WINDOW_ARCH = "gemma3-4b"    # phase 10's sliding-window case, head dim 320
 K4_TILES = 4096              # phase 3's extra K4 cases: this many of the session's tiles
+K2_STOP_EPS = (1e-3, 2e-2)   # phase 3: eps_t at which the session's tiles stop early
+K2_WINDOW = 8                # rasterize.cu's kW: entries K2 blends between two votes
+K3_TAIL = 37                 # phase 3: K3 also on the queue less this many rows
 
 
 def log(msg: str) -> None:
@@ -163,6 +171,31 @@ def profiled(torch, what: str, fn) -> dict:
     else:
         log(f"[profile] {what}: the profiler recorded no device time: not measured")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=top, by_name=by_name)
+
+
+def device_ms(torch, fn, key: str, n: int = 10):
+    """Device ms a launch of the kernel whose name holds `key`, from
+    torch.profiler over `n` calls after a warm-up, averaged over the
+    launches it recorded (None if it recorded none): the kernel's own time,
+    without the host's issue time that CUDA events around a short call
+    also see."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key]
+    total, count = sum(ev.self_device_time_total for ev in evs), sum(ev.count for ev in evs)
+    if count != n:
+        log(f"[profile] {key}: the profiler recorded {count} of {n} launches")
+    return total / 1e3 / count if total > 0 else None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 class StageTimer:
@@ -433,6 +466,8 @@ def k7_cases(torch, dev) -> list:
         row = dict(case=name, shape=[b, h, hkv, length, d], dtype=dtype_name,
                    causal=causal, window=window, max_abs_err=err, tolerance=tol,
                    ms=cuda_ms(torch, lambda: FA.flash_attention(q, k, v, **kw), REPS),
+                   device_ms=device_ms(torch, lambda: FA.flash_attention(q, k, v, **kw),
+                                       "flash_attention"),
                    plain_ms=cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v, **kw), 3),
                    library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                        q, k, v, enable_gqa=True, **lib_kw), REPS),
@@ -481,7 +516,8 @@ def main() -> int:
     from repro_torch.core import compression as CP
     from repro_torch.core import manager as MG
     from repro_torch.kernels import _build
-    from repro_torch.kernels import lod_cut, preprocess, rasterize, stereo_shift, vq_assign
+    from repro_torch.kernels import (lod_cut, preprocess, rasterize, sass, stereo_shift,
+                                     vq_assign)
     from repro_torch import render as R
     from repro_torch.render import batched as RB
     from repro_torch.render import stages as RS
@@ -506,6 +542,15 @@ def main() -> int:
             f"shared memory, {k['spill_stores']} B spill stores, {k['spill_loads']} B spill "
             f"loads")
     report["phases"]["build_s"] = b["seconds"]
+    # K2's SASS instructions a pixel-entry: the measure its design moves
+    report["sass_k2"] = sass.report(b["path"], "rasterize_kernel")
+    if not report["sass_k2"] or not all(row["loop"] for row in report["sass_k2"]):
+        raise AssertionError(f"SASS of K2: no hot loop found in {report['sass_k2']}")
+    for row in report["sass_k2"]:
+        loop = row["loop"]
+        log(f"[build] SASS {row['function']}: {row['instructions']} instructions; hot loop "
+            f"{loop['instructions']} over {loop['ex2']} MUFU.EX2 = "
+            f"{loop['per_ex2']:.2f} instructions a pixel-entry")
 
     # 2. scene, rigs, budgets --------------------------------------------------
     t0 = time.perf_counter()
@@ -586,39 +631,58 @@ def main() -> int:
         max_abs_err=float((k_out[2][fin] - p_out[2][fin]).abs().max()) if fin.any() else 0.0,
         ms=cuda_ms(torch, lambda: lod_cut.lod_slab_sweep(*sweep_args, max_depth=md),
                    REPS),
+        device_ms=device_ms(torch, lambda: lod_cut.lod_slab_sweep(*sweep_args, max_depth=md),
+                            "lod_sweep_kernel"),
         plain_ms=cuda_ms(torch, lambda: lod_cut.slab_sweep_plain(*sweep_args, max_depth=md),
                          3),
         bytes=k1_bytes, ops=n_nodes * 22)
 
     q0 = queue_of(cuts[0], cut_budget)
     wide = rcfg.widened(rigs[0].left)
-    sk = preprocess.preprocess(q0, rigs[0], wide)
-    sp = preprocess.preprocess_plain(q0, rigs[0], wide)
-    torch.cuda.synchronize()
-    err3 = 0.0
-    for name in ("mean2d", "depth", "conic", "ext", "color_l", "color_r", "opacity",
-                 "disparity"):
-        # splats behind the camera overflow to inf/nan on both sides
-        a, b_ = getattr(sk, name), getattr(sp, name)
-        if not torch.allclose(a, b_, rtol=2e-5, atol=2e-5, equal_nan=True):
-            bad = ~torch.isclose(a, b_, rtol=2e-5, atol=2e-5, equal_nan=True)
-            rows = bad.reshape(bad.shape[0], -1).any(1)
-            log(f"[K3] {name}: {int(rows.sum())} rows differ, {int((rows & sp.visible).sum())} "
-                f"visible; depth of those {sp.depth[rows][:8].tolist()}; kernel "
-                f"{a[rows][:4].tolist()} plain {b_[rows][:4].tolist()}")
-            raise AssertionError(f"K3: {name} differs from the plain version beyond 2e-5")
-        both = torch.isfinite(a) & torch.isfinite(b_)
-        if both.any():
-            err3 = max(err3, float((a[both] - b_[both]).abs().max()))
-    if not torch.equal(sk.visible, sp.visible):
-        raise AssertionError(f"K3: visible differs on {int((sk.visible != sp.visible).sum())}")
+
+    def check_k3(queue, what):
+        """K3 against its plain version on `queue`: every field within 2e-5
+        (NaN where the plain version has NaN), `visible` exact. Returns the
+        kernel's splats and the largest |error| over finite values."""
+        k_s = preprocess.preprocess(queue, rigs[0], wide)
+        p_s = preprocess.preprocess_plain(queue, rigs[0], wide)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name in ("mean2d", "depth", "conic", "ext", "color_l", "color_r", "opacity",
+                     "disparity"):
+            # splats behind the camera overflow to inf/nan on both sides
+            a, b_ = getattr(k_s, name), getattr(p_s, name)
+            if not torch.allclose(a, b_, rtol=2e-5, atol=2e-5, equal_nan=True):
+                bad = ~torch.isclose(a, b_, rtol=2e-5, atol=2e-5, equal_nan=True)
+                rows = bad.reshape(bad.shape[0], -1).any(1)
+                log(f"[K3] {what} {name}: {int(rows.sum())} rows differ, "
+                    f"{int((rows & p_s.visible).sum())} visible; depth of those "
+                    f"{p_s.depth[rows][:8].tolist()}; kernel {a[rows][:4].tolist()} plain "
+                    f"{b_[rows][:4].tolist()}")
+                raise AssertionError(f"K3 ({what}): {name} differs from the plain version "
+                                     "beyond 2e-5")
+            both = torch.isfinite(a) & torch.isfinite(b_)
+            if both.any():
+                err = max(err, float((a[both] - b_[both]).abs().max()))
+        if not torch.equal(k_s.visible, p_s.visible):
+            raise AssertionError(f"K3 ({what}): visible differs on "
+                                 f"{int((k_s.visible != p_s.visible).sum())}")
+        return k_s, err
+
+    sk, err3 = check_k3(q0, "queue")
+    _, err3_tail = check_k3(q0[:q0.n - K3_TAIL], f"queue less {K3_TAIL} rows")
+    log(f"[K3] == plain on the queue ({q0.n} rows) and on its first {q0.n - K3_TAIL} "
+        f"(a tail block of {(q0.n - K3_TAIL) % 256} rows)")
     n_q, kk = q0.n, q0.sh.shape[1]
+    k3_call = (lambda: preprocess.preprocess(q0, rigs[0], wide))
     kernels["preprocess"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/preprocess.cu",
-        replaces="src/repro/kernels/preprocess.py:140", max_abs_err=err3,
-        ms=cuda_ms(torch, lambda: preprocess.preprocess(q0, rigs[0], wide), REPS),
+        replaces="src/repro/kernels/preprocess.py:140", max_abs_err=max(err3, err3_tail),
+        ms=cuda_ms(torch, k3_call, REPS),
+        device_ms=device_ms(torch, k3_call, "preprocess_kernel"),
         plain_ms=cuda_ms(torch, lambda: preprocess.preprocess_plain(q0, rigs[0], wide), 3),
-        bytes=n_q * (3 + 3 + 4 + 1 + 3 * kk) * 4 + 26 * 4 + n_q * 17 * 4,
+        # rows in, the camera's 25 floats, 16 floats and a visible byte out
+        bytes=n_q * (3 + 3 + 4 + 1 + 3 * kk) * 4 + 25 * 4 + n_q * (16 * 4 + 1),
         ops=n_q * (278 + 18 * kk))
 
     ranks = depth_ranks(sk)
@@ -664,6 +728,8 @@ def main() -> int:
         route="cuda", source="src/repro_torch/kernels/csrc/stereo_shift.cu",
         replaces="src/repro/kernels/stereo_shift.py:57", max_abs_err=0.0,
         ms=cuda_ms(torch, lambda: stereo_shift.stereo_merge_kernel(src_r, src_i), REPS),
+        device_ms=device_ms(torch, lambda: stereo_shift.stereo_merge_kernel(src_r, src_i),
+                            "stereo_merge_kernel"),
         plain_ms=cuda_ms(torch, lambda: stereo_shift.stereo_merge_plain(src_r, src_i), 3),
         # every live rank and one INF a row are read; an id only for the
         # entries written (the first L emits of a tile)
@@ -687,26 +753,75 @@ def main() -> int:
     n_t, n_gathered = ent.shape[0], int(counts.clamp_max(ent.shape[1]).sum())
     n_ent = int(rp[2].sum())
     px = rcfg.tile * rcfg.tile
+
+    def k2_call():
+        return rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile)
+
     kernels["rasterize_slabs"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/rasterize.cu",
         replaces="src/repro/kernels/rasterize.py:77",
         max_abs_err=float((rk[0] - rp[0]).abs().max()),
-        ms=cuda_ms(torch, lambda: rasterize.rasterize_slabs(ent, counts, origins,
-                                                            tile=rcfg.tile), REPS),
+        ms=cuda_ms(torch, k2_call, REPS), device_ms=device_ms(torch, k2_call, "rasterize_kernel"),
         plain_ms=cuda_ms(torch, lambda: rasterize.rasterize_slabs_plain(
             ent, counts, origins, tile=rcfg.tile), 3),
         bytes=n_ent * 36 + n_t * (4 + 8 + px * 12 + ent.shape[1]), ops=n_ent * px * 25)
+    del rk, rp
+
+    # K2 where tiles stop inside a window: the session's tiles at eps_t > 0,
+    # then the adversarial tiles of tests/_raster_cases.py (stops around the
+    # edges of windows of 8, 16 and 32 entries with an entry of α > 0 right
+    # after, count 0, -1, L and L + 5, NaN/inf conics and opacities)
+    def check_k2(e, c, o, what, **kw):
+        img, hits, done = rasterize.rasterize_slabs_plain(e, c, o, with_processed=True, **kw)
+        k_img, k_hits = rasterize.rasterize_slabs(e, c, o, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k_hits, hits):
+            raise AssertionError(f"K2 ({what}): hits differ on "
+                                 f"{int((k_hits != hits).sum())} entries")
+        if not torch.allclose(k_img, img, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"K2 ({what}): image differs beyond rtol 1e-5 / atol 1e-6")
+        return done
+
+    k2_stops = {}
+    for eps in K2_STOP_EPS:
+        done = check_k2(ent, counts, origins, f"session tiles, eps_t {eps}",
+                        tile=rcfg.tile, eps_t=eps)
+        stopped = done < counts.clamp(0, ent.shape[1])
+        k2_stops[eps] = dict(blended=int(done.sum()), stopped=int(stopped.sum()),
+                             inside=int((stopped & (done % K2_WINDOW != 0)).sum()))
+        log(f"[K2] == plain on the session's tiles at eps_t {eps}: "
+            f"{k2_stops[eps]['stopped']} of {n_t} tiles stop early, inside a window "
+            f"{k2_stops[eps]['inside']}; {k2_stops[eps]['blended']} entries blended")
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _raster_cases import raster_cases
+    n_cases = 0
+    for tile_c in (8, 16, 24, 32):
+        for eps in (0.0, 0.02, 1.0):
+            for l_len in (256, 45):
+                arrays = raster_cases(tile_c * 7 + l_len, tile_c, eps, l_len)
+                e, c, o = (torch.from_numpy(x).to(dev) for x in arrays[:3])
+                done = check_k2(e, c, o, f"cases tile {tile_c} eps_t {eps} L {l_len}",
+                                tile=tile_c, eps_t=eps)
+                want = torch.from_numpy(arrays[3]).to(dev)
+                if not torch.equal(done[want >= 0], want[want >= 0]):
+                    raise AssertionError(f"K2 cases tile {tile_c} eps_t {eps} L {l_len}: "
+                                         "the plain version misses a designed stop")
+                n_cases += e.shape[0]
+    log(f"[K2] == plain on {n_cases} adversarial tiles (tiles 8/16/24/32, "
+        "eps_t 0/0.02/1, L 256/45)")
+    report["k2_stops"] = dict(session=k2_stops, adversarial_tiles=n_cases)
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
-        log(f"[kernel] {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max |err| {k['max_abs_err']:.3g}")
+        log(f"[kernel] {name}: {k['ms']:.4f} ms (events), {fmt_ms(k.get('device_ms'))} "
+            f"(device), plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}), max |err| {k['max_abs_err']:.3g}")
     shapes = dict(slabs=[m.Ns, m.S], queue=n_q, left_tiles=n_t, right_tiles=n_rt,
                   live_merge_entries=live, merge_ids_written=written,
                   raster_entries_gathered=n_gathered,
                   raster_entries_blended=n_ent)
     log(f"[kernel] shapes {json.dumps(shapes)}")
     report["kernel_shapes"] = shapes
-    del src_r, src_i, ent, rk, rp, mk, mp
+    del src_r, src_i, ent, mk, mp
 
     # 4. small-input reference: tiled stereo (kernels) vs untiled per pixel ----
     g_small = G.random_gaussians(np.random.default_rng(0), 600,
@@ -949,14 +1064,27 @@ def main() -> int:
     sel = captured.pop("k2_sel")[0][0]
     e2, c2, o2 = (x[sel] for x in captured.pop("k2_slabs"))
     kw2 = dict(tile=rcfg_f.tile, eps_t=rcfg_f.eps_t)
-    k2_ms = cuda_ms(torch, lambda: rasterize.rasterize_slabs(e2, c2, o2, **kw2), REPS)
     n2 = int(rasterize.rasterize_slabs_plain(e2, c2, o2, with_processed=True, **kw2)[2].sum())
     px = kw2["tile"] ** 2
     k2_bound = bound(n2 * 36 + e2.shape[0] * (4 + 8 + px * 12 + e2.shape[1]), n2 * px * 25)
-    log(f"[kernel] rasterize_slabs pooled: {k2_ms:.4f} ms for {e2.shape[0]} tiles "
-        f"({n2} entries blended), bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
-    report["fleet"]["k2_pooled"] = dict(ms=k2_ms, tiles=e2.shape[0], blended=n2,
-                                        bound_ms=k2_bound[0], bound_by=k2_bound[1])
+    def k2_pooled_call():
+        return rasterize.rasterize_slabs(e2, c2, o2, **kw2)
+
+    k2_pooled = dict(ms=cuda_ms(torch, k2_pooled_call, REPS),
+                     device_ms=device_ms(torch, k2_pooled_call, "rasterize_kernel", n=3))
+    log(f"[kernel] rasterize_slabs pooled: {k2_pooled['ms']:.4f} ms (events), "
+        f"{fmt_ms(k2_pooled['device_ms'])} (device) for {e2.shape[0]} tiles ({n2} entries "
+        f"blended), bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    # the wrapper's two outputs alone (the tile images are 12 B a pixel):
+    # what the events around one pooled call see besides the kernel
+    alloc_ms = cuda_ms(torch, lambda: (
+        torch.empty((e2.shape[0], kw2["tile"], kw2["tile"], 3), device=dev),
+        torch.empty(e2.shape[:2], dtype=torch.bool, device=dev)), REPS)
+    log(f"[kernel] rasterize_slabs pooled: its two outputs alone take {alloc_ms:.4f} ms "
+        "(events)")
+    report["fleet"]["k2_pooled"] = dict(alloc_ms=alloc_ms, tiles=e2.shape[0], blended=n2,
+                                        bound_ms=k2_bound[0], bound_by=k2_bound[1],
+                                        **k2_pooled)
     del e2, c2, o2
 
     (x5, cb5), _ = captured["k5_cold"]
@@ -972,6 +1100,7 @@ def main() -> int:
         route="cuda", source="src/repro_torch/kernels/csrc/vq_assign.cu",
         replaces="src/repro/kernels/vq_assign.py:41", max_abs_err=0.0,
         ms=cuda_ms(torch, lambda: vq_assign.vq_assign(x5, cb5), REPS),
+        device_ms=device_ms(torch, lambda: vq_assign.vq_assign(x5, cb5), "vq_assign_kernel"),
         plain_ms=cuda_ms(torch, lambda: vq_assign.vq_assign_plain(x5, cb5), 3),
         library_ms=cuda_ms(torch, lambda: torch.cdist(x5, cb5).argmin(1), REPS),
         bytes=m5 * d5 * 4 + kc5 * d5 * 4 + m5 * 4,
@@ -993,6 +1122,8 @@ def main() -> int:
         route="cuda", source="src/repro_torch/kernels/csrc/lod_cut.cu",
         replaces="src/repro/kernels/lod_cut.py:81", max_abs_err=0.0,
         ms=cuda_ms(torch, lambda: lod_cut.lod_pair_sweep(*a6, **kw6), REPS),
+        device_ms=device_ms(torch, lambda: lod_cut.lod_pair_sweep(*a6, **kw6),
+                            "lod_sweep_kernel"),
         plain_ms=cuda_ms(torch, lambda: lod_cut.pair_sweep_plain(*a6, **kw6), 3),
         bytes=n6 * s6 * (12 + 4 + 4 + 4 + 1 + 1) + n6 * (1 + 12 + 4) + n6 * s6 + n6 * 5,
         ops=n6 * s6 * 22)
@@ -1019,14 +1150,15 @@ def main() -> int:
     for name in ("vq_assign", "lod_pair_sweep"):
         k = kernels[name]
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
-        log(f"[kernel] {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+        log(f"[kernel] {name}: {k['ms']:.4f} ms (events), {fmt_ms(k.get('device_ms'))} "
+            f"(device), plain {k['plain_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
             f"{k.get('library_ms') or float('nan'):.4f} ms, max |err| {k['max_abs_err']:.3g}")
     shapes.update(k5_rows=m5, k5_dim=d5, k5_codes=kc5, k6_pairs=n6, k6_slab=s6)
     log(f"[kernel] shapes {json.dumps(shapes)}")
 
     # free the city before the LM phases
-    del tree, leaves, cuts, sync_cuts, rigs, walks, fleet_rigs, q0, sk, sp, left, ranks
+    del tree, leaves, cuts, sync_cuts, rigs, walks, fleet_rigs, q0, sk, left, ranks
     del origins, counts, k_out, p_out, sweep_args, rpe, top_expand, il, ir, ll, rl
     del ref_l, ref_r, g_small
     gc.collect()
@@ -1052,8 +1184,11 @@ def main() -> int:
     kernels["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:59",
-        **{key: main_case[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")})
+        **{key: main_case[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms")})
+    for name, k in kernels.items():
+        log(f"[kernel] {name}: {k['ms']:.4f} ms by events, {fmt_ms(k.get('device_ms'))} of "
+            f"device time (profiler), bound {k['bound_ms']:.4f} ms")
 
     rows = []
     for name, k in kernels.items():

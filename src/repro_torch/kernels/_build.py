@@ -1,6 +1,7 @@
 """Builds and loads every `csrc/*.cu` kernel as one library.
 
-At first use, one `nvcc` call compiles every source into
+At first use, one `nvcc` a source, all started together, compiles every
+source to an object, and one more links them into
 `build/repro_torch/libnebula_kernels.so` at the root of the checkout. The
 library has a plain C interface and is loaded with `ctypes`: every pointer
 and the stream are `c_void_p`, strides `c_longlong`, and every entry point
@@ -45,7 +46,7 @@ SIGNATURES = {
                               _P, _P, _P, _I, _I, _I, _P],
     "nebula_vq_assign": [_P, _P, _P, _I, _I, _I, _I, _P],
     "nebula_vq_assign_smem_bytes": [_I, _I],
-    "nebula_preprocess": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "nebula_preprocess": [*[_P] * 10, *[_F] * 7, _P, _P, _I, _I, _P],
     "nebula_stereo_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nebula_stereo_merge_smem_bytes": [_I, _I],
     "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -87,12 +88,24 @@ def build() -> dict:
                 "ptxas": log.read_text() if log.exists() else ""}
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    out = subprocess.run([nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-shared",
-                          *[str(s) for s in sources], "-o", str(lib)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    log.write_text(out.stdout)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{out.stdout}")
+    objs = [BUILD_DIR / (src.stem + ".o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    text = [p.communicate()[0] for p in procs]
+    failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
+    if not failed:
+        out = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *[str(o) for o in objs],
+                              "-o", str(lib)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        text.append(out.stdout)
+        if out.returncode != 0:
+            failed = ["(link)"]
+    for obj in objs:   # only the library is kept: the stamp covers it alone
+        obj.unlink(missing_ok=True)
+    log.write_text("".join(text))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{''.join(text)}")
     stamp.write_text(digest)
     return {"path": str(lib), "seconds": time.perf_counter() - t0,
             "rebuilt": True, "ptxas": log.read_text()}

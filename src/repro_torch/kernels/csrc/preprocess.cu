@@ -5,21 +5,38 @@
 // per grid cell.
 //
 // What bounds it on the H100: bytes. Per Gaussian it reads 3+3+4+1+3K floats
-// and writes 17 (about 116 B in, 68 B out at K = 4) against roughly 250
+// and writes 16 and a byte (about 116 B in, 65 B out at K = 4) against roughly 250
 // flops, far below the card's 20 flops per byte of float32 balance.
 //
-// Design: one thread per Gaussian, no shared memory; the 26-float packed
-// camera (layout of the reference's pack_camera) is read through the
-// read-only path and stays in L1. Every 3x3 product is written out as
+// Design: a block of kRows = 256 threads takes a run of 256 rows, one
+// thread a row. The rows arrive in array-of-structs layout (strides of 3,
+// 4 and 3K words), which one thread a row would read as scattered words, so
+// the block first stages each input array's run into shared memory with
+// 16-byte cp.async copies (every run is a multiple of 16 bytes at 256 rows,
+// for K = 1, 4 and 9; a tail block or an unaligned array takes 4-byte
+// copies). Each thread then reads its row from shared memory (strides 3,
+// 4-as-one-16-byte-load, 1 and 3K; at K = 4 the 12-word SH row is read as
+// three 16-byte loads, which no two threads of a quarter-warp share a bank
+// for), computes, and writes its 16 floats into a shared output tile at
+// stride 17 (odd: no bank conflicts); the block stores the tile with
+// coalesced 16-byte stores, and `visible` as a bool array.
+//
+// The camera: the tensors that live on the card (the widened camera's
+// position, camera→world rotation and focal, both eyes' positions, the
+// right one as StereoRig.right makes it) are read where they lie, the host
+// scalars (cx, cy, near, far, baseline, width, height) come by value, so
+// the wrapper launches no copy to the device and does not wait on the
+// stream. Every 3x3 product is written out as
 // ((a0*b0 + a1*b1) + a2*b2), in the order of the plain PyTorch version
 // (repro_torch/kernels/preprocess.py:preprocess_plain), and the library is
 // built with --fmad=false and without fast math (expf/logf/sqrtf), so the
 // visibility bit and the extents round as the plain version rounds.
 // Output rows are [mean2d(2), depth, conic(3), ext(2), color_l(3),
-// color_r(3), opacity, disparity, visible].
+// color_r(3), opacity, disparity].
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -27,7 +44,13 @@ constexpr float kShC0 = 0.28209479177387814f;
 constexpr float kShC1 = 0.4886025119029199f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kCovBlur = 0.3f;
-constexpr int kOutCols = 17;
+constexpr int kOutCols = 16;
+constexpr int kTileStride = kOutCols + 1;  // odd: a warp's row writes miss no bank twice
+constexpr int kRows = 256;     // rows (threads) a block
+
+struct HostCam {
+  float cx, cy, near, far, baseline, width, height;
+};
 
 // A max that returns a NaN first argument, as torch.clamp_min and
 // jnp.maximum do (fmaxf would return the other operand). Splats behind the
@@ -72,121 +95,215 @@ __device__ __forceinline__ void unit_dir(float m0, float m1, float m2,
   d[2] = d2 / n;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Copy n floats of a block's run into shared memory (coalesced).
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, int tid) {
+  if (n % 4 == 0 && aligned16(src)) {
+    for (int i = tid; i < n / 4; i += kRows) cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (int i = tid; i < n; i += kRows) cp_async4(dst + i, src + i);
+  }
+}
+
 template <int K>
-__global__ void preprocess_kernel(const float* __restrict__ mu,
-                                  const float* __restrict__ log_scale,
-                                  const float* __restrict__ quat,
-                                  const float* __restrict__ opacity,
-                                  const float* __restrict__ sh,
-                                  const float* __restrict__ cam,
-                                  float* __restrict__ out, int m) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const float* P = cam;
-  const float f = P[12], cx = P[13], cy = P[14], near = P[15], far = P[16];
-  const float baseline = P[17], width = P[24], height = P[25];
-  // w2c row r is P[3 + 3r .. 3 + 3r + 2]
-  const float* W = P + 3;
+constexpr int smem_floats() {
+  return kRows * (3 + 3 + 4 + 1 + 3 * K + kTileStride);
+}
 
-  float m0 = mu[3 * i], m1 = mu[3 * i + 1], m2 = mu[3 * i + 2];
-  float d0 = m0 - P[0], d1 = m1 - P[1], d2 = m2 - P[2];
-  float t0 = dot3(d0, d1, d2, W[0], W[1], W[2]);
-  float t1 = dot3(d0, d1, d2, W[3], W[4], W[5]);
-  float z = dot3(d0, d1, d2, W[6], W[7], W[8]);
-  float inv_z = 1.0f / max_nan(z, 1e-6f);
-  float mx = f * t0 * inv_z + cx;
-  float my = f * t1 * inv_z + cy;
+template <int K>
+__global__ void __launch_bounds__(kRows) preprocess_kernel(
+    const float* __restrict__ mu, const float* __restrict__ log_scale,
+    const float* __restrict__ quat, const float* __restrict__ opacity,
+    const float* __restrict__ sh, const float* __restrict__ cam_pos,
+    const float* __restrict__ cam_rot, const float* __restrict__ cam_focal,
+    const float* __restrict__ left_pos, const float* __restrict__ right_pos, HostCam hc,
+    float* __restrict__ out, bool* __restrict__ visible_out, int m) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_mu = smem;                    // every offset a multiple of 4 floats
+  float* s_ls = s_mu + 3 * kRows;
+  float* s_q = s_ls + 3 * kRows;
+  float* s_opa = s_q + 4 * kRows;
+  float* s_sh = s_opa + kRows;
+  float* s_out = s_sh + 3 * K * kRows;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRows;
+  const int rows = min(kRows, m - row0);
+  stage(s_mu, mu + 3 * static_cast<size_t>(row0), 3 * rows, tid);
+  stage(s_ls, log_scale + 3 * static_cast<size_t>(row0), 3 * rows, tid);
+  stage(s_q, quat + 4 * static_cast<size_t>(row0), 4 * rows, tid);
+  stage(s_opa, opacity + row0, rows, tid);
+  stage(s_sh, sh + 3 * K * static_cast<size_t>(row0), 3 * K * rows, tid);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 
-  float q0 = quat[4 * i], q1 = quat[4 * i + 1], q2 = quat[4 * i + 2],
-        q3 = quat[4 * i + 3];
-  float qn = sqrtf(q0 * q0 + q1 * q1 + q2 * q2 + q3 * q3) + 1e-12f;
-  float w_ = q0 / qn, x_ = q1 / qn, y_ = q2 / qn, z_ = q3 / qn;
-  float R[3][3] = {
-      {1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_), 2 * (x_ * z_ + w_ * y_)},
-      {2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_), 2 * (y_ * z_ - w_ * x_)},
-      {2 * (x_ * z_ - w_ * y_), 2 * (y_ * z_ + w_ * x_), 1 - 2 * (x_ * x_ + y_ * y_)}};
-  float s[3] = {expf(log_scale[3 * i]), expf(log_scale[3 * i + 1]),
-                expf(log_scale[3 * i + 2])};
-  float rs[3][3];
-  for (int a = 0; a < 3; ++a)
-    for (int b = 0; b < 3; ++b) rs[a][b] = R[a][b] * s[b];
-  float cov3[3][3];
-  for (int a = 0; a < 3; ++a)
-    for (int b = 0; b < 3; ++b)
-      cov3[a][b] = dot3(rs[a][0], rs[a][1], rs[a][2], rs[b][0], rs[b][1], rs[b][2]);
+  if (tid < rows) {
+    const int i = tid;
+    const float f = __ldg(cam_focal);
+    float P[3], W[9], el[3], er[3];
+    for (int k = 0; k < 3; ++k) {
+      P[k] = __ldg(cam_pos + k);
+      el[k] = __ldg(left_pos + k);
+      er[k] = __ldg(right_pos + k);
+    }
+    // w2c row r is W[3r .. 3r + 2]: column r of the camera→world rotation
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) W[3 * r + c] = __ldg(cam_rot + 3 * c + r);
 
-  float J[2][3] = {{f * inv_z, 0.0f, -f * t0 * inv_z * inv_z},
-                   {0.0f, f * inv_z, -f * t1 * inv_z * inv_z}};
-  float jw[2][3];
-  for (int r = 0; r < 2; ++r)
-    for (int c = 0; c < 3; ++c)
-      jw[r][c] = dot3(J[r][0], J[r][1], J[r][2], W[c], W[3 + c], W[6 + c]);
-  float tmp[2][3];
-  for (int r = 0; r < 2; ++r)
-    for (int c = 0; c < 3; ++c)
-      tmp[r][c] = dot3(jw[r][0], jw[r][1], jw[r][2], cov3[0][c], cov3[1][c], cov3[2][c]);
-  float cov2[2][2];
-  for (int r = 0; r < 2; ++r)
-    for (int c = 0; c < 2; ++c)
-      cov2[r][c] = dot3(tmp[r][0], tmp[r][1], tmp[r][2], jw[c][0], jw[c][1], jw[c][2]);
-  float a = cov2[0][0] + kCovBlur;
-  float b = cov2[0][1];
-  float c = cov2[1][1] + kCovBlur;
-  float det = max_nan(a * c - b * b, 1e-12f);
+    float m0 = s_mu[3 * i], m1 = s_mu[3 * i + 1], m2 = s_mu[3 * i + 2];
+    float d0 = m0 - P[0], d1 = m1 - P[1], d2 = m2 - P[2];
+    float t0 = dot3(d0, d1, d2, W[0], W[1], W[2]);
+    float t1 = dot3(d0, d1, d2, W[3], W[4], W[5]);
+    float z = dot3(d0, d1, d2, W[6], W[7], W[8]);
+    float inv_z = 1.0f / max_nan(z, 1e-6f);
+    float mx = f * t0 * inv_z + hc.cx;
+    float my = f * t1 * inv_z + hc.cy;
 
-  float opa = opacity[i];
-  float tau2 = max_nan(2.0f * logf(max_nan(opa, kAlphaMin) / kAlphaMin), 0.0f);
-  float ext_x = sqrtf(tau2 * a);
-  float ext_y = sqrtf(tau2 * c);
+    const float4 q = *reinterpret_cast<const float4*>(s_q + 4 * i);
+    float qn = sqrtf(q.x * q.x + q.y * q.y + q.z * q.z + q.w * q.w) + 1e-12f;
+    float w_ = q.x / qn, x_ = q.y / qn, y_ = q.z / qn, z_ = q.w / qn;
+    float R[3][3] = {
+        {1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_), 2 * (x_ * z_ + w_ * y_)},
+        {2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_), 2 * (y_ * z_ - w_ * x_)},
+        {2 * (x_ * z_ - w_ * y_), 2 * (y_ * z_ + w_ * x_), 1 - 2 * (x_ * x_ + y_ * y_)}};
+    float s[3] = {expf(s_ls[3 * i]), expf(s_ls[3 * i + 1]), expf(s_ls[3 * i + 2])};
+    float rs[3][3];
+    for (int a = 0; a < 3; ++a)
+      for (int b = 0; b < 3; ++b) rs[a][b] = R[a][b] * s[b];
+    float cov3[3][3];
+    for (int a = 0; a < 3; ++a)
+      for (int b = 0; b < 3; ++b)
+        cov3[a][b] = dot3(rs[a][0], rs[a][1], rs[a][2], rs[b][0], rs[b][1], rs[b][2]);
 
-  float dl[3], dr[3], col_l[3], col_r[3];
-  unit_dir(m0, m1, m2, P + 18, dl);
-  unit_dir(m0, m1, m2, P + 21, dr);
-  sh_color<K>(sh + static_cast<size_t>(i) * K * 3, dl[0], dl[1], dl[2], col_l);
-  sh_color<K>(sh + static_cast<size_t>(i) * K * 3, dr[0], dr[1], dr[2], col_r);
+    float J[2][3] = {{f * inv_z, 0.0f, -f * t0 * inv_z * inv_z},
+                     {0.0f, f * inv_z, -f * t1 * inv_z * inv_z}};
+    float jw[2][3];
+    for (int r = 0; r < 2; ++r)
+      for (int c = 0; c < 3; ++c)
+        jw[r][c] = dot3(J[r][0], J[r][1], J[r][2], W[c], W[3 + c], W[6 + c]);
+    float tmp[2][3];
+    for (int r = 0; r < 2; ++r)
+      for (int c = 0; c < 3; ++c)
+        tmp[r][c] = dot3(jw[r][0], jw[r][1], jw[r][2], cov3[0][c], cov3[1][c], cov3[2][c]);
+    float cov2[2][2];
+    for (int r = 0; r < 2; ++r)
+      for (int c = 0; c < 2; ++c)
+        cov2[r][c] = dot3(tmp[r][0], tmp[r][1], tmp[r][2], jw[c][0], jw[c][1], jw[c][2]);
+    float a = cov2[0][0] + kCovBlur;
+    float b = cov2[0][1];
+    float c = cov2[1][1] + kCovBlur;
+    float det = max_nan(a * c - b * b, 1e-12f);
 
-  bool visible = (z > near) && (z < far) && (opa > kAlphaMin) &&
-                 (mx + ext_x >= 0.0f) && (mx - ext_x <= width) &&
-                 (my + ext_y >= 0.0f) && (my - ext_y <= height);
+    float opa = s_opa[i];
+    float tau2 = max_nan(2.0f * logf(max_nan(opa, kAlphaMin) / kAlphaMin), 0.0f);
+    float ext_x = sqrtf(tau2 * a);
+    float ext_y = sqrtf(tau2 * c);
 
-  float* o = out + static_cast<size_t>(i) * kOutCols;
-  o[0] = mx;
-  o[1] = my;
-  o[2] = z;
-  o[3] = c / det;
-  o[4] = -b / det;
-  o[5] = a / det;
-  o[6] = ext_x;
-  o[7] = ext_y;
-  o[8] = col_l[0];
-  o[9] = col_l[1];
-  o[10] = col_l[2];
-  o[11] = col_r[0];
-  o[12] = col_r[1];
-  o[13] = col_r[2];
-  o[14] = opa;
-  o[15] = baseline * f * inv_z;
-  o[16] = visible ? 1.0f : 0.0f;
+    float shr[3 * K];
+    const float* srow = s_sh + 3 * K * i;
+    if constexpr (K == 4) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float4 v = *reinterpret_cast<const float4*>(srow + 4 * k);
+        shr[4 * k] = v.x;
+        shr[4 * k + 1] = v.y;
+        shr[4 * k + 2] = v.z;
+        shr[4 * k + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3 * K; ++k) shr[k] = srow[k];
+    }
+    float dl[3], dr[3], col_l[3], col_r[3];
+    unit_dir(m0, m1, m2, el, dl);
+    unit_dir(m0, m1, m2, er, dr);
+    sh_color<K>(shr, dl[0], dl[1], dl[2], col_l);
+    sh_color<K>(shr, dr[0], dr[1], dr[2], col_r);
+
+    bool visible = (z > hc.near) && (z < hc.far) && (opa > kAlphaMin) &&
+                   (mx + ext_x >= 0.0f) && (mx - ext_x <= hc.width) &&
+                   (my + ext_y >= 0.0f) && (my - ext_y <= hc.height);
+
+    float* o = s_out + i * kTileStride;
+    o[0] = mx;
+    o[1] = my;
+    o[2] = z;
+    o[3] = c / det;
+    o[4] = -b / det;
+    o[5] = a / det;
+    o[6] = ext_x;
+    o[7] = ext_y;
+    o[8] = col_l[0];
+    o[9] = col_l[1];
+    o[10] = col_l[2];
+    o[11] = col_r[0];
+    o[12] = col_r[1];
+    o[13] = col_r[2];
+    o[14] = opa;
+    o[15] = hc.baseline * f * inv_z;
+    visible_out[row0 + i] = visible;
+  }
+  __syncthreads();
+  // `out` is the wrapper's own allocation: every row is 64 B, 16-byte aligned
+  float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(row0) * kOutCols);
+  for (int k = tid; k < rows * (kOutCols / 4); k += kRows) {
+    const float* src = s_out + (k / (kOutCols / 4)) * kTileStride + 4 * (k % (kOutCols / 4));
+    dst[k] = make_float4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+template <int K>
+int launch(int m, cudaStream_t st, const float* const* a, HostCam hc, float* o, bool* vis) {
+  constexpr int bytes = smem_floats<K>() * 4;
+  // above 48 KB (K = 9) only after opting in, which is per device: set on
+  // every launch
+  cudaError_t e = cudaFuncSetAttribute(preprocess_kernel<K>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  preprocess_kernel<K><<<(m + kRows - 1) / kRows, kRows, bytes, st>>>(
+      a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], hc, o, vis, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int nebula_preprocess(const void* mu, const void* log_scale,
                                  const void* quat, const void* opacity,
-                                 const void* sh, const void* cam, void* out,
-                                 int m, int k, void* stream) {
-  const int threads = 256;
-  const int blocks = (m + threads - 1) / threads;
+                                 const void* sh, const void* cam_pos, const void* cam_rot,
+                                 const void* cam_focal, const void* left_pos,
+                                 const void* right_pos, float cx, float cy, float near,
+                                 float far, float baseline, float width, float height,
+                                 void* out, void* visible, int m, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* a[6] = {static_cast<const float*>(mu), static_cast<const float*>(log_scale),
-                       static_cast<const float*>(quat), static_cast<const float*>(opacity),
-                       static_cast<const float*>(sh), static_cast<const float*>(cam)};
+  const float* a[10] = {
+      static_cast<const float*>(mu),      static_cast<const float*>(log_scale),
+      static_cast<const float*>(quat),    static_cast<const float*>(opacity),
+      static_cast<const float*>(sh),      static_cast<const float*>(cam_pos),
+      static_cast<const float*>(cam_rot), static_cast<const float*>(cam_focal),
+      static_cast<const float*>(left_pos), static_cast<const float*>(right_pos)};
+  const HostCam hc{cx, cy, near, far, baseline, width, height};
   float* o = static_cast<float*>(out);
+  bool* vis = static_cast<bool*>(visible);
   switch (k) {
-    case 1: preprocess_kernel<1><<<blocks, threads, 0, st>>>(a[0], a[1], a[2], a[3], a[4], a[5], o, m); break;
-    case 4: preprocess_kernel<4><<<blocks, threads, 0, st>>>(a[0], a[1], a[2], a[3], a[4], a[5], o, m); break;
-    case 9: preprocess_kernel<9><<<blocks, threads, 0, st>>>(a[0], a[1], a[2], a[3], a[4], a[5], o, m); break;
+    case 1: return launch<1>(m, st, a, hc, o, vis);
+    case 4: return launch<4>(m, st, a, hc, o, vis);
+    case 9: return launch<9>(m, st, a, hc, o, vis);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

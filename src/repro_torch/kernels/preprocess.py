@@ -1,12 +1,18 @@
 """K3 — shared stereo EWA preprocessing (paper Fig. 13 left) on Hopper.
 
-`preprocess` launches `csrc/preprocess.cu` (one thread per Gaussian) for
-CUDA tensors and runs `preprocess_plain` for CPU tensors. Both read the
-camera from the same packed 26-float vector (`pack_camera`, the layout of
-the reference's Pallas kernel) and evaluate the same float operations in the
-same order, with every 3x3 product written out as ((a0·b0 + a1·b1) + a2·b2);
-the kernel is built without FMA contraction, so on the card the two agree
-to the last bit except where `expf`/`logf` differ from PyTorch's.
+`preprocess` launches `csrc/preprocess.cu` (a block per run of 256 rows,
+staged through shared memory, one thread per Gaussian) for CUDA tensors and
+runs `preprocess_plain` for CPU tensors. Both read the same camera values:
+the plain version from the packed 26-float vector (`pack_camera`, the
+layout of the reference's Pallas kernel), the kernel from the camera's
+tensors where they lie and its host scalars (`camera_scalars`) by value,
+so that on the card the wrapper makes no host→device copy and never waits
+on the stream (it launches the kernel and the two small element-wise ops of
+`StereoRig.right`). Both evaluate the same
+float operations in the same order, with every 3x3 product written out as
+((a0·b0 + a1·b1) + a2·b2); the kernel is built without FMA contraction, so
+on the card the two agree to the last bit except where `expf`/`logf`
+differ from PyTorch's.
 """
 
 from __future__ import annotations
@@ -32,18 +38,25 @@ _P_RPOS = 21        # 3 right eye pos
 _P_W = 24           # widened width
 _P_H = 25
 P_LEN = 26
-OUT_COLS = 17
+OUT_COLS = 16
+
+
+def camera_scalars(rig, wide) -> tuple:
+    """The camera's host scalars (cx, cy, near, far, baseline, width,
+    height) as Python floats."""
+    return tuple(float(x) for x in (wide.cx, wide.cy, wide.near, wide.far, rig.baseline,
+                                    wide.width, wide.height))
 
 
 def pack_camera(rig, wide) -> torch.Tensor:
-    """(26,) float32 camera vector on the camera's device."""
+    """(26,) float32 camera vector on the camera's device. On the card this
+    copies the host scalars to the device and waits for it: the plain
+    version's path only."""
     dev = wide.pos.device
-    scalars = torch.tensor([wide.cx, wide.cy, wide.near, wide.far, rig.baseline],
-                           dtype=torch.float32, device=dev)
+    host = torch.tensor(camera_scalars(rig, wide), dtype=torch.float32, device=dev)
     return torch.cat([
-        wide.pos.reshape(3), wide.rot.T.reshape(9), wide.focal.reshape(1),
-        scalars, rig.left.pos.reshape(3), rig.right.pos.reshape(3),
-        torch.tensor([wide.width, wide.height], dtype=torch.float32, device=dev),
+        wide.pos.reshape(3), wide.rot.T.reshape(9), wide.focal.reshape(1), host[:5],
+        rig.left.pos.reshape(3), rig.right.pos.reshape(3), host[5:],
     ]).to(torch.float32).contiguous()
 
 
@@ -134,12 +147,13 @@ def preprocess_plain(g: Gaussians, rig, wide) -> Splats:
                   opacity=opa, disparity=baseline * f * inv_z, visible=visible)
 
 
-def splats_from_rows(out: torch.Tensor) -> Splats:
-    """Split the kernel's (M, 17) rows into Splats fields."""
+def splats_from_rows(out: torch.Tensor, visible: torch.Tensor) -> Splats:
+    """Split the kernel's (M, 16) rows and its (M,) visible flags into
+    Splats fields."""
     return Splats(
         mean2d=out[:, 0:2], depth=out[:, 2], conic=out[:, 3:6], ext=out[:, 6:8],
         color_l=out[:, 8:11], color_r=out[:, 11:14], opacity=out[:, 14],
-        disparity=out[:, 15], visible=out[:, 16] > 0.5)
+        disparity=out[:, 15], visible=visible)
 
 
 def preprocess(g: Gaussians, rig, wide) -> Splats:
@@ -162,19 +176,25 @@ def preprocess(g: Gaussians, rig, wide) -> Splats:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"preprocess: {name} must be contiguous")
-    cam = pack_camera(rig, wide)
-    if cam.device != dev:
-        raise ValueError(f"preprocess: camera on {cam.device}, Gaussians on {dev}")
+    cam = []
+    for name, t, n in (("position", wide.pos, 3), ("rotation", wide.rot, 9),
+                       ("focal", wide.focal, 1), ("left eye position", rig.left.pos, 3),
+                       ("right eye position", rig.right.pos, 3)):
+        if t.device != dev or t.numel() != n:
+            raise ValueError(f"preprocess: camera {name} must hold {n} values on {dev}, "
+                             f"got {t.numel()} on {t.device}")
+        cam.append(t.to(torch.float32).contiguous())
     out = torch.empty((m, OUT_COLS), dtype=torch.float32, device=dev)
+    visible = torch.empty((m,), dtype=torch.bool, device=dev)
     if m > 0:
         lib = _build.library()
         p = _build.ptr
         err = lib.nebula_preprocess(p(g.mu), p(g.log_scale), p(g.quat), p(g.opacity),
-                                    p(g.sh), p(cam), p(out), m, k,
-                                    _build.stream_handle(dev))
+                                    p(g.sh), *map(p, cam), *camera_scalars(rig, wide),
+                                    p(out), p(visible), m, k, _build.stream_handle(dev))
         _build.check(err, "nebula_preprocess")
         preprocess.launches += 1
-    return splats_from_rows(out)
+    return splats_from_rows(out, visible)
 
 
 preprocess.launches = 0

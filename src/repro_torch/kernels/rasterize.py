@@ -1,14 +1,16 @@
 """K2 — tile rasterization (the paper's VRC, §5) on Hopper.
 
 `rasterize_slabs` launches `csrc/rasterize.cu` (one thread block per tile,
-one thread per pixel) for CUDA tensors and runs `rasterize_slabs_plain` for
-CPU tensors. Input is the pre-gathered entry layout of the reference's
-Pallas kernel: entries[t, i] = [mean_x, mean_y, conic_a, conic_b, conic_c,
+2 or 4 pixels of a row per thread, entries staged and voted on a window at
+a time) for CUDA tensors and runs `rasterize_slabs_plain` for CPU tensors.
+Input is the pre-gathered entry layout of the reference's Pallas kernel: entries[t, i] = [mean_x, mean_y, conic_a, conic_b, conic_c,
 r, g, b, opacity] (invalid slots carry opacity 0), a count per tile and a
 pixel-space origin per tile. Blending is front to back with the α test of
 `repro_torch.render.common.splat_alpha`; a tile stops once no pixel has
-transmittance above `eps_t` (0.0 is the bitwise mode). The per-entry hit
-flag (α > 0 at some pixel) is what the SRU forwards to the right eye.
+transmittance above `eps_t` (0.0 is the bitwise mode); with eps_t ≥ 1 it
+blends nothing, as the reference's Pallas kernel, whose while-loop tests
+the transmittance before the first entry. The per-entry hit flag (α > 0
+at some pixel) is what the SRU forwards to the right eye.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
     color = torch.zeros((n, tile, tile, 3), dtype=torch.float32, device=dev)
     t_acc = torch.ones((n, tile, tile), dtype=torch.float32, device=dev)
     hits = torch.zeros((n, l_max), dtype=torch.bool, device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    # the tile is tested before its first entry too (T = 1 there)
+    alive = torch.full((n,), 1.0 > eps_t, dtype=torch.bool, device=dev)
     processed = torch.zeros((n,), dtype=torch.int32, device=dev)
     zero = torch.zeros((), device=dev)
     # entries past the largest count are inactive everywhere: they add 0 to
@@ -101,8 +104,8 @@ def rasterize_slabs(entries: torch.Tensor, counts: torch.Tensor, origins: torch.
         if not t.is_contiguous():
             raise ValueError(f"rasterize_slabs: {name} must be contiguous")
     if tile * tile > 1024 or (tile * tile) % 32:
-        raise ValueError(f"rasterize_slabs: tile {tile} needs {tile * tile} threads "
-                         "a block; the kernel takes a multiple of 32 up to 1024")
+        raise ValueError(f"rasterize_slabs: tile {tile} has {tile * tile} pixels; the "
+                         "kernel takes a multiple of 32 up to 1024")
     out = torch.empty((n, tile, tile, 3), dtype=torch.float32, device=dev)
     hits = torch.empty((n, l_max), dtype=torch.bool, device=dev)
     if n > 0:

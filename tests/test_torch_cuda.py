@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _merge_cases import merge_sources
+from _raster_cases import raster_cases
 from repro_torch import kernels as K
 from repro_torch import render as R
 from repro_torch.core import camera as C
@@ -126,6 +127,112 @@ def test_k2_raster(scene):
         torch.cuda.synchronize()
         assert torch.allclose(k[0], p[0], rtol=1e-5, atol=1e-6)
         assert torch.equal(k[1], p[1]) and float(k[0].max()) > 0
+
+
+# K2 on adversarial tiles (tests/_raster_cases.py): stops before, at and
+# after each edge of a window of 8, 16 and 32 entries with an entry of
+# α > 0 right after, count 0, -1, L and L + 5, NaN/inf conics and opacities
+@pytest.mark.parametrize("l_len", [256, 45])
+@pytest.mark.parametrize("eps_t", [0.0, 0.02, 1.0])
+@pytest.mark.parametrize("tile", [8, 16, 24, 32])
+def test_k2_raster_adversarial(dev, tile, eps_t, l_len):
+    ent, counts, origins, want, _ = raster_cases(tile * 7 + l_len, tile, eps_t, l_len)
+    ent, counts, origins = (torch.from_numpy(x).to(dev) for x in (ent, counts, origins))
+    p_img, p_hits, done = rasterize.rasterize_slabs_plain(
+        ent, counts, origins, tile=tile, eps_t=eps_t, with_processed=True)
+    designed = torch.from_numpy(want >= 0).to(dev)
+    assert torch.equal(done[designed], torch.from_numpy(want).to(dev)[designed])
+    before = rasterize.rasterize_slabs.launches
+    img, hits = rasterize.rasterize_slabs(ent, counts, origins, tile=tile, eps_t=eps_t)
+    torch.cuda.synchronize()
+    assert rasterize.rasterize_slabs.launches == before + 1
+    assert torch.equal(hits, p_hits), int((hits != p_hits).sum())
+    assert torch.allclose(img, p_img, rtol=1e-5, atol=1e-6)
+
+
+def test_k2_raster_rejects_what_it_cannot_take(dev):
+    ent = torch.zeros((2, 8, 9), device=dev)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    origins = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="pixels"):
+        rasterize.rasterize_slabs(ent, counts, origins, tile=12)
+
+
+def _k3_queue(dev, m, k, seed):
+    """m random Gaussians around the scene's camera, some behind it."""
+    g = G.random_gaussians(np.random.default_rng(seed), m, sh_degree={1: 0, 4: 1, 9: 2}[k],
+                           extent=40.0, device=dev)
+    return dataclasses.replace(g, mu=g.mu + torch.tensor([30.0, 30.0, 0.0], device=dev))
+
+
+def _k3_check(g, rig):
+    wide = dataclasses.replace(rig.left, width=rig.left.width + 96)
+    before = preprocess.preprocess.launches
+    k = preprocess.preprocess(g, rig, wide)
+    p = preprocess.preprocess_plain(g, rig, wide)
+    torch.cuda.synchronize()
+    assert preprocess.preprocess.launches == before + 1
+    for f in ("mean2d", "depth", "conic", "ext", "color_l", "color_r", "opacity",
+              "disparity"):
+        assert torch.allclose(getattr(k, f), getattr(p, f), rtol=2e-5, atol=2e-5,
+                              equal_nan=True), f
+    assert torch.equal(k.visible, p.visible)
+    return k, p
+
+
+# K3 around its 256-row blocks (a tail of 1, 255, 0 and 1 rows, and more
+# blocks than the card has SMs), for every SH size; rows behind the camera
+@pytest.mark.parametrize("m", [1, 255, 256, 257, 3000, 65537])
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_k3_preprocess_tails(dev, scene, m, k):
+    _, rig = scene
+    g = _k3_queue(dev, m, k, seed=m + k)
+    kk, p = _k3_check(g, rig)
+    if m >= 3000:
+        assert bool(p.visible.any()) and bool((p.depth < 0).any())
+
+
+def test_k3_preprocess_unaligned_rows(dev, scene):
+    """Arrays whose start is not 16-byte aligned (a view from row 1): the
+    kernel stages them with 4-byte copies."""
+    _, rig = scene
+    g = _k3_queue(dev, 1001, 4, seed=5)
+    g1 = g[1:]
+    assert g1.mu.data_ptr() % 16 != 0
+    _k3_check(g1, rig)
+
+
+@pytest.mark.parametrize("baseline", [0.1, 1.5])
+def test_k3_preprocess_rig_baseline(dev, scene, baseline):
+    """The kernel reads the right eye where StereoRig.right puts it, at a
+    baseline other than the default (the right eye's colors tell)."""
+    _, rig = scene
+    rig_b = dataclasses.replace(rig, baseline=baseline)
+    g = _k3_queue(dev, 3000, 4, seed=7)
+    k, _ = _k3_check(g, rig_b)
+    assert not torch.allclose(k.color_l, k.color_r)
+
+
+def test_k2_k3_make_no_synchronizing_call(dev, scene):
+    """On the card neither wrapper waits on the stream: both run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    tree, rig = scene
+    plan, cfg = _plan(tree, rig)
+    g = _k3_queue(dev, 3000, 4, seed=0)
+    wide = dataclasses.replace(rig.left, width=rig.left.width + 96)
+    ent, counts = rasterize.gather_entries(plan.left, plan.splats, "left")
+    origins = rasterize.tile_origins(ent.shape[0], plan.left.tiles_x, cfg.tile, dev)
+    counts = counts.contiguous()
+    preprocess.preprocess(g, rig, wide)                  # build the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = preprocess.preprocess(g, rig, wide)
+        img, hits = rasterize.rasterize_slabs(ent, counts, origins, tile=cfg.tile)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(s.visible.any()) and float(img.max()) > 0
 
 
 def test_session_launches_every_kernel(scene):
