@@ -80,6 +80,7 @@ sys.path.insert(0, str(ROOT / "src"))
 REPS = 10                    # timed kernel launches (median)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 LM_ARCH = "qwen2.5-3b"
 LM_BATCH = 4                 # phase 9: requests
@@ -90,6 +91,8 @@ LM_REL_TOL = 1e-4            # of the largest |logit|
 WINDOW_ARCH = "gemma3-4b"    # phase 10's sliding-window case, head dim 320
 K4_TILES = 4096              # phase 3's extra K4 cases: this many of the session's tiles
 K2_STOP_EPS = (1e-3, 2e-2)   # phase 3: eps_t at which the session's tiles stop early
+# phase 3: α overrides (the second and third: no stop; the third: every α < 0)
+K2_THRESHOLDS = ((0.05, 0.5), (1 / 255, 1.5), (-0.5, -0.1))
 K2_WINDOW = 8                # rasterize.cu's kW: entries K2 blends between two votes
 K3_TAIL = 37                 # phase 3: K3 also on the queue less this many rows
 
@@ -129,9 +132,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(run(n) for _ in range(reps))
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, tf32_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the largest of the bytes over the
+    memory rate, the float32 operations over their peak and the TF32
+    operations over theirs (the tensor cores and the float32 units are
+    separate pipes, so their times overlap)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, tf32_ops / TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -143,6 +150,18 @@ def require_launched(path: str, counts: dict, names) -> None:
     missing = [k for k in names if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+
+
+def require_filtered(path: str, counts: dict) -> dict:
+    """K5's counters over a path's run: every row took the tensor-core
+    filter (SH coefficients are finite and small), none the full scan."""
+    log(f"[{path}] K5 rows: filtered {counts['filtered']}, full scan {counts['scanned']}, "
+        f"second pass {counts['second_pass']}; candidates {counts['candidates']} (most in "
+        f"a row {counts['most_candidates']})")
+    if counts["filtered"] <= 0 or counts["scanned"] != 0:
+        raise AssertionError(f"K5 on the {path} path: not every row went through the "
+                             f"filter: {counts}")
+    return counts
 
 
 def profiled(torch, what: str, fn) -> dict:
@@ -231,7 +250,7 @@ def ptxas_report(text: str) -> list:
                 while (d := re.match(r"\d+", mangled[pos:])):
                     n, pos = int(d.group()), pos + len(d.group())
                     ident, pos = mangled[pos:pos + n], pos + n
-            args = re.findall(r"Li(\d+)E", mangled[pos:].split("EE", 1)[0] + "E")
+            args = re.findall(r"L[ib](\d+)E", mangled[pos:].split("EE", 1)[0] + "E")
             rows.append(dict(kernel=ident + (f"<{','.join(args)}>" if args else ""),
                              registers=None, smem=0, spill_stores=None, spill_loads=None))
         elif rows:
@@ -512,6 +531,7 @@ def main() -> int:
     from repro_torch.core.binning import pair_spans
     from repro_torch.core.lod_tree import build_lod_tree
     from repro_torch.core.projection import depth_ranks
+    from repro_torch.core import stereo
     from repro_torch.core.stereo import build_merge_sources
     from repro_torch.core import compression as CP
     from repro_torch.core import manager as MG
@@ -739,33 +759,79 @@ def main() -> int:
     ent, counts = rasterize.gather_entries(left, sk, "left")
     origins = rasterize.tile_origins(ent.shape[0], left.tiles_x, rcfg.tile, dev)
     counts = counts.contiguous()
-    rk = rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile)
+    # the session's left eye: the reference's default path (flags past a
+    # stop); the right eye and the pooled render: the Pallas contract
+    rk = rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile, hits_past_stop=True)
     rp = rasterize.rasterize_slabs_plain(ent, counts, origins, tile=rcfg.tile,
+                                         hits_past_stop=True)
+    pk = rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile)
+    pp = rasterize.rasterize_slabs_plain(ent, counts, origins, tile=rcfg.tile,
                                          with_processed=True)
     torch.cuda.synchronize()
-    if not torch.allclose(rk[0], rp[0], rtol=1e-5, atol=1e-6):
-        raise AssertionError("K2: tile image differs from the plain version beyond "
-                             "rtol 1e-5 / atol 1e-6")
-    if not torch.equal(rk[1], rp[1]):
-        raise AssertionError(f"K2: hits differ on {int((rk[1] != rp[1]).sum())} entries")
-    # the kernel blends a tile's entries until no pixel lets light through:
-    # its work is the entries blended, not the entries gathered
-    n_t, n_gathered = ent.shape[0], int(counts.clamp_max(ent.shape[1]).sum())
-    n_ent = int(rp[2].sum())
+    for what, (k_img, k_hits), (p_img, p_hits) in (("default-path contract", rk, rp),
+                                                   ("Pallas contract", pk, pp[:2])):
+        if not torch.allclose(k_img, p_img, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"K2 ({what}): tile image differs from the plain version "
+                                 "beyond rtol 1e-5 / atol 1e-6")
+        if not torch.equal(k_hits, p_hits):
+            raise AssertionError(f"K2 ({what}): hits differ on "
+                                 f"{int((k_hits != p_hits).sum())} entries")
+    if bool((pp[1] & ~rp[1]).any()):
+        raise AssertionError("K2: a Pallas-contract hit is missing under the default path")
+    # the kernel blends a tile's entries until no pixel lets light through,
+    # then (default path) only flags the rest: its work is the entries
+    # blended plus the entries flagged, not the entries gathered
+    n_t, l_len = ent.shape[0], ent.shape[1]
+    n_gathered = int(counts.clamp(0, l_len).sum())
+    n_ent = int(pp[2].sum())
+    n_flag_only = n_gathered - n_ent
+    slot = torch.arange(l_len, device=dev)[None, :]
+    past = (slot >= pp[2][:, None]) & (slot < counts[:, None])
+    flags_past_stop = int((rp[1] & past).sum())
+    right0 = R.stereo_merge(sk, ranks, left, rcfg)
+    skipped = {c: stereo.alpha_skip_stats(left, right0, h, sk).right_alpha_skipped
+               for c, h in (("default_path", rp[1]), ("pallas", pp[1]))}
+    log(f"[K2] == plain on the session's left tiles under both hit contracts; "
+        f"{n_gathered} entries gathered, {n_ent} blended, {n_flag_only} flagged only "
+        f"after a stop, {flags_past_stop} hit flags past the stop; frame 0's "
+        f"right_alpha_skipped {skipped['default_path']} (default path) vs "
+        f"{skipped['pallas']} (the Pallas contract)")
     px = rcfg.tile * rcfg.tile
 
     def k2_call():
+        return rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile,
+                                         hits_past_stop=True)
+
+    def k2_pallas_call():
         return rasterize.rasterize_slabs(ent, counts, origins, tile=rcfg.tile)
 
     kernels["rasterize_slabs"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/rasterize.cu",
         replaces="src/repro/kernels/rasterize.py:77",
-        max_abs_err=float((rk[0] - rp[0]).abs().max()),
+        max_abs_err=max(float((rk[0] - rp[0]).abs().max()), float((pk[0] - pp[0]).abs().max())),
         ms=cuda_ms(torch, k2_call, REPS), device_ms=device_ms(torch, k2_call, "rasterize_kernel"),
         plain_ms=cuda_ms(torch, lambda: rasterize.rasterize_slabs_plain(
-            ent, counts, origins, tile=rcfg.tile), 3),
-        bytes=n_ent * 36 + n_t * (4 + 8 + px * 12 + ent.shape[1]), ops=n_ent * px * 25)
-    del rk, rp
+            ent, counts, origins, tile=rcfg.tile, hits_past_stop=True), 3),
+        # each gathered entry read once; a blended pixel-entry costs 25
+        # operations; a flagged-only entry 11 (the α core and its test) at
+        # one pixel where it hits, at every pixel where it does not
+        bytes=n_gathered * 36 + n_t * (4 + 8 + px * 12 + l_len),
+        ops=n_ent * px * 25 + flags_past_stop * 11 + (n_flag_only - flags_past_stop) * px * 11)
+    k2_contracts = dict(
+        default_path=dict(ms=kernels["rasterize_slabs"]["ms"],
+                          device_ms=kernels["rasterize_slabs"]["device_ms"]),
+        pallas=dict(ms=cuda_ms(torch, k2_pallas_call, REPS),
+                    device_ms=device_ms(torch, k2_pallas_call, "rasterize_kernel"),
+                    bound=bound(n_ent * 36 + n_t * (4 + 8 + px * 12 + l_len),
+                                n_ent * px * 25)),
+        gathered=n_gathered, blended=n_ent, flagged_only=n_flag_only,
+        flags_past_stop=flags_past_stop, frame0_right_alpha_skipped=skipped)
+    for c, v in k2_contracts.items():
+        if isinstance(v, dict) and "ms" in v:
+            log(f"[K2] left image, {c}: {v['ms']:.4f} ms (events), "
+                f"{fmt_ms(v['device_ms'])} (device)")
+    report["k2_contracts"] = k2_contracts
+    del rk, rp, pk, pp, right0
 
     # K2 where tiles stop inside a window: the session's tiles at eps_t > 0,
     # then the adversarial tiles of tests/_raster_cases.py (stops around the
@@ -782,6 +848,10 @@ def main() -> int:
             raise AssertionError(f"K2 ({what}): image differs beyond rtol 1e-5 / atol 1e-6")
         return done
 
+    for amin, amax in K2_THRESHOLDS:
+        check_k2(ent, counts, origins, f"session tiles, α ({amin:.4g}, {amax})",
+                 tile=rcfg.tile, alpha_min=amin, alpha_max=amax, hits_past_stop=True)
+    log(f"[K2] == plain on the session's left tiles at α thresholds {K2_THRESHOLDS}")
     k2_stops = {}
     for eps in K2_STOP_EPS:
         done = check_k2(ent, counts, origins, f"session tiles, eps_t {eps}",
@@ -846,6 +916,7 @@ def main() -> int:
     sess = P.CollaborativeSession(tree, cfg, rigs[0])
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    vq_assign.reset_filter_counts(dev)
     frames = []
     sync_cuts = {}
     t_run = time.perf_counter()
@@ -877,6 +948,7 @@ def main() -> int:
     require_launched("session", counts_session, ("lod_slab_sweep", "preprocess",
                                                  "stereo_merge", "rasterize_slabs",
                                                  "vq_assign"))
+    k5_session = require_filtered("session", vq_assign.filter_counts(dev))
     log(f"[session] {args.frames} frames in {run_s:.2f} s; compressed wire "
         f"{sess.bytes_per_g:.0f} B a Gaussian (raw rows would be "
         f"{4 * (3 + 3 + 4 + 1 + 3 * tree.gaussians.sh.shape[1])} B)")
@@ -957,6 +1029,7 @@ def main() -> int:
     sync_rows = []
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    vq_assign.reset_filter_counts(dev)
     t_fleet = time.perf_counter()
     with contextlib.ExitStack() as patches:
         for mod, name, label in ((LS, "batched_top_and_staleness", "top_and_staleness"),
@@ -1004,6 +1077,7 @@ def main() -> int:
             raise AssertionError("a fleet cut overflowed its cut budget")
         # sizing the render's pair budget projects every queue: not the path
         counts_syncs = K.launch_counts()
+        k5_fleet = require_filtered("fleet", vq_assign.filter_counts(dev))
         queues = [SV._masked_queue(service.tree.gaussians, g) for g in service.state.cut_gids]
         rcfg_f = R.RenderConfig.for_fleet(fleet_rigs, tile=base.tile, list_len=base.list_len)
         fleet_pairs = pow2_at_least(max(pair_total(q, r, rcfg_f)
@@ -1054,21 +1128,51 @@ def main() -> int:
     torch.cuda.synchronize()
     if not (torch.equal(fl, vl) and torch.equal(fr, vr)):
         raise AssertionError("pooled fallback render differs from the per-client render")
+    # the pooled launch keeps the Pallas contract (no flag past a stop), the
+    # per-client render the default path's: every stat but the skipped
+    # count is equal, and the pooled one skips at least as many (its hits
+    # are held exactly against the plain version below)
     for fld in dataclasses.fields(fst):
-        if not torch.equal(getattr(fst, fld.name), getattr(vst, fld.name)):
+        a, b_ = getattr(fst, fld.name), getattr(vst, fld.name)
+        if fld.name == "right_alpha_skipped":
+            if bool((a < b_).any()):
+                raise AssertionError("pooled fallback skips fewer right entries than the "
+                                     "per-client render")
+        elif not torch.equal(a, b_):
             raise AssertionError(f"fallback frame stats differ: {fld.name}")
-    log("[check] pooled fallback render == per-client render, bit for bit")
+    log(f"[check] pooled fallback render == per-client render, bit for bit; "
+        f"right_alpha_skipped per client {fst.right_alpha_skipped.tolist()} (pooled, "
+        f"Pallas contract) vs {vst.right_alpha_skipped.tolist()} (per client, default path)")
+    report["fleet"]["right_alpha_skipped"] = dict(pooled=fst.right_alpha_skipped.tolist(),
+                                                  per_client=vst.right_alpha_skipped.tolist())
     del fl, fr, vl, vr
     # the pooled K2 launch at its fleet shape: time, and a bound over the
     # entries its tiles blend before they stop
     sel = captured.pop("k2_sel")[0][0]
     e2, c2, o2 = (x[sel] for x in captured.pop("k2_slabs"))
-    kw2 = dict(tile=rcfg_f.tile, eps_t=rcfg_f.eps_t)
-    n2 = int(rasterize.rasterize_slabs_plain(e2, c2, o2, with_processed=True, **kw2)[2].sum())
+    kw2 = dict(tile=rcfg_f.tile, eps_t=rcfg_f.eps_t, alpha_min=rcfg_f.alpha_min,
+               alpha_max=rcfg_f.alpha_max)
+    img2, hits2, done2 = rasterize.rasterize_slabs_plain(e2, c2, o2, with_processed=True, **kw2)
+    n2 = int(done2.sum())
     px = kw2["tile"] ** 2
     k2_bound = bound(n2 * 36 + e2.shape[0] * (4 + 8 + px * 12 + e2.shape[1]), n2 * px * 25)
+
     def k2_pooled_call():
         return rasterize.rasterize_slabs(e2, c2, o2, **kw2)
+
+    # the pooled launch's hits (the Pallas contract) at the fleet's shape,
+    # exactly: the per-client render above takes the default path's
+    k_img2, k_hits2 = k2_pooled_call()
+    torch.cuda.synchronize()
+    if not torch.equal(k_hits2, hits2):
+        raise AssertionError(f"pooled K2: hits differ from the plain version on "
+                             f"{int((k_hits2 != hits2).sum())} entries")
+    if not torch.allclose(k_img2, img2, rtol=1e-5, atol=1e-6):
+        raise AssertionError("pooled K2: tile image differs from the plain version beyond "
+                             "rtol 1e-5 / atol 1e-6")
+    log(f"[check] pooled K2 == plain on the fleet's {e2.shape[0]} tiles ({int(hits2.sum())} "
+        "hits, Pallas contract)")
+    del k_img2, k_hits2, img2, hits2, done2
 
     k2_pooled = dict(ms=cuda_ms(torch, k2_pooled_call, REPS),
                      device_ms=device_ms(torch, k2_pooled_call, "rasterize_kernel", n=3))
@@ -1088,7 +1192,9 @@ def main() -> int:
     del e2, c2, o2
 
     (x5, cb5), _ = captured["k5_cold"]
+    vq_assign.reset_filter_counts(dev)
     k5 = vq_assign.vq_assign(x5, cb5)
+    k5_counts = vq_assign.filter_counts(dev)
     p5 = vq_assign.vq_assign_plain(x5, cb5)
     torch.cuda.synchronize()
     if not torch.equal(k5, p5):
@@ -1096,17 +1202,52 @@ def main() -> int:
                              f"{int((k5 != p5).sum())} of {x5.shape[0]} rows")
     m5, d5 = x5.shape
     kc5 = cb5.shape[0]
+    if k5_counts["scanned"] != 0 or k5_counts["filtered"] != m5:
+        raise AssertionError(f"K5: the cold Δ-union's rows did not all take the filter: "
+                             f"{k5_counts}")
+    cand_mean = k5_counts["candidates"] / m5
+    log(f"[check] K5 == plain on the cold sync's Δ-union rows ({m5} x {d5}, {kc5} codes); "
+        f"filtered {k5_counts['filtered']}, full-scan rows {k5_counts['scanned']}, "
+        f"second pass {k5_counts['second_pass']}; candidates a row: mean {cand_mean:.4f}, "
+        f"max {k5_counts['most_candidates']}")
+    # tests/_vq_cases.py at every D: equal codewords, 1-ulp neighbours, dyadic
+    # midpoints, 1e18 and overflow, subnormals, NaN/inf rows and codewords
+    from _vq_cases import DIMS, vq_cases
+    n_vq = 0
+    for d_c in DIMS:
+        for c in vq_cases(d_c):
+            xc, cc = torch.from_numpy(c.x).to(dev), torch.from_numpy(c.codebook).to(dev)
+            vq_assign.reset_filter_counts(dev)
+            kc_ = vq_assign.vq_assign(xc, cc)
+            got = vq_assign.filter_counts(dev)
+            if not torch.equal(kc_, vq_assign.vq_assign_plain(xc, cc)):
+                raise AssertionError(f"K5 case {c.name!r} at D {d_c}: codes differ")
+            if got["scanned"] != c.scanned_rows():
+                raise AssertionError(f"K5 case {c.name!r} at D {d_c}: {got['scanned']} rows "
+                                     f"scanned, want {c.scanned_rows()}")
+            n_vq += 1
+    log(f"[check] K5 == plain on {n_vq} cases of tests/_vq_cases.py at D {DIMS}")
+    k5_call = (lambda: vq_assign.vq_assign(x5, cb5))
     kernels["vq_assign"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/vq_assign.cu",
         replaces="src/repro/kernels/vq_assign.py:41", max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: vq_assign.vq_assign(x5, cb5), REPS),
-        device_ms=device_ms(torch, lambda: vq_assign.vq_assign(x5, cb5), "vq_assign_kernel"),
+        ms=cuda_ms(torch, k5_call, REPS),
+        device_ms=device_ms(torch, k5_call, "vq_filter_kernel"),
         plain_ms=cuda_ms(torch, lambda: vq_assign.vq_assign_plain(x5, cb5), 3),
         library_ms=cuda_ms(torch, lambda: torch.cdist(x5, cb5).argmin(1), REPS),
         bytes=m5 * d5 * 4 + kc5 * d5 * 4 + m5 * 4,
-        ops=m5 * kc5 * (2 * d5 + 2) + kc5 * 2 * d5)
-    log(f"[check] K5 == plain on the cold sync's Δ-union rows ({m5} x {d5}, "
-        f"{kc5} codes)")
+        # one TF32 product, one float32 max a score, the exact rescoring of
+        # this run's candidates (2D + 2 each) and the codebook's norms
+        ops=m5 * kc5 + k5_counts["candidates"] * (2 * d5 + 2) + kc5 * 2 * d5,
+        tf32_ops=2 * m5 * kc5 * d5,
+        # the bound of the same inputs with every score in float32
+        fp32_bound_ms=bound(m5 * d5 * 4 + kc5 * d5 * 4 + m5 * 4,
+                            m5 * kc5 * (2 * d5 + 2) + kc5 * 2 * d5)[0])
+    report["k5"] = dict(cold_union=dict(k5_counts, mean_candidates=cand_mean),
+                        session=k5_session, fleet=k5_fleet, cases=n_vq,
+                        fp32_bound_ms=kernels["vq_assign"]["fp32_bound_ms"])
+    log(f"[check] K5's bound with every score in float32: "
+        f"{kernels['vq_assign']['fp32_bound_ms']:.4f} ms")
 
     if "k6_warm" not in captured:
         raise AssertionError("no warm fleet sync had a stale pair to sweep")
@@ -1149,7 +1290,7 @@ def main() -> int:
 
     for name in ("vq_assign", "lod_pair_sweep"):
         k = kernels[name]
-        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"], k.get("tf32_ops", 0.0))
         log(f"[kernel] {name}: {k['ms']:.4f} ms (events), {fmt_ms(k.get('device_ms'))} "
             f"(device), plain {k['plain_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "

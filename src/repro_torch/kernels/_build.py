@@ -44,12 +44,12 @@ SIGNATURES = {
     "nebula_lod_slab_sweep_smem_bytes": [_I],
     "nebula_lod_pair_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                               _P, _P, _P, _I, _I, _I, _P],
-    "nebula_vq_assign": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "nebula_vq_assign_smem_bytes": [_I, _I],
+    "nebula_vq_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "nebula_vq_assign_smem_bytes": [_I, _I, _I],
     "nebula_preprocess": [*[_P] * 10, *[_F] * 7, _P, _P, _I, _I, _P],
     "nebula_stereo_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nebula_stereo_merge_smem_bytes": [_I, _I],
-    "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P],
     "nebula_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                *[_L] * 12, _I, _I, _F, _P, _I, _I, _I, _I, _P],
 }

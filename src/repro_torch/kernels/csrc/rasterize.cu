@@ -19,27 +19,59 @@
 // cp.async into a double buffer (the next window loads while this one
 // blends) as 48-byte rows [mx, my, ca, cb | cc, r, g, b | opa] read with
 // two 16-byte broadcast loads and one 4-byte load. A partial last window
-// is padded with zero rows, which are exact no-ops (α = 0: T·1 = T and
-// c + (T·0)·0 = c).
+// is padded with rows of zeros and a NaN opacity, which are exact no-ops
+// under any thresholds (α = 0: T·1 = T and c + (T·0)·0 = c).
 //
-// Early exit without a barrier per entry. After the select, α ∈ {0} ∪
-// [1/255, 0.99] (NaN fails `a >= 1/255` and becomes 0), so 1 − α ∈ (0, 1]
-// and T·(1 − α) ≤ T in round-to-nearest: a pixel's T never increases, and
-// once T ≤ eps_t it stays so. "Some pixel of this thread is alive after
-// entry j" is therefore true for j below some index and false from it on,
-// and a thread only has to count the entries of a window after which it
-// was alive. Within the window each thread also keeps a hit mask (bit j:
-// α > 0 at one of its pixels). At the window's end the warps reduce both
-// (__reduce_or_sync / __reduce_max_sync) and meet at one __syncthreads:
-// the block's hit bits are the OR, and the block was alive after entry j
-// of the window iff j < the largest count. If that is below the window's
-// length, the block stopped inside it: every thread restores the
-// (T, c0, c1, c2) saved at the window's start and blends again up to the
-// stop, which is exact and happens at most once a tile. Hit bytes past the
-// stop and past the count are written 0. The α expression is splat_alpha's
-// (repro_torch/render/common.py) in its op order, with expf (no fast math)
-// and --fmad=false, so it rounds as the plain version; 2·conic_b is the
-// only value computed once an entry, and doubling is exact.
+// α thresholds. splat_alpha computes α = min(opa·expf(−power), alpha_max),
+// then 0 unless it is ≥ alpha_min (a NaN fails the test). The kernel
+// computes "pass = a ≥ alpha_min, α = pass ? fminf(a, alpha_max) : 0" and
+// hit = α > 0. The two are equal wherever alpha_min ≤ alpha_max: if a ≥
+// alpha_min then min(a, alpha_max) ≥ alpha_min too, if a < alpha_min then
+// min(a, alpha_max) < alpha_min, and a NaN fails both. The wrapper turns
+// every pair with no α that can pass (alpha_max < alpha_min, or a NaN)
+// into alpha_min = NaN, so nothing passes.
+//
+// Early exit without a barrier per entry. A tile may stop only while a
+// pixel's T cannot increase: with 0 < alpha_min and alpha_max ≤ 1, α ∈
+// {0} ∪ [alpha_min, 1], so 1 − α ∈ [0, 1] and T·(1 − α) ≤ T in
+// round-to-nearest, and once T ≤ eps_t it stays so. "Some pixel of this
+// thread is alive after entry j" is therefore true for j below some index
+// and false from it on, and a thread only has to count the entries of a
+// window after which it was alive. Other thresholds (α < 0 or α > 1
+// possible) set can_stop = 0: every entry up to the count is blended and
+// eps_t is ignored. Within the window each thread also keeps a hit mask
+// (bit j: α > 0 at one of its pixels). At the window's end the warps
+// reduce both (__reduce_or_sync / __reduce_max_sync) and meet at one
+// __syncthreads: the block's hit bits are the OR, and the block was alive
+// after entry j of the window iff j < the largest count. If that is below
+// the window's length, the block stopped inside it: every thread restores
+// the (T, c0, c1, c2) saved at the window's start and blends again up to
+// the stop, which is exact and happens at most once a tile. The α
+// expression is splat_alpha's (repro_torch/render/common.py) in its op
+// order, with expf (no fast math) and --fmad=false, so it rounds as the
+// plain version; 2·conic_b is the only value computed once an entry, and
+// doubling is exact.
+//
+// Hits past the stop. With hits_past_stop = 0 (the reference's Pallas
+// contract) hit bytes past the stop are 0. With hits_past_stop = 1 (the
+// reference's default path, which has no stop) every entry up to the count
+// gets its flag: the stopping window's mask already holds all of its
+// entries (a hit does not depend on T), and the windows after it run a
+// hit-only pass, the α core and the block-wide OR with no T and no color.
+// Hit bytes past the count are 0 in both. The contract is a template
+// argument (kFlagPast), so the Pallas-contract kernel carries none of the
+// hit-only code.
+//
+// The hit-only pass takes a window in up to three stages, each ended by a
+// block-wide OR of the window's bits. First one thread an entry evaluates
+// α at the tile's pixel nearest the splat's centre. The entries no thread
+// found a hit for then take stage 2: every thread evaluates the pixel of
+// its own row nearest the centre in x. The entries still without a hit
+// take stage 3: every thread evaluates all its pixels. Each evaluation is
+// the blend's own ops on that pixel's own position, so it is that pixel's
+// α. This is exact under any thresholds: it never reports a hit it did
+// not compute, and it computes every pixel of the tile before it reports
+// none.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,8 +83,6 @@ constexpr int kW = 8;          // entries blended between two block-wide votes
 constexpr int kCols = 9;       // an entry in device memory
 constexpr int kRow = 12;       // an entry in shared memory (48 B)
 constexpr int kMaxWarps = 32;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -72,7 +102,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage entries [base, base + n) of a tile into a window buffer; rows
-// n..kW-1 are zeroed (no-op entries).
+// n..kW-1 are no-op entries (see the note).
 __device__ __forceinline__ void stage_window(float* buf, const float* E, int base, int n,
                                              int tid, int nthreads) {
   for (int k = tid; k < kW * kCols; k += nthreads) {
@@ -81,7 +111,7 @@ __device__ __forceinline__ void stage_window(float* buf, const float* E, int bas
     if (j < n) {
       cp_async4(dst, E + static_cast<size_t>(base) * kCols + k);
     } else {
-      *dst = 0.0f;
+      *dst = c == 8 ? __int_as_float(0x7fc00000) : 0.0f;  // opacity NaN
     }
   }
 }
@@ -112,11 +142,22 @@ struct Pixels {
   float T, c0, c1, c2;
 };
 
+struct Alpha {
+  float amin, amax;
+};
+
+// α after the thresholds, and whether it is > 0 (see the note above).
+__device__ __forceinline__ float threshold(float a, Alpha t, bool* hit) {
+  const float al = a >= t.amin ? fminf(a, t.amax) : 0.0f;
+  *hit = al > 0.0f;
+  return al;
+}
+
 // Blend one staged entry into a thread's P pixels (one row). Returns
 // whether α > 0 at one of them; `alive` tells whether one has T > eps_t.
 template <int P>
 __device__ __forceinline__ bool blend(const float* row, const float* px, float py,
-                                      float eps_t, Pixels* s, bool* alive) {
+                                      float eps_t, Alpha t, Pixels* s, bool* alive) {
   const float4 e0 = *reinterpret_cast<const float4*>(row);      // mx, my, ca, cb
   const float4 e1 = *reinterpret_cast<const float4*>(row + 4);  // cc, r, g, b
   const float opa = row[8];
@@ -128,11 +169,8 @@ __device__ __forceinline__ bool blend(const float* row, const float* px, float p
   for (int p = 0; p < P; ++p) {
     const float dx = px[p] - e0.x;
     const float power = 0.5f * (e0.z * dx * dx + cb2 * dx * dy + cyy);
-    float a = opa * expf(-power);
-    // == min(a, 0.99) then (>= 1/255 ? : 0), NaN included: a NaN fails the
-    // test; α > 0 exactly where it passes
-    const bool h = a >= kAlphaMin;
-    a = h ? fminf(a, kAlphaMax) : 0.0f;
+    bool h;
+    const float a = threshold(opa * expf(-power), t, &h);
     const float contrib = s[p].T * a;
     s[p].c0 = s[p].c0 + contrib * e1.y;
     s[p].c1 = s[p].c1 + contrib * e1.z;
@@ -145,24 +183,64 @@ __device__ __forceinline__ bool blend(const float* row, const float* px, float p
   return hit;
 }
 
+// The α core of the hit-only pass: α > 0 at pixel x-centre `px` of row
+// `py` (the blend's op order).
+__device__ __forceinline__ bool hit_at(const float4& e0, float cyy, float dy, float opa,
+                                       float px, Alpha t) {
+  const float dx = px - e0.x;
+  const float power = 0.5f * (e0.z * dx * dx + (2.0f * e0.w) * dx * dy + cyy);
+  bool h;
+  threshold(opa * expf(-power), t, &h);
+  return h;
+}
+
+// Stage 2 of the hit-only pass: α > 0 at the thread's pixel nearest the
+// splat's centre in x (pixel p's centre is (tx0 + p + ox) + 0.5, as the
+// blend's). Stage 3 (`all_pixels`): at one of the thread's P pixels.
 template <int P>
+__device__ __forceinline__ bool hit_nearest(const float* row, int tx0, float ox, float py,
+                                            Alpha t) {
+  const float4 e0 = *reinterpret_cast<const float4*>(row);  // mx, my, ca, cb
+  const float dy = py - e0.y;
+  const float cyy = row[4] * dy * dy;
+  const float px0 = (static_cast<float>(tx0) + ox) + 0.5f;
+  // nearest of 0..P-1 (a NaN centre picks 0)
+  const int p = static_cast<int>(fminf(fmaxf(rintf(e0.x - px0), 0.0f), P - 1.0f));
+  return hit_at(e0, cyy, dy, row[8], (static_cast<float>(tx0 + p) + ox) + 0.5f, t);
+}
+
+template <int P>
+__device__ __forceinline__ bool all_pixels(const float* row, const float* px, float py,
+                                           Alpha t) {
+  const float4 e0 = *reinterpret_cast<const float4*>(row);
+  const float dy = py - e0.y;
+  const float cyy = row[4] * dy * dy;
+  bool hit = false;
+#pragma unroll
+  for (int p = 0; p < P; ++p) hit |= hit_at(e0, cyy, dy, row[8], px[p], t);
+  return hit;
+}
+
+template <int P, bool kFlagPast>
 __global__ void rasterize_kernel(const float* __restrict__ entries,
                                  const int32_t* __restrict__ counts,
                                  const int32_t* __restrict__ origins,
                                  float* __restrict__ out,
                                  uint8_t* __restrict__ hits, int L, int tile,
-                                 float eps_t) {
+                                 float eps_t, Alpha thr, int can_stop) {
   static_assert(kW <= 32, "a window's hit bits are one 32-bit mask");
   __shared__ __align__(16) float s_e[2][kW * kRow];
   __shared__ uint32_t s_hit[2][kMaxWarps];
   __shared__ int s_alive[2][kMaxWarps];
+  __shared__ uint32_t s_rest[2][kMaxWarps];  // the hit-only pass's stages 2 and 3
   const int slab = blockIdx.x;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const int pix = tid * P;
   const int ty = pix / tile, tx0 = pix - ty * tile;
   const float ox = static_cast<float>(origins[2 * slab]);
-  const float py = (static_cast<float>(ty) + static_cast<float>(origins[2 * slab + 1])) + 0.5f;
+  const float oy = static_cast<float>(origins[2 * slab + 1]);
+  const float py = (static_cast<float>(ty) + oy) + 0.5f;
   float px[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) px[p] = (static_cast<float>(tx0 + p) + ox) + 0.5f;
@@ -174,7 +252,10 @@ __global__ void rasterize_kernel(const float* __restrict__ entries,
 #pragma unroll
   for (int p = 0; p < P; ++p) s[p] = Pixels{1.0f, 0.0f, 0.0f, 0.0f};
   int written = 0;  // hit bytes [0, written) are final
-  if (1.0f > eps_t && count > 0) {
+  // block-uniform: blending until the tile stops, then (hits_past_stop)
+  // flags only; the tile is tested before its first entry too (T = 1)
+  bool blending = !can_stop || 1.0f > eps_t;
+  if (count > 0 && (blending || kFlagPast)) {
     stage_window(s_e[0], E, 0, min(kW, count), tid, nthreads);
     cp_async_commit();
     if (count > kW) stage_window(s_e[1], E, kW, min(kW, count - kW), tid, nthreads);
@@ -185,18 +266,33 @@ __global__ void rasterize_kernel(const float* __restrict__ entries,
       const int base = win * kW, n = min(kW, count - base), b = win & 1;
       const float* buf = s_e[b];
       Pixels saved[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) saved[p] = s[p];
       uint32_t mask = 0;
       int n_alive = 0;  // entries of the window after which a pixel of mine is alive
+      // (the Pallas contract leaves the loop at the stop: it always blends)
+      if (!kFlagPast || blending) {
 #pragma unroll
-      for (int j = 0; j < kW; ++j) {
-        bool al;
-        if (blend<P>(buf + j * kRow, px, py, eps_t, s, &al)) mask |= 1u << j;
-        n_alive += al ? 1 : 0;
+        for (int p = 0; p < P; ++p) saved[p] = s[p];
+#pragma unroll
+        for (int j = 0; j < kW; ++j) {
+          bool al;
+          if (blend<P>(buf + j * kRow, px, py, eps_t, thr, s, &al))
+            mask |= 1u << j;
+          n_alive += al ? 1 : 0;
+        }
+        n_alive = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(n_alive)));
+      } else if (kFlagPast && tid < n) {  // stage 1: thread j, entry j
+        const float* row = buf + tid * kRow;
+        const float4 e0 = *reinterpret_cast<const float4*>(row);
+        // the tile's pixel nearest the centre: whole numbers 0..tile-1 (a
+        // NaN centre picks 0), so (c + o) + 0.5 is that pixel's centre
+        const float last = static_cast<float>(tile - 1);
+        const float cx = fminf(fmaxf(rintf(e0.x - (ox + 0.5f)), 0.0f), last);
+        const float cy = fminf(fmaxf(rintf(e0.y - (oy + 0.5f)), 0.0f), last);
+        const float dy = ((cy + oy) + 0.5f) - e0.y;
+        if (hit_at(e0, row[4] * dy * dy, dy, row[8], (cx + ox) + 0.5f, thr))
+          mask = 1u << tid;
       }
       mask = __reduce_or_sync(kFull, mask);
-      n_alive = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(n_alive)));
       if (lane == 0) {
         s_hit[b][warp] = mask;
         s_alive[b][warp] = n_alive;
@@ -209,25 +305,50 @@ __global__ void rasterize_kernel(const float* __restrict__ entries,
         mask |= s_hit[b][w];
         n_alive = max(n_alive, s_alive[b][w]);
       }
-      // the block blends entry j + 1 iff it was alive after entry j
-      const bool stopped = n_alive < n;
-      const int done = stopped ? n_alive + 1 : n;
-      if (done < n) {  // blended past the stop: blend again from the window's start
+      // the hit-only pass: entries of the window (not the padding) without a
+      // hit take stage 2, then stage 3
+      uint32_t rest = (blending || !kFlagPast) ? 0u : ((1u << n) - 1u) & ~mask;
 #pragma unroll
-        for (int p = 0; p < P; ++p) s[p] = saved[p];
-        for (int j = 0; j < done; ++j) {
-          bool al;
-          blend<P>(buf + j * kRow, px, py, eps_t, s, &al);
+      for (int stage = 0; stage < 2; ++stage) {
+        if (!kFlagPast || !rest) break;
+        uint32_t more = 0;
+#pragma unroll
+        for (int j = 0; j < kW; ++j) {
+          if (!((rest >> j) & 1u)) continue;
+          const float* row = buf + j * kRow;
+          if (stage == 0 ? hit_nearest<P>(row, tx0, ox, py, thr)
+                         : all_pixels<P>(row, px, py, thr))
+            more |= 1u << j;
         }
+        more = __reduce_or_sync(kFull, more);
+        if (lane == 0) s_rest[stage][warp] = more;
+        __syncthreads();
+        for (int w = 0; w < nwarps; ++w) mask |= s_rest[stage][w];
+        rest &= ~mask;
       }
-      const uint32_t keep = done >= 32 ? kFull : ((1u << done) - 1u);
+      uint32_t keep = kFull;
+      if (!kFlagPast || blending) {
+        // the block blends entry j + 1 iff it was alive after entry j
+        const bool stopped = can_stop && n_alive < n;
+        const int done = stopped ? n_alive + 1 : n;
+        if (done < n) {  // blended past the stop: blend again from the window's start
+#pragma unroll
+          for (int p = 0; p < P; ++p) s[p] = saved[p];
+          for (int j = 0; j < done; ++j) {
+            bool al;
+            blend<P>(buf + j * kRow, px, py, eps_t, thr, s, &al);
+          }
+        }
+        if (!kFlagPast) keep = done >= 32 ? kFull : ((1u << done) - 1u);
+        blending = !stopped;
+      }
       written = min(base + kW, L);
       write_hits(H, base, written, mask & keep, tid, nthreads);
-      if (stopped || base + kW >= count) break;
+      if ((!blending && !kFlagPast) || base + kW >= count) break;
       // every thread is past this window's reads: its buffer takes window + 2
       if (base + 2 * kW < count)
         stage_window(s_e[b], E, base + 2 * kW, min(kW, count - base - 2 * kW), tid,
-                        nthreads);
+                     nthreads);
       cp_async_commit();
     }
   }
@@ -242,11 +363,28 @@ __global__ void rasterize_kernel(const float* __restrict__ entries,
   }
 }
 
-template <int P>
-int launch(int n, int threads, cudaStream_t st, const float* e, const int32_t* c,
-           const int32_t* org, float* out, uint8_t* hits, int L, int tile, float eps_t) {
-  rasterize_kernel<P><<<n, threads, 0, st>>>(e, c, org, out, hits, L, tile, eps_t);
+struct Args {
+  const float* e;
+  const int32_t* c;
+  const int32_t* org;
+  float* out;
+  uint8_t* hits;
+  int L, tile;
+  float eps_t;
+  Alpha thr;
+  int can_stop;
+};
+
+template <int P, bool kFlagPast>
+int launch(int n, int threads, cudaStream_t st, const Args& a) {
+  rasterize_kernel<P, kFlagPast><<<n, threads, 0, st>>>(
+      a.e, a.c, a.org, a.out, a.hits, a.L, a.tile, a.eps_t, a.thr, a.can_stop);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int launch(int n, int threads, cudaStream_t st, const Args& a, bool flag_past) {
+  return flag_past ? launch<P, true>(n, threads, st, a) : launch<P, false>(n, threads, st, a);
 }
 
 // Pixels a thread for a tile side: 4 where tile*tile/4 threads fill whole
@@ -261,19 +399,24 @@ int pixels_per_thread(int tile) {
 
 }  // namespace
 
+// alpha_min/alpha_max: the α thresholds (see the note; the wrapper has
+// mapped a pair under which nothing passes to alpha_min = NaN). can_stop:
+// the tile may stop once max T ≤ eps_t (the wrapper sets it iff 0 <
+// alpha_min and alpha_max ≤ 1). hits_past_stop: flag the entries after a
+// stop too (the reference's default path).
 extern "C" int nebula_rasterize_slabs(const void* entries, const void* counts,
                                       const void* origins, void* out, void* hits,
                                       int n, int L, int tile, float eps_t,
-                                      void* stream) {
+                                      float alpha_min, float alpha_max, int can_stop,
+                                      int hits_past_stop, void* stream) {
   const int p = pixels_per_thread(tile);
   if (p == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = tile * tile / p;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* e = static_cast<const float*>(entries);
-  const int32_t* c = static_cast<const int32_t*>(counts);
-  const int32_t* org = static_cast<const int32_t*>(origins);
-  float* o = static_cast<float*>(out);
-  uint8_t* h = static_cast<uint8_t*>(hits);
-  return p == 4 ? launch<4>(n, threads, st, e, c, org, o, h, L, tile, eps_t)
-                : launch<2>(n, threads, st, e, c, org, o, h, L, tile, eps_t);
+  const Args a{static_cast<const float*>(entries), static_cast<const int32_t*>(counts),
+               static_cast<const int32_t*>(origins), static_cast<float*>(out),
+               static_cast<uint8_t*>(hits), L, tile, eps_t, Alpha{alpha_min, alpha_max},
+               can_stop};
+  const bool f = hits_past_stop != 0;
+  return p == 4 ? launch<4>(n, threads, st, a, f) : launch<2>(n, threads, st, a, f);
 }

@@ -6,15 +6,22 @@ a time) for CUDA tensors and runs `rasterize_slabs_plain` for CPU tensors.
 Input is the pre-gathered entry layout of the reference's Pallas kernel: entries[t, i] = [mean_x, mean_y, conic_a, conic_b, conic_c,
 r, g, b, opacity] (invalid slots carry opacity 0), a count per tile and a
 pixel-space origin per tile. Blending is front to back with the α test of
-`repro_torch.render.common.splat_alpha`; a tile stops once no pixel has
-transmittance above `eps_t` (0.0 is the bitwise mode); with eps_t ≥ 1 it
-blends nothing, as the reference's Pallas kernel, whose while-loop tests
-the transmittance before the first entry. The per-entry hit flag (α > 0
-at some pixel) is what the SRU forwards to the right eye.
+`repro_torch.render.common.splat_alpha` under the given α thresholds. A
+tile stops once no pixel has transmittance above `eps_t` (0.0 stops only
+where every T is 0, which changes no color); with eps_t ≥ 1 it blends
+nothing, as the reference's Pallas kernel, whose while-loop tests the
+transmittance before the first entry. A stop is exact only while T cannot
+increase, so under thresholds that let α leave [0, 1] (`stop_allowed`)
+there is none and `eps_t` is ignored. The per-entry hit flag (α > 0 at
+some pixel) is what the SRU forwards to the right eye: with
+`hits_past_stop=False` (the reference's Pallas contract) the entries after
+a stop get 0, with `hits_past_stop=True` (its default path, which has no
+stop) every entry up to the count gets its flag.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -46,9 +53,17 @@ def tile_origins(n_tiles: int, tiles_x: int, tile: int, device) -> torch.Tensor:
     return torch.stack([(idx % tiles_x) * tile, (idx // tiles_x) * tile], -1).contiguous()
 
 
+def stop_allowed(alpha_min: float, alpha_max: float) -> bool:
+    """Whether a tile may stop early: T never increases iff every α after
+    the thresholds lies in [0, 1], which holds when 0 < alpha_min and
+    alpha_max ≤ 1."""
+    return 0.0 < alpha_min and alpha_max <= 1.0
+
+
 def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
                           origins: torch.Tensor, *, tile: int, eps_t: float = 0.0,
-                          with_processed: bool = False):
+                          alpha_min: float = ALPHA_MIN, alpha_max: float = ALPHA_MAX,
+                          hits_past_stop: bool = False, with_processed: bool = False):
     """The plain version of K2 (the reference's `ref_rasterize_slabs`),
     batched over tiles. Returns (tiles (n, T, T, 3), hits (n, L)), and with
     `with_processed` also the (n,) number of entries each tile blended
@@ -62,8 +77,9 @@ def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
     color = torch.zeros((n, tile, tile, 3), dtype=torch.float32, device=dev)
     t_acc = torch.ones((n, tile, tile), dtype=torch.float32, device=dev)
     hits = torch.zeros((n, l_max), dtype=torch.bool, device=dev)
+    can_stop = stop_allowed(alpha_min, alpha_max)
     # the tile is tested before its first entry too (T = 1 there)
-    alive = torch.full((n,), 1.0 > eps_t, dtype=torch.bool, device=dev)
+    alive = torch.full((n,), 1.0 > eps_t or not can_stop, dtype=torch.bool, device=dev)
     processed = torch.zeros((n,), dtype=torch.int32, device=dev)
     zero = torch.zeros((), device=dev)
     # entries past the largest count are inactive everywhere: they add 0 to
@@ -71,25 +87,39 @@ def rasterize_slabs_plain(entries: torch.Tensor, counts: torch.Tensor,
     steps = min(l_max, int(counts.max())) if n > 0 else 0
     for i in range(steps):
         e = entries[:, i, :]
-        a = entry_alpha(px, py, e[:, None, None, :])
-        active = alive & (i < counts)
-        a = torch.where(active[:, None, None], a, zero)
+        a_raw = entry_alpha(px, py, e[:, None, None, :], alpha_min=alpha_min,
+                            alpha_max=alpha_max)
+        in_count = i < counts
+        active = alive & in_count
+        a = torch.where(active[:, None, None], a_raw, zero)
         contrib = t_acc * a
         color = color + contrib[..., None] * e[:, None, None, 5:8]
         t_acc = t_acc * (1.0 - a)
-        hits[:, i] = active & (a > 0.0).flatten(1).any(1)
+        flagged = in_count if hits_past_stop else active
+        hits[:, i] = flagged & (a_raw > 0.0).flatten(1).any(1)
         processed += active.to(torch.int32)
-        alive = alive & (t_acc.flatten(1).amax(1) > eps_t)
+        if can_stop:
+            alive = alive & (t_acc.flatten(1).amax(1) > eps_t)
     return (color, hits, processed) if with_processed else (color, hits)
 
 
+def _kernel_thresholds(alpha_min: float, alpha_max: float):
+    """(alpha_min, alpha_max) as K2 takes them: a pair under which no α can
+    pass (alpha_max < alpha_min, or a NaN) becomes alpha_min = NaN."""
+    amin, amax = float(alpha_min), float(alpha_max)
+    return (amin if amax >= amin else math.nan), amax
+
+
 def rasterize_slabs(entries: torch.Tensor, counts: torch.Tensor, origins: torch.Tensor,
-                    *, tile: int, eps_t: float = 0.0):
+                    *, tile: int, eps_t: float = 0.0, alpha_min: float = ALPHA_MIN,
+                    alpha_max: float = ALPHA_MAX, hits_past_stop: bool = False):
     """Rasterize tiles, each with its own pixel origin: (tiles (n,T,T,3),
     hits (n,L)). CPU tensors run the plain version; CUDA tensors launch K2."""
     dev = entries.device
     if dev.type == "cpu":
-        return rasterize_slabs_plain(entries, counts, origins, tile=tile, eps_t=eps_t)
+        return rasterize_slabs_plain(entries, counts, origins, tile=tile, eps_t=eps_t,
+                                     alpha_min=alpha_min, alpha_max=alpha_max,
+                                     hits_past_stop=hits_past_stop)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_slabs: unsupported device {dev}")
     n, l_max, cols = entries.shape
@@ -111,9 +141,11 @@ def rasterize_slabs(entries: torch.Tensor, counts: torch.Tensor, origins: torch.
     if n > 0:
         lib = _build.library()
         p = _build.ptr
+        amin, amax = _kernel_thresholds(alpha_min, alpha_max)
         err = lib.nebula_rasterize_slabs(p(entries), p(counts), p(origins), p(out),
-                                         p(hits), n, l_max, tile, float(eps_t),
-                                         _build.stream_handle(dev))
+                                         p(hits), n, l_max, tile, float(eps_t), amin, amax,
+                                         int(stop_allowed(alpha_min, alpha_max)),
+                                         int(hits_past_stop), _build.stream_handle(dev))
         _build.check(err, "nebula_rasterize_slabs")
         rasterize_slabs.launches += 1
     return out, hits
@@ -124,17 +156,14 @@ rasterize_slabs.launches = 0
 
 def rasterize(lists: TileLists, s: Splats, *, width: int, height: int, tile: int,
               eye: str, eps_t: float = 0.0,
-              alpha_min: float = ALPHA_MIN, alpha_max: float = ALPHA_MAX
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              alpha_min: float = ALPHA_MIN, alpha_max: float = ALPHA_MAX,
+              hits_past_stop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile raster of one eye → (image (H, W, 3), α-hit flags (n_tiles, L))."""
-    if (alpha_min, alpha_max) != (ALPHA_MIN, ALPHA_MAX):
-        raise NotImplementedError(
-            "the raster kernel assumes the default α thresholds; got "
-            f"({alpha_min}, {alpha_max})")
     entries, counts = gather_entries(lists, s, eye)
     origins = tile_origins(entries.shape[0], lists.tiles_x, tile, entries.device)
-    tiles_img, hits = rasterize_slabs(entries, counts.contiguous(), origins,
-                                      tile=tile, eps_t=eps_t)
+    tiles_img, hits = rasterize_slabs(entries, counts.contiguous(), origins, tile=tile,
+                                      eps_t=eps_t, alpha_min=alpha_min,
+                                      alpha_max=alpha_max, hits_past_stop=hits_past_stop)
     ty, tx = lists.tiles_y, lists.tiles_x
     img = tiles_img.reshape(ty, tx, tile, tile, 3).permute(0, 2, 1, 3, 4)
     return img.reshape(ty * tile, tx * tile, 3)[:height, :width], hits

@@ -10,7 +10,12 @@ Two paths, the same math:
     (client, eye, tile) slabs of the whole fleet are pooled, repeat-padded
     to a pow2 bucket, and rasterized by ONE K2 launch with per-tile pixel
     origins. Empty tiles and inactive slots never reach the kernel. Tiles
-    are independent, so the result is bit for bit the vmap path's.
+    are independent, so at eps_t = 0 the images are bit for bit the vmap
+    path's. As the reference's pooled path, the launch keeps the Pallas
+    contract: it stops a tile once max T ≤ `cfg.eps_t` and flags no left
+    entry after the stop, so `right_alpha_skipped` can be larger than the
+    vmap path's where a tile saturates. Unlike the reference's pooled path,
+    it honours `cfg`'s α thresholds.
 
 Rigs are batched like the reference's pytrees (`stack_rigs`): the static
 fields (resolution, near/far, baseline) must agree; pose and focal are
@@ -130,7 +135,9 @@ def _pooled_render(queues, rigs, cfg: RenderConfig, *, active=None):
         bucket = ls.pow2_bucket(n_occ, n_slabs)
         sel = occupied[torch.arange(bucket, device=occupied.device) % n_occ]
         tiles_img, hits = kraster.rasterize_slabs(entries[sel], counts[sel], origins[sel],
-                                          tile=cfg.tile, eps_t=cfg.eps_t)
+                                                  tile=cfg.tile, eps_t=cfg.eps_t,
+                                                  alpha_min=cfg.alpha_min,
+                                                  alpha_max=cfg.alpha_max)
         all_img, all_hits = _scatter_slabs(sel, tiles_img, hits, n_slabs=n_slabs,
                                            tile=cfg.tile, l_len=cfg.list_len)
     else:

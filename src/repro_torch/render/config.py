@@ -22,8 +22,10 @@ class RenderConfig:
     list_len:     per-tile depth-list capacity
     max_pairs:    (splat, tile) expansion budget for binning
     n_cat:        stereo line-buffer rows = ⌊max_disparity/tile⌋ + 2
-    alpha_min/alpha_max: α thresholds (the raster kernel assumes the defaults)
-    eps_t:        early-termination transmittance (0.0 = bitwise mode)
+    alpha_min/alpha_max: α thresholds
+    eps_t:        early-termination transmittance of the pooled fleet render
+                  (the session's and the vmapped render have no early stop,
+                  as the reference's default path)
     """
 
     width: int

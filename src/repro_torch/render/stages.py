@@ -129,10 +129,16 @@ def build_plan(queue: Gaussians, rig: StereoRig, cfg: RenderConfig) -> RenderPla
 
 def rasterize(plan: RenderPlan, cfg: RenderConfig
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Rasterize both eyes (K2) → (img_l, img_r, left α-hit flags)."""
-    kw = dict(width=cfg.width, height=cfg.height, tile=cfg.tile, eps_t=cfg.eps_t,
+    """Rasterize both eyes (K2) → (img_l, img_r, left α-hit flags), with
+    the results of the reference's default path (`render_tiles`): its α
+    thresholds, no early stop by `cfg.eps_t` (eps_t 0 stops a tile only
+    once every T is 0, which changes no color), and a left hit flag for
+    every entry up to the count, past a stop too. The right eye's flags
+    are not used, so its tiles keep the cheaper contract."""
+    kw = dict(width=cfg.width, height=cfg.height, tile=cfg.tile, eps_t=0.0,
               alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
-    img_l, hits = kraster.rasterize(plan.left, plan.splats, eye="left", **kw)
+    img_l, hits = kraster.rasterize(plan.left, plan.splats, eye="left",
+                                    hits_past_stop=True, **kw)
     img_r, _ = kraster.rasterize(plan.right, plan.splats, eye="right", **kw)
     return img_l, img_r, hits
 

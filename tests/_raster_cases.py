@@ -132,7 +132,8 @@ class _Tile:
         self.put(i, *self.center(self.tile / 2, self.tile / 2), 1e-6, 0.0, 1e-6, 0.5)
 
 
-def raster_cases(seed: int, tile: int, eps_t: float, l_len: int = 256):
+def raster_cases(seed: int, tile: int, eps_t: float, l_len: int = 256, *,
+                 in_a_row: bool = False):
     """(entries (n, L, 9) float32, counts (n,) int32, origins (n, 2) int32,
     processed (n,) int32, processed_flush (n,) int32): `processed` is the
     number of entries each tile blends before it stops, or -1 where the
@@ -142,7 +143,10 @@ def raster_cases(seed: int, tile: int, eps_t: float, l_len: int = 256):
     tile, in turn), each followed by an entry of α > 0; count 0, −1, L and
     L + 5; tiles that never stop (with count below, at and above L); and
     tiles of random splats with NaN and ±inf conics and NaN and -inf
-    opacities (the killers' opacity is 2 or +inf)."""
+    opacities (the killers' opacity is 2 or +inf). `in_a_row`: tile k sits
+    at origin (k·tile, 0), so the tiles form one row of a tile grid (as a
+    renderer that derives origins from the grid needs), built as without
+    it around those origins."""
     rng = np.random.default_rng(seed)
     k = killers_needed(eps_t)
     # killers that leave T normal and above eps_t in both modes
@@ -151,6 +155,8 @@ def raster_cases(seed: int, tile: int, eps_t: float, l_len: int = 256):
 
     def new_tile():
         ox, oy = (int(v) * tile for v in rng.integers(0, 128, 2))
+        if in_a_row:
+            ox, oy = len(tiles) * tile, 0
         tiles.append(_Tile(rng, tile, ox, oy, l_len))
         return tiles[-1]
 

@@ -47,6 +47,29 @@ def camera_arrays(cam):
     return arrays, meta
 
 
+def saturating_scene(n_front: int, n_back: int, seed: int) -> dict:
+    """Gaussian arrays (`GAUSSIAN_FIELDS`, SH degree 1) seen from (33, 33,
+    1.7) toward (40, 40, 1.5), at focal 200 and 96x64 pixels: a front layer
+    of large Gaussians of opacity 0.99 around (36.5, 36.5, 1.6), and small
+    ones behind it in a 6 m cube around (40, 40, 1.5). Every pixel's
+    transmittance underflows to 0 within the first few dozen entries of
+    most tiles, so those tiles stop early, and the small Gaussians behind
+    come after the stop in every tile that lists them."""
+    rng = np.random.default_rng(seed)
+    n = n_front + n_back
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True) + 1e-12
+    front = rng.uniform(-1.0, 1.0, (n_front, 3)) + [36.5, 36.5, 1.6]
+    back = rng.uniform(-3.0, 3.0, (n_back, 3)) + [40.0, 40.0, 1.5]
+    scale = np.concatenate([rng.uniform(2.0, 4.0, (n_front, 3)),
+                            rng.uniform(0.1, 0.3, (n_back, 3))])
+    opacity = np.concatenate([np.full(n_front, 0.99), rng.uniform(0.5, 0.99, n_back)])
+    return {"mu": np.concatenate([front, back]).astype(np.float32),
+            "log_scale": np.log(scale).astype(np.float32), "quat": quat,
+            "opacity": opacity.astype(np.float32),
+            "sh": rng.normal(0, 0.35, (n, 4, 3)).astype(np.float32)}
+
+
 def to_torch_gaussians(g):
     return convert.gaussians_from_arrays(gaussians_arrays(g), CPU)
 

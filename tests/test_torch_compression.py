@@ -8,6 +8,7 @@ import torch
 
 from _torch_parity import (CPU, assert_close, assert_equal, np_, to_torch_codec,
                            to_torch_gaussians)
+from _vq_cases import DIMS, MAX_NORM, vq_cases
 
 from repro.core import compression as jcomp
 from repro.kernels.vq_assign import vq_assign_pallas
@@ -88,3 +89,84 @@ def test_vq_plain_matches_pallas(d, exact):
     assert_equal(got, want)
     if exact:
         assert int((want < 128).sum()) == 1000  # every tie went to the first block
+
+
+@pytest.mark.parametrize("d", DIMS)
+def test_vq_plain_matches_pallas_on_dyadic_cases(d):
+    """K5's plain version against the Pallas kernel (interpret mode) and the
+    reference's oracle on the dyadic cases of `tests/_vq_cases.py` (every
+    codeword equal, rows at exact midpoints of two codewords, one row and
+    one code), where every summation order gives the same scores: the
+    ties go to the lowest index in all three."""
+    cases = [c for c in vq_cases(d) if c.dyadic]
+    assert len(cases) == 3
+    for c in cases:
+        x, cb = jnp.asarray(c.x), jnp.asarray(c.codebook)
+        got = tvq.vq_assign_plain(torch.from_numpy(c.x), torch.from_numpy(c.codebook))
+        assert_equal(got, vq_assign_pallas(x, cb, interpret=True), c.name)
+        assert_equal(got, jcomp.vq_assign_ref(x, cb), c.name)
+        if c.name == "every codeword equal":
+            assert not bool(got.any())
+
+
+def _tf32(a):
+    """float32 → TF32 (10 explicit mantissa bits), rounding half away from
+    zero, as `cvt.rna.tf32.f32`."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a):
+    """The kernel's two TF32 parts of float32 values, as float64."""
+    hi = _tf32(a)
+    return hi.astype(np.float64), _tf32(np.float32(a) - hi).astype(np.float64)
+
+
+@pytest.mark.parametrize("d", DIMS[1:])
+def test_vq_filter_bound_covers_tf32_and_the_plain_rounding(d):
+    """The bound of `csrc/vq_assign.cu` on every case the filter takes:
+    with the split-TF32 products (lo·hi + hi·lo + hi·hi) summed exactly
+    (float64) and the plain version's own float32 scores, |h_k + s_k/2| ≤
+    E0 = E/2 for every code. Among the codes it keeps (a codeword equal to
+    an earlier one never is one), those within 2E of the best h hold the
+    plain version's answer, and where the best is the only one (the rows
+    the kernel's first pass settles) it is that answer; a zero row's is the
+    first code of least c2. The kernel's MMA adds its accumulation error,
+    which the bound counts, inside the safety factor of 2."""
+    tiny = 2.0 ** -100
+    k_steps = d // 8 + (d % 8 > 4) + (0 < d % 8 <= 4)
+    n_add = 27 * k_steps
+    coef_xc, coef_c2 = (2.02 * n_add + 30) * 2.0 ** -23, (n_add / 2 + 1) * 2.0 ** -23
+    for c in vq_cases(d):
+        if c.x.shape[0] == 0 or not (np.abs(c.codebook.astype(np.float64)) <= MAX_NORM).all():
+            continue
+        x1 = np.abs(c.x).astype(np.float32).sum(1, dtype=np.float32)
+        take = x1 <= MAX_NORM
+        xs = c.x[take]
+        xt, ct = torch.from_numpy(xs), torch.from_numpy(c.codebook)
+        c2 = tvq.codeword_norms(ct)
+        dot = xt[:, 0:1] * ct[None, :, 0]
+        for j in range(1, d):
+            dot = dot + xt[:, j:j + 1] * ct[None, :, j]
+        s = (c2[None, :] - 2.0 * dot).numpy().astype(np.float64)
+        (xh, xl), (ch, cl) = _split(xs), _split(c.codebook)
+        h = xl @ ch.T + xh @ cl.T + xh @ ch.T - c2.numpy().astype(np.float64)[None, :] / 2
+        ss = (xs.astype(np.float32) ** 2).sum(1, dtype=np.float32)
+        xn = np.where(ss >= tiny, 1.0001 * np.sqrt(ss), 1.0001 * x1[take])
+        c2max = float(c2.max())
+        cn = 1.0001 * np.sqrt(c2max) if c2max >= tiny else 7.0 * float(np.abs(c.codebook).max())
+        e = 2.0 * (coef_xc * xn * cn + coef_c2 * c2max + 2.0 ** -120 * (xn + cn) + 2.0 ** -110)
+        assert (np.abs(h + s / 2).max(1) <= e / 2).all(), c.name
+        kc = c.codebook.shape[0]
+        dup = np.array([any((c.codebook[j] == c.codebook[k]).all() for j in range(k))
+                        for k in range(kc)])
+        hk = np.where(dup[None, :], -1e38, h)
+        want = tvq.vq_assign_plain(xt, ct).numpy()
+        zero = x1[take] == 0
+        assert (want[zero] == int(np.argmin(c2.numpy()))).all(), c.name
+        cand = hk >= hk.max(1, keepdims=True) - 2 * e[:, None]
+        assert cand[np.arange(len(want)), want][~zero].all(), c.name
+        alone = (cand.sum(1) == 1) & ~zero
+        assert (hk.argmax(1)[alone] == want[alone]).all(), c.name
+        if c.name == "gaussian":    # the filter settles most ordinary rows alone
+            assert alone.mean() > 0.9, cand.sum(1).mean()

@@ -15,6 +15,9 @@ import torch
 
 from _merge_cases import merge_sources
 from _raster_cases import raster_cases
+from _torch_parity import saturating_scene
+from _vq_cases import DIMS, vq_cases
+from repro_torch import convert, pytree
 from repro_torch import kernels as K
 from repro_torch import render as R
 from repro_torch.core import camera as C
@@ -158,6 +161,73 @@ def test_k2_raster_rejects_what_it_cannot_take(dev):
         rasterize.rasterize_slabs(ent, counts, origins, tile=12)
 
 
+# K2 under the reference's default-path contract (`hits_past_stop`: flags
+# after a stop) and under α thresholds other than the defaults, some of
+# which disable the stop (α > 1, or α < 0 from negative opacities, or
+# alpha_max < 0, under which the rows padding a window must stay no-ops),
+# or let no α pass
+THRESHOLDS = [(0.05, 0.5), (1 / 255, 1.5), (-0.1, 0.99), (-0.5, -0.1), (0.5, 0.1)]
+
+
+@pytest.mark.parametrize("l_len", [256, 45])
+@pytest.mark.parametrize("eps_t", [0.0, 0.02, 1.0])
+@pytest.mark.parametrize("tile", [8, 16, 24, 32])
+def test_k2_raster_adversarial_hits_past_stop(dev, tile, eps_t, l_len):
+    ent, counts, origins, _, _ = raster_cases(tile * 7 + l_len, tile, eps_t, l_len)
+    ent, counts, origins = (torch.from_numpy(x).to(dev) for x in (ent, counts, origins))
+    p_img, p_hits = rasterize.rasterize_slabs_plain(ent, counts, origins, tile=tile,
+                                                    eps_t=eps_t, hits_past_stop=True)
+    img, hits = rasterize.rasterize_slabs(ent, counts, origins, tile=tile, eps_t=eps_t,
+                                          hits_past_stop=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hits, p_hits), int((hits != p_hits).sum())
+    assert torch.allclose(img, p_img, rtol=1e-5, atol=1e-6)
+    _, pallas = rasterize.rasterize_slabs(ent, counts, origins, tile=tile, eps_t=eps_t)
+    assert not bool((pallas & ~hits).any())
+    if 1.0 > eps_t:
+        assert bool((hits & ~pallas).any())
+
+
+@pytest.mark.parametrize("hits_past_stop", [False, True])
+@pytest.mark.parametrize("alpha_min,alpha_max", THRESHOLDS)
+@pytest.mark.parametrize("tile", [8, 16])
+def test_k2_raster_alpha_thresholds(dev, tile, alpha_min, alpha_max, hits_past_stop):
+    ent, counts, origins, _, _ = raster_cases(tile + 3, tile, 0.02, 45)
+    ent[1::5, :, 8] = -0.05            # negative opacities: α < 0 where alpha_min ≤ 0
+    ent, counts, origins = (torch.from_numpy(x).to(dev) for x in (ent, counts, origins))
+    kw = dict(tile=tile, eps_t=0.02, alpha_min=alpha_min, alpha_max=alpha_max,
+              hits_past_stop=hits_past_stop)
+    p_img, p_hits = rasterize.rasterize_slabs_plain(ent, counts, origins, **kw)
+    img, hits = rasterize.rasterize_slabs(ent, counts, origins, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(hits, p_hits), int((hits != p_hits).sum())
+    fin = torch.isfinite(p_img)
+    assert torch.equal(fin, torch.isfinite(img))
+    assert torch.allclose(img[fin], p_img[fin], rtol=1e-5, atol=1e-6)
+
+
+def test_k2_stage_default_path_on_saturated_tiles(dev):
+    """The raster stage on the card (left eye with hits past the stop)
+    against the same stage on the CPU (the plain version), where tiles
+    saturate; and the flags it adds over the Pallas contract."""
+    g = convert.gaussians_from_arrays(saturating_scene(60, 1000, 3), dev)
+    rig = C.StereoRig(left=C.make_camera([33.0, 33.0, 1.7], [40, 40, 1.5], focal_px=200.0,
+                                         width=96, height=64, near=0.2, device=dev),
+                      baseline=0.06)
+    cfg = R.RenderConfig.for_rig(rig, list_len=256, max_pairs=1 << 16)
+    plan = R.build_plan(g, rig, cfg)
+    il, ir, hits = R.rasterize(plan, cfg)
+    pl, pr, phits = R.rasterize(pytree.tree_map(lambda t: t.cpu(), plan), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(hits.cpu(), phits)
+    assert torch.allclose(il.cpu(), pl, rtol=1e-5, atol=1e-6)
+    assert torch.allclose(ir.cpu(), pr, rtol=1e-5, atol=1e-6)
+    ent, counts = rasterize.gather_entries(plan.left, plan.splats, "left")
+    origins = rasterize.tile_origins(ent.shape[0], plan.left.tiles_x, cfg.tile, dev)
+    _, pallas = rasterize.rasterize_slabs(ent, counts.contiguous(), origins, tile=cfg.tile)
+    assert bool((hits & ~pallas).any()) and not bool((pallas & ~hits).any())
+
+
 def _k3_queue(dev, m, k, seed):
     """m random Gaussians around the scene's camera, some behind it."""
     g = G.random_gaussians(np.random.default_rng(seed), m, sh_degree={1: 0, 4: 1, 9: 2}[k],
@@ -268,6 +338,44 @@ def test_k5_vq_assign(dev, d):
     assert vq_assign.vq_assign.launches == before + 1
     assert torch.equal(k, p)
     assert k[:5].tolist() == [17] * 5
+
+
+# K5 (tensor-core filter, exact rescoring) on tests/_vq_cases.py: equal
+# codewords, codewords 1 ulp apart, dyadic midpoints, 1e18 and overflowing
+# scores, subnormals, NaN/inf rows and codewords, Kc 1/7/255/256, M 0/1/65
+@pytest.mark.parametrize("d", DIMS)
+def test_k5_vq_cases(dev, d):
+    for c in vq_cases(d):
+        xt, ct = torch.from_numpy(c.x).to(dev), torch.from_numpy(c.codebook).to(dev)
+        vq_assign.reset_filter_counts(dev)
+        k = vq_assign.vq_assign(xt, ct)
+        p = vq_assign.vq_assign_plain(xt, ct)
+        n = vq_assign.filter_counts(dev)
+        assert torch.equal(k, p), (c.name, int((k != p).sum()))
+        m, scanned = c.x.shape[0], c.scanned_rows()
+        assert (n["scanned"], n["filtered"]) == (scanned, m - scanned), (c.name, n)
+        assert n["candidates"] >= n["filtered"], (c.name, n)
+
+
+def test_k5_scan_kernel_and_unaligned_rows(dev):
+    """A codebook too large for the filter's shared memory (Kc 1200 at
+    D = 45) takes the scan kernel; rows that start off a 16-byte boundary
+    take the filter's 4-byte copies."""
+    rng = np.random.default_rng(5)
+    cb = torch.from_numpy(rng.normal(size=(1200, 45)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(3001, 45)).astype(np.float32)).to(dev)
+    vq_assign.reset_filter_counts(dev)
+    assert torch.equal(vq_assign.vq_assign(x, cb), vq_assign.vq_assign_plain(x, cb))
+    assert vq_assign.filter_counts(dev)["scanned"] == 3001
+    x9 = torch.from_numpy(rng.normal(size=(3001 * 9 + 1,)).astype(np.float32)).to(dev)
+    x9 = x9[1:].view(3001, 9)
+    cb9 = torch.from_numpy(rng.normal(size=(256, 9)).astype(np.float32)).to(dev)
+    assert x9.data_ptr() % 16 != 0
+    vq_assign.reset_filter_counts(dev)
+    assert torch.equal(vq_assign.vq_assign(x9, cb9), vq_assign.vq_assign_plain(x9, cb9))
+    n = vq_assign.filter_counts(dev)
+    assert n["filtered"] == 3001 and n["scanned"] == 0
+    assert n["candidates"] < 2 * 3001, n
 
 
 def test_k6_pair_sweep(scene):

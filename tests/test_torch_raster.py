@@ -10,25 +10,33 @@ import pytest
 import torch
 
 from _raster_cases import raster_cases
-from _torch_parity import (CPU, assert_close, assert_equal, np_, to_torch_splats,
+from _torch_parity import (CPU, assert_close, assert_equal, np_, saturating_scene,
+                           to_torch_gaussians, to_torch_rig, to_torch_splats,
                            to_torch_tile_lists)
 
 from repro.core import binning as jbin
 from repro.core import stereo as jst
 from repro.core.camera import StereoRig, make_camera
-from repro.core.gaussians import random_gaussians
-from repro.core.projection import depth_ranks, project
+from repro.core.gaussians import Gaussians, random_gaussians
+from repro.core.projection import Splats, depth_ranks, project
 from repro.kernels import ops as kops
 from repro.kernels import ref as kref
 from repro.kernels.rasterize import rasterize_slabs_pallas, rasterize_tiles_pallas
+from repro.render import batched as jbatched
+from repro.render import stages as jstages
+from repro.render.config import RenderConfig
 from repro.render.stages import render_tiles as j_render_tiles
 from repro_torch import kernels as tkernels
+from repro_torch import pytree as tpytree
 from repro_torch.core import gaussians as tg
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core.camera import StereoRig as TStereoRig
 from repro_torch.core.camera import make_camera as t_make_camera
 from repro_torch.kernels import rasterize as traster
+from repro_torch.render import batched as tbatched
 from repro_torch.render import stages as tstages
+from repro_torch.render.config import RenderConfig as TRenderConfig
+from repro_torch.render.plan import RenderPlan as TRenderPlan
 
 
 def _scene(n, seed):
@@ -224,3 +232,145 @@ def test_stereo_bit_accurate_in_torch(n, seed, sh_degree, tile):
     assert_equal(ir, ref_r)
     assert float(il.max()) > 0 and float(ir.max()) > 0
 
+
+
+# ---------------------------------------------------------------------------
+# the reference's default path (`render_tiles`): α thresholds, no stop, and
+# a hit flag for every entry up to the count
+# ---------------------------------------------------------------------------
+
+
+def _as_render_tiles_input(ent, counts, tile):
+    """Entry rows as JAX splats (one a row) and one row of tiles whose
+    lists name them in order, up to each count: what `render_tiles` takes
+    for the tiles of `raster_cases(..., in_a_row=True)`."""
+    n, l_len, _ = ent.shape
+    flat = ent.reshape(n * l_len, 9)
+    zeros = np.zeros(n * l_len, np.float32)
+    s = Splats(mean2d=jnp.asarray(flat[:, 0:2]), depth=jnp.asarray(zeros),
+               conic=jnp.asarray(flat[:, 2:5]), ext=jnp.zeros((n * l_len, 2), jnp.float32),
+               color_l=jnp.asarray(flat[:, 5:8]), color_r=jnp.asarray(flat[:, 5:8]),
+               opacity=jnp.asarray(flat[:, 8]), disparity=jnp.asarray(zeros),
+               visible=jnp.ones(n * l_len, bool))
+    kept = np.clip(counts, 0, l_len)
+    idx = np.arange(n * l_len, dtype=np.int32).reshape(n, l_len)
+    lists = np.where(np.arange(l_len)[None, :] < kept[:, None], idx, -1).astype(np.int32)
+    tl = jbin.TileLists(lists=jnp.asarray(lists), counts=jnp.asarray(kept.astype(np.int32)),
+                        overflow=jnp.asarray(False), tiles_x=n, tiles_y=1)
+    return s, tl
+
+
+@pytest.mark.parametrize("l_len", [256, 45])
+@pytest.mark.parametrize("eps_t", [0.0, 0.02, 1.0])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_raster_hits_past_stop_plain_matches_render_tiles(tile, eps_t, l_len):
+    """K2's plain version with `hits_past_stop` on `tests/_raster_cases.py`
+    against the reference's default path (`render_tiles`, which has no stop
+    and no eps_t): hits exact at every eps_t, entries after each designed
+    stop (α > 0 right after it) included. At eps_t = 0 the images agree
+    within tolerance: XLA's subnormal flush moves only colours."""
+    ent, counts, origins, want, _ = raster_cases(tile * 7 + l_len, tile, eps_t, l_len,
+                                                 in_a_row=True)
+    img, hits = traster.rasterize_slabs_plain(
+        torch.from_numpy(ent), torch.from_numpy(counts), torch.from_numpy(origins),
+        tile=tile, eps_t=eps_t, hits_past_stop=True)
+    s, tl = _as_render_tiles_input(ent, counts, tile)
+    n = ent.shape[0]
+    ref_img, ref_hits = j_render_tiles(tl, s, width=n * tile, height=tile, tile=tile,
+                                       eye="left")
+    assert_equal(hits, ref_hits)
+    stopped = (want >= 0) & (want < np.clip(counts, 0, l_len))
+    assert bool(hits[torch.from_numpy(stopped)].any())    # flags past a stop
+    if eps_t == 0.0:
+        ref_tiles = np.asarray(ref_img).reshape(tile, n, tile, 3).transpose(1, 0, 2, 3)
+        assert_close(img, ref_tiles, 1e-5, 1e-6)
+    _, pallas_hits = traster.rasterize_slabs_plain(
+        torch.from_numpy(ent), torch.from_numpy(counts), torch.from_numpy(origins),
+        tile=tile, eps_t=eps_t)
+    assert bool((hits & ~pallas_hits).any()) and not bool((pallas_hits & ~hits).any())
+
+
+@pytest.fixture(scope="module")
+def saturated_plan():
+    """The JAX plan of `saturating_scene` (many left tiles stop early)."""
+    g = Gaussians(**{k: jnp.asarray(v) for k, v in saturating_scene(60, 1000, 3).items()})
+    rig = StereoRig(left=make_camera([33.0, 33.0, 1.7], [40, 40, 1.5], focal_px=200.0,
+                                     width=96, height=64, near=0.2), baseline=0.06)
+    cfg = RenderConfig.for_rig(rig, tile=16, list_len=256, max_pairs=1 << 16)
+    return g, rig, cfg, jstages.build_plan(g, rig, cfg)
+
+
+def _to_torch_plan(plan):
+    return TRenderPlan(splats=to_torch_splats(plan.splats),
+                       ranks=torch.from_numpy(np_(plan.ranks).copy()),
+                       left=to_torch_tile_lists(plan.left),
+                       right=to_torch_tile_lists(plan.right))
+
+
+@pytest.mark.parametrize("alpha_min,alpha_max,eps_t,negative", [
+    (1 / 255, 0.99, 0.0, False),
+    (1 / 255, 0.99, 0.02, False),     # eps_t: ignored, as the default path ignores it
+    (0.05, 0.5, 0.0, False),
+    (1 / 255, 1.0, 0.02, False),
+    (1 / 255, 1.5, 0.0, False),       # alpha_max > 1: no stop
+    (-0.1, 0.99, 0.0, True),          # α < 0 from negative opacities: no stop
+], ids=["default", "eps_t", "override", "alpha_max_1", "alpha_max_1.5", "negative"])
+def test_stage_matches_render_tiles(saturated_plan, alpha_min, alpha_max, eps_t, negative):
+    """The port's raster stage (the session's and the vmapped fleet's)
+    against the JAX stage's default path on the same plan, where tiles
+    saturate: hits exact, images within the session's tolerance, under α
+    overrides, eps_t > 0 and thresholds that disable the early stop."""
+    _g, _rig, cfg, plan = saturated_plan
+    if negative:
+        opa = np.asarray(plan.splats.opacity).copy()
+        opa[::7] = -0.05
+        plan = dataclasses.replace(plan, splats=dataclasses.replace(
+            plan.splats, opacity=jnp.asarray(opa)))
+    cfg = dataclasses.replace(cfg, alpha_min=alpha_min, alpha_max=alpha_max, eps_t=eps_t)
+    tcfg = TRenderConfig(**dataclasses.asdict(cfg))
+    tplan = _to_torch_plan(plan)
+    il, ir, hits = tstages.rasterize(tplan, tcfg)
+    jl, jr, jhits = jstages.rasterize(plan, cfg)
+    assert_equal(hits, jhits)
+    assert_close(il, jl, 1e-4, 1e-5)
+    assert_close(ir, jr, 1e-4, 1e-5)
+    assert bool(hits.any()) and float(il.max()) > 0
+    ent, counts = traster.gather_entries(tplan.left, tplan.splats, "left")
+    origins = traster.tile_origins(ent.shape[0], tplan.left.tiles_x, cfg.tile, CPU)
+    _, p_hits, done = traster.rasterize_slabs_plain(
+        ent, counts, origins, tile=cfg.tile, eps_t=eps_t, alpha_min=alpha_min,
+        alpha_max=alpha_max, with_processed=True)
+    stops = bool((done < counts.clamp(0, ent.shape[1])).any())
+    if traster.stop_allowed(alpha_min, alpha_max):
+        assert stops or alpha_max < 0.9      # at alpha_max 0.5 no tile saturates
+    else:
+        assert not stops
+    assert stops == bool((hits != p_hits).any())   # the Pallas contract's flags differ
+
+
+def test_pooled_alpha_thresholds_are_a_fault_of_the_reference(saturated_plan):
+    """JAX's pooled fleet render calls the Pallas raster without `cfg`'s α
+    thresholds (`src/repro/render/batched.py:214`), so under an override
+    its frames are those of the default thresholds, not the vmap path's.
+    The port's pooled render honours them: its frames equal its vmap
+    path's bit for bit and the JAX vmap path's within tolerance."""
+    g, rig, cfg, _plan = saturated_plan
+    cfg = dataclasses.replace(cfg, list_len=64, alpha_min=0.05, alpha_max=0.5)
+    queues = jbatched.stack_pytrees([g])
+    rigs = jbatched.stack_rigs([rig])
+    jp_l, jp_r, _ = jbatched.batched_render_stereo(queues, rigs, cfg, path="pooled")
+    jv_l, jv_r, _ = jbatched.batched_render_stereo(queues, rigs, cfg, path="vmap")
+    jd_l, _, _ = jbatched.batched_render_stereo(
+        queues, rigs, dataclasses.replace(cfg, alpha_min=1 / 255, alpha_max=0.99),
+        path="vmap")
+    assert float(np.abs(np.asarray(jp_l) - np.asarray(jv_l)).max()) > 0.01
+    assert_close(torch.from_numpy(np.asarray(jp_l).copy()), jd_l, 1e-4, 1e-5)
+    tcfg = TRenderConfig(**dataclasses.asdict(cfg))
+    tq = tpytree.stack([to_torch_gaussians(g)])
+    trig = tbatched.stack_rigs([to_torch_rig(rig)])
+    tp_l, tp_r, _ = tbatched.batched_render_stereo(tq, trig, tcfg, path="pooled")
+    tv_l, tv_r, _ = tbatched.batched_render_stereo(tq, trig, tcfg, path="vmap")
+    assert_equal(tp_l, tv_l)
+    assert_equal(tp_r, tv_r)
+    assert_close(tp_l, jv_l, 1e-4, 1e-5)
+    assert_close(tp_r, jv_r, 1e-4, 1e-5)

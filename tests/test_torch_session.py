@@ -4,23 +4,28 @@ trajectory, built through `repro_torch.convert`, with raw Δcut rows
 (`use_compression=False`) and with the default compressed wire."""
 
 import dataclasses
+from unittest import mock
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (CPU, assert_close, assert_equal, to_torch_codec, to_torch_rig,
-                           to_torch_tree)
+from _torch_parity import (CPU, assert_close, assert_equal, saturating_scene, to_torch_codec,
+                           to_torch_rig, to_torch_tree)
 
 from repro.core import compression as jcomp
 from repro.core import pipeline as jpipe
 from repro.core.camera import StereoRig, TrajectoryConfig, make_camera, walk_trajectory
-from repro.core.gaussians import CityConfig, generate_city
+from repro.core.gaussians import CityConfig, Gaussians, generate_city
 from repro.core.lod_tree import build_lod_tree
 from repro_torch import kernels as tkernels
 from repro_torch.core import compression as tcomp
 from repro_torch.core import pipeline as tpipe
+from repro_torch.core.stereo import alpha_skip_stats
+from repro_torch.kernels import rasterize as traster
 from repro_torch.kernels.vq_assign import vq_assign_plain
+from repro_torch.render import stages as tstages
 
 N_FRAMES = 9
 
@@ -170,3 +175,57 @@ def test_compressed_session_exact_over_frames(setup):
         assert_close(tout[0], jout[0], 1e-4, 1e-5)
         assert_close(tout[1], jout[1], 1e-4, 1e-5)
     assert ts.sync_index == 3
+
+
+SAT_CFG = dict(tau=32.0, w=2, w_star=2, cut_budget=2048, tile=16, list_len=256,
+               max_pairs=1 << 16, use_compression=False)
+
+
+@pytest.fixture(scope="module")
+def saturating():
+    """A tree over `saturating_scene` and a short walk: many left tiles
+    stop before the end of their lists."""
+    leaves = Gaussians(**{k: jnp.asarray(v)
+                          for k, v in saturating_scene(60, 1000, 3).items()})
+    tree = build_lod_tree(leaves, target_subtrees=16, seed=0)
+    rigs = [StereoRig(left=make_camera([33.0 + 0.3 * i, 33.0, 1.7], [40, 40, 1.5],
+                                       focal_px=200.0, width=96, height=64, near=0.2),
+                      baseline=0.06) for i in range(5)]
+    return tree, to_torch_tree(tree), rigs
+
+
+def test_session_stats_exact_where_tiles_saturate(saturating):
+    """Where left tiles stop early, the session's StepStats still equal the
+    JAX session's, `right_alpha_skipped` included: the port's raster stage
+    flags the entries after a stop as the reference's default path does
+    (which has no stop). The fixture is checked to stop tiles, and to give
+    another `right_alpha_skipped` under the Pallas contract's flags."""
+    tree, ttree, rigs = saturating
+    js = jpipe.CollaborativeSession(tree, jpipe.SessionConfig(**SAT_CFG), rigs[0])
+    ts = tpipe.CollaborativeSession(ttree, tpipe.SessionConfig(**SAT_CFG),
+                                    to_torch_rig(rigs[0]), device=CPU)
+    plans = []
+
+    def keep_plan(plan, cfg):
+        plans.append(plan)
+        return stage(plan, cfg)
+
+    stage = tstages.rasterize
+    stopped = pallas_differs = 0
+    with mock.patch.object(tstages, "rasterize", keep_plan):
+        for rig in rigs:
+            jst, jout = js.step(rig, render=True)
+            tst, tout = ts.step(to_torch_rig(rig), render=True)
+            assert dataclasses.asdict(tst) == dataclasses.asdict(jst), tst.frame
+            assert dataclasses.asdict(tout[2][3]) == dataclasses.asdict(jout[2][3])
+            assert_close(tout[0], jout[0], 1e-4, 1e-5)
+            assert_close(tout[1], jout[1], 1e-4, 1e-5)
+            plan = plans[-1]
+            ent, counts = traster.gather_entries(plan.left, plan.splats, "left")
+            origins = traster.tile_origins(ent.shape[0], plan.left.tiles_x, 16, CPU)
+            _, hits, done = traster.rasterize_slabs_plain(ent, counts, origins, tile=16,
+                                                          with_processed=True)
+            stopped += int((done < counts.clamp(0, ent.shape[1])).sum())
+            pallas = alpha_skip_stats(plan.left, plan.right, hits, plan.splats)
+            pallas_differs += pallas.right_alpha_skipped != tout[2][3].right_alpha_skipped
+    assert stopped > 0 and pallas_differs > 0, (stopped, pallas_differs)
