@@ -51,7 +51,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      float32), a gemma3-4b local layer (head dim 320, window 1024; bf16 and
      float32) and a non-causal one, each shape taken from its config, and
      time each beside its bound and `scaled_dot_product_attention` (K7's
-     share of its bound, and its time over the library call's).
+     share of its bound, and its time over the library call's);
+ 11. (run after phase 8, on phase 7's scene, before the LM phases free it)
+     the ragged fleet, with the counters set to 0 first: a pooled service of
+     8 clients at capacity 8 (max_clients 16, bandwidth tiers phone /
+     headset / tethered, phase 7's foveated τ) on seeded walks takes 2 syncs,
+     4 admits (the first grows the slots to 16), 2 syncs, 3 evicts and an
+     admit into a recycled slot, a seeded lost page and its NACK, syncs until
+     that client's debt is repaid, evicts to 8 clients, a pooled fallback
+     render with 8 free slots, a shrink to 8 slots, 2 syncs, 24 deadline
+     scheduler ticks on straggler and bursty motion (beside lockstep syncs
+     on the same motion) and one more pooled render. A vmapped service (K1)
+     takes the same script up to the scheduler and must equal it after every
+     sync (cuts, debt, fleet leaves, every stats column, `sync_bytes` bit for
+     bit); the survivors' cuts must not move across the shrink; the NACKed
+     client's resident count must equal a loss-free run's once its debt is
+     repaid; each render must equal the per-client render bit for bit, its
+     free slots black; K6 (its largest launch and its first at a clamp) and
+     K5 (its largest) must equal their plain versions on the path's inputs.
+     K6 must launch on every pooled sync with stale pairs, K5 on every sync,
+     K2 once a render. The check services', the pair sizing's and the
+     reference renders' launches are counted apart, not as the path's.
+     It prints the lifecycle events' times, the warm sync at capacity 16,
+     each tier's allowance and τ scale, the scheduler's and lockstep's MTP
+     p50/p99 and miss rates and the distinct K5/K6 launch sizes, each with
+     the card's name and power limit.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
@@ -268,6 +292,477 @@ def ptxas_report(text: str) -> list:
 def rel_err(a, b) -> float:
     """max |a - b| over the largest |b|."""
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+RAGGED_START = 8             # phase 11: clients at the start (capacity 8)
+RAGGED_MAX = 16              # phase 11: max_clients
+RAGGED_TIERS = ("phone", "headset", "tethered")   # client c's tier: c mod 3
+RAGGED_TICKS = 24            # phase 11: scheduler ticks on the real clock
+RAGGED_NACK_SYNCS = 48       # phase 11: at most this many syncs to repay the NACK
+RAGGED_SEED = 11
+
+
+def ragged_fleet(torch, dev, tree, extent, base, focal, width, height, pair_total,
+                 card) -> dict:
+    """Phase 11 of the module docstring, on phase 7's scene (`tree`,
+    `extent`, its rig size and focal). Raises on a failed check; returns the
+    phase's report, with the launch counts of all of it under "counts"."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch import render as R
+    from repro_torch.core import camera as C
+    from repro_torch.core import compression as CP
+    from repro_torch.core import lod_search as LS
+    from repro_torch.core import pipeline as P
+    from repro_torch.kernels import lod_cut, vq_assign
+    from repro_torch.serve import lod_service as SV
+    from repro_torch.serve import scheduler as SCH
+
+    K.reset_launch_counts()
+    w, (ex, ey) = base.w, extent
+    rng = np.random.default_rng(RAGGED_SEED)
+    n_walk = RAGGED_START + 5
+    n_frames = (7 + RAGGED_NACK_SYNCS) * w + 1
+    walks = [np.stack([cam.pos.numpy() for cam in C.walk_trajectory(
+        C.TrajectoryConfig(seed=c), n_frames, extent, focal_px=focal, width=width,
+        height=height, device="cpu")]).astype(np.float32) for c in range(n_walk)]
+
+    def tier(c):
+        return RAGGED_TIERS[c % 3]
+
+    def tau(c):
+        return 48.0 if c % 2 == 0 else 84.0
+
+    # the scheduler's motion, in the city's frame: 2 stragglers teleporting
+    # about the centre at eye height, 6 bursty heads from where they stand
+    centre = np.asarray([ex / 2, ey / 2, 1.7], np.float32)
+    lo = np.asarray([0.02 * ex, 0.02 * ey, 1.2], np.float32)
+    hi = np.asarray([0.98 * ex, 0.98 * ey, 3.0], np.float32)
+    strag = [SCH.straggler_path(rng, RAGGED_TICKS, teleport_every=4,
+                                extent=0.4 * min(ex, ey)) for _ in range(2)]
+    strag = [np.concatenate([p[:, :2] + centre[:2], np.full((RAGGED_TICKS, 1), 1.7)],
+                            axis=1).astype(np.float32) for p in strag]
+    burst_steps = [SCH.bursty_motion_path(rng, RAGGED_TICKS, speed=0.8, burst_prob=0.2,
+                                          burst_scale=12.0) for _ in range(6)]
+    deliver = np.ones((RAGGED_TICKS, RAGGED_START), bool)
+    deliver[:, :6] = SCH.poisson_arrivals(rng, 1.0, RAGGED_TICKS * 6).reshape(
+        RAGGED_TICKS, 6) > 0
+
+    # cut budget: the largest cut at any position the phase visits (walks at
+    # their first, middle and last frame; the scheduler's motion from the
+    # walks' middle), as a power of two; an overflow later fails the phase
+    probe = [(walks[c][f], tau(c)) for c in range(n_walk)
+             for f in (0, n_frames // 2, n_frames - 1)]
+    probe += [(p[t], 84.0) for p in strag for t in range(RAGGED_TICKS)]
+    probe += [(np.clip(walks[c][n_frames // 2] + b[t], lo, hi), 48.0)
+              for c, b in enumerate(burst_steps) for t in range(RAGGED_TICKS)]
+    max_cut = max(int(LS.full_search(tree, torch.as_tensor(pos, device=dev), focal,
+                                     t_)[0].count()) for pos, t_ in probe)
+    cfg = P.SessionConfig(tau=48.0, w=w, w_star=32, cut_budget=pow2_at_least(max_cut))
+    K.reset_launch_counts()
+    log(f"[ragged] {len(probe)} probe positions: largest cut {max_cut} -> cut_budget "
+        f"{cfg.cut_budget}; {RAGGED_START} clients at capacity {RAGGED_START}, "
+        f"max_clients {RAGGED_MAX}, tiers {RAGGED_TIERS} by client id mod 3")
+
+    # what the check services, the render's pair sizing and the reference
+    # renders launch is not the path: it is counted here and subtracted
+    aside = dict.fromkeys(K.launch_counts(), 0)
+    checking = [False]
+
+    @contextlib.contextmanager
+    def not_the_path():
+        before = K.launch_counts()
+        checking[0] = True
+        try:
+            yield
+        finally:
+            checking[0] = False
+            for name, n in K.launch_counts().items():
+                aside[name] += n - before[name]
+
+    def make(mode):
+        return SV.LodService(tree, cfg, RAGGED_START, focal=focal, mode=mode,
+                             taus=[tau(c) for c in range(RAGGED_START)],
+                             capacity=RAGGED_START, max_clients=RAGGED_MAX,
+                             bandwidth=[tier(c) for c in range(RAGGED_START)])
+
+    pooled = make("pooled")
+    with not_the_path():
+        others = {"vmapped": make("vmapped"), "lossfree": make("pooled")}
+    for svc in others.values():
+        svc.codec = pooled.codec
+    # the sizes K6 and K5 are launched at on the path, and the caps their
+    # pow2 buckets are clamped to (the pool of (slot, slab) pairs; the
+    # Δ-stream budget); the arguments of each one's largest launch and of
+    # its first launch at a clamp, held against the plain version after
+    shapes = {"k6_pairs": set(), "k5_rows": set()}
+    caps = {"k6_pairs": set(), "k5_rows": set()}
+    kept = {"k6_pairs": {}, "k5_rows": {}}
+
+    def recorder(key, fn, dim):
+        def run(*a, **kw):
+            if not checking[0]:
+                n = int(a[0].shape[dim])
+                shapes[key].add(n)
+                caps["k6_pairs"].add(pooled.capacity * tree.meta.Ns)
+                caps["k5_rows"].add(pooled.delta_budget)
+                if n > kept[key].get("largest", (0,))[0]:
+                    kept[key]["largest"] = (n, a, kw)
+                if n & (n - 1) and "clamped" not in kept[key]:
+                    kept[key]["clamped"] = (n, a, kw)
+            return fn(*a, **kw)
+        return run
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def both(op, *args):
+        """A lifecycle op on the pooled service (timed), then on the others."""
+        out, ms = timed(lambda: getattr(pooled, op)(*args))
+        with not_the_path():
+            for svc in others.values():
+                if getattr(svc, op)(*args) != out:
+                    raise AssertionError(f"{op}{args}: the services disagree")
+        return out, ms
+
+    def check_kernels(stats, before, what):
+        after = K.launch_counts()
+        k6 = after["lod_pair_sweep"] - before["lod_pair_sweep"]
+        k5 = after["vq_assign"] - before["vq_assign"]
+        stale = int(stats.resweeps.sum())
+        if k6 != (1 if stale else 0) or k5 < 1:
+            raise AssertionError(f"{what}: {stale} stale pairs, K6 launched {k6} times, "
+                                 f"K5 {k5}")
+        return stale
+
+    def agree(a, b, what, sa=None, sb=None):
+        for fld in dataclasses.fields(sa) if sa is not None else ():
+            if not torch.equal(getattr(sa, fld.name), getattr(sb, fld.name)):
+                raise AssertionError(f"{what}: pooled and vmapped {fld.name} differ")
+        for name, x, y in (("cut ids", a.state.cut_gids, b.state.cut_gids),
+                           ("pending", a.state.pending, b.state.pending),
+                           *((f"fleet {f.name}", getattr(a.state.fleet, f.name),
+                              getattr(b.state.fleet, f.name))
+                             for f in dataclasses.fields(a.state.fleet))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: pooled and vmapped {name} differ")
+        if not (np.array_equal(a._allowance, b._allowance)
+                and np.array_equal(a._tau_scale, b._tau_scale)):
+            raise AssertionError(f"{what}: pooled and vmapped controllers differ")
+
+    rows, trajectory, sync_t = [], {t: [] for t in RAGGED_TIERS}, [0]
+
+    def sync(what):
+        t = sync_t[0]
+        sync_t[0] += 1
+        cams = {c: walks[c][t * w] for c in pooled.active_ids}
+        before = K.launch_counts()
+        st, ms = timed(lambda: pooled.sync(cams))
+        stale = check_kernels(st, before, what)
+        if bool(st.overflow.any()):
+            raise AssertionError(f"{what}: a cut overflowed {cfg.cut_budget}")
+        with not_the_path():
+            if "vmapped" in others:
+                agree(pooled, others["vmapped"], what, st, others["vmapped"].sync(cams))
+            if "lossfree" in others:
+                others["lossfree"].sync(cams)
+        batch = pooled.last_delta
+        row = dict(what=what, ms=ms, capacity=pooled.capacity, live=pooled.n_clients,
+                   stale_pairs=stale, union=int(batch.n_union),
+                   width=int(batch.union_gids.shape[0]), pages=int(batch.pages),
+                   shipped=int(st.delta_shipped.sum()),
+                   deferred=int(st.delta_deferred.sum()))
+        rows.append(row)
+        for c in (0, 1, 2):
+            _target, allow, scale = pooled.client_bandwidth(c)
+            trajectory[tier(c)].append((allow, scale))
+        log(f"[ragged sync {t}] on {card}: {what}: {ms:.2f} ms, {row['live']} live in "
+            f"{row['capacity']} slots; stale pairs {stale}; Δ-union {row['union']} in "
+            f"width {row['width']}, {row['pages']} pages; shipped {row['shipped']}, "
+            f"owed {row['deferred']}")
+        return st
+
+    def rigs_of(ids):
+        """A rig for each live client, looking at the city's centre from
+        where the service last synced it."""
+        rigs = []
+        for c in ids:
+            pos = pooled._slot_cams[pooled._slot_of(c)]
+            target = centre if np.linalg.norm(centre[:2] - pos[:2]) > 1.0 else pos + [10, 10, 0]
+            rigs.append(C.StereoRig(left=C.make_camera(pos, target, focal_px=focal,
+                                                       width=width, height=height,
+                                                       near=0.25, device=dev),
+                                    baseline=0.06))
+        return rigs
+
+    renders = []
+
+    def render(what):
+        """One pooled fallback render of the live clients (one K2 launch),
+        held bit for bit against the per-client render of the same service;
+        a free slot's frames must be black."""
+        ids = pooled.active_ids
+        rigs = rigs_of(ids)
+        with not_the_path():   # sizing the pair budget projects every queue
+            rc = R.RenderConfig.for_fleet(rigs, tile=base.tile, list_len=base.list_len)
+            max_pairs = pow2_at_least(max(
+                pair_total(SV._masked_queue(tree.gaussians, pooled.client_cut(c)), r, rc)
+                for c, r in zip(ids, rigs)))
+        before = K.launch_counts()["rasterize_slabs"]
+        (fl, fr, fst), ms = timed(lambda: pooled.render_fallback(
+            rigs, list_len=base.list_len, max_pairs=max_pairs, path="pooled"))
+        k2 = K.launch_counts()["rasterize_slabs"] - before
+        if k2 != 1:
+            raise AssertionError(f"{what}: the pooled render launched K2 {k2} times, not once")
+        with not_the_path():
+            vl, vr, vst = pooled.render_fallback(rigs, list_len=base.list_len,
+                                                 max_pairs=max_pairs, path="vmap")
+            torch.cuda.synchronize()
+        if tuple(fl.shape) != (pooled.capacity, height, width, 3) or not (
+                torch.isfinite(fl).all() and torch.isfinite(fr).all()):
+            raise AssertionError(f"{what}: shape {tuple(fl.shape)} or non-finite")
+        live = torch.as_tensor(pooled._active, device=dev)
+        if bool(fl[~live].any()) or bool(fr[~live].any()):
+            raise AssertionError(f"{what}: a free slot's frame is not black")
+        if not (torch.equal(fl, vl) and torch.equal(fr, vr)):
+            raise AssertionError(f"{what}: the pooled render differs from the per-client one")
+        # as in phase 8: the pooled launch keeps the Pallas contract (no flag
+        # past a stop), so it skips at least as many right entries
+        for fld in dataclasses.fields(fst):
+            a, b_ = getattr(fst, fld.name), getattr(vst, fld.name)
+            if not (bool((a >= b_).all()) if fld.name == "right_alpha_skipped"
+                    else torch.equal(a, b_)):
+                raise AssertionError(f"{what}: frame stats differ from the per-client "
+                                     f"render: {fld.name}")
+        blank = int((fl[live].flatten(1).amax(1) <= 0).sum())
+        if blank == len(ids):
+            raise AssertionError(f"{what}: every live client's frame is blank")
+        renders.append(dict(what=what, ms=ms, live=len(ids), capacity=pooled.capacity,
+                            max_pairs=max_pairs, blank_frames=blank))
+        log(f"[ragged] on {card}: {what}: pooled render of {len(ids)} clients in {pooled.capacity} "
+            f"slots (max_pairs {max_pairs}) {ms:.1f} ms, {blank} live frames blank; free "
+            f"slots black; equal to the per-client render bit for bit")
+
+    events = {}
+    with contextlib.ExitStack() as patches:
+        patches.enter_context(mock.patch.object(
+            SV, "lod_pair_sweep", recorder("k6_pairs", SV.lod_pair_sweep, 0)))
+        patches.enter_context(mock.patch.object(
+            CP, "vq_assign", recorder("k5_rows", CP.vq_assign, 0)))
+        # 1-3: two syncs, four admits (the first grows 8 -> 16), two syncs
+        for _ in range(2):
+            sync("start")
+        for k in range(4):
+            c = pooled._next_id
+            cid, ms = both("admit", walks[c][sync_t[0] * w], tau(c), True, tier(c))
+            events.setdefault("admit_growing" if k == 0 else "admit_in_bucket", []).append(ms)
+            if pooled.capacity != 16:
+                raise AssertionError(f"admit {cid}: capacity {pooled.capacity}, not 16")
+        sync("after admits (cold for 4)")
+        sync("warm, 4 slots free")
+        warm16_ms = rows[-1]["ms"]
+        # 4: three evicts, an admit into a recycled slot
+        for c in (3, 4, 8):
+            events.setdefault("evict", []).append(both("evict", c)[1])
+        c = pooled._next_id
+        cid, ms = both("admit", walks[c][sync_t[0] * w], tau(c), True, tier(c))
+        events["admit_in_bucket"].append(ms)
+        slot = pooled._slot_of(cid)
+        if int(pooled.state.fleet.generation[slot]) < 2:
+            raise AssertionError(f"client {cid} did not land in a recycled slot")
+        # 5: one seeded page of one client (headset or tethered) lost; NACK
+        batch = pooled.last_delta
+        took = batch.ref_mask.sum(1).cpu().numpy()
+        cands = [c for c in pooled.active_ids
+                 if c % 3 != 0 and pooled._delta_ids[pooled._slot_of(c)] == c
+                 and took[pooled._slot_of(c)] > 0]
+        if not cands:
+            raise AssertionError("no client took rows of the latest payload")
+        victim = int(rng.choice(cands))
+        vslot = pooled._slot_of(victim)
+        rp = batch.row_page.cpu().numpy()
+        page = int(rng.choice(np.unique(rp[batch.ref_mask[vslot].cpu().numpy() & (rp >= 0)])))
+        if pooled.delta_checksums().shape != (int(batch.pages),):
+            raise AssertionError("page checksums: wrong shape")
+        lost, nack_ms = timed(lambda: pooled.nack(victim, [page]))
+        with not_the_path():
+            lost_v = others["vmapped"].nack(victim, [page])
+        if lost <= 0 or lost_v != lost:
+            raise AssertionError(f"NACK of page {page} of client {victim}: {lost} rows")
+        log(f"[ragged] on {card}: client {victim} ({tier(victim)}) lost page {page}: "
+            f"{lost} rows re-queued in {nack_ms:.3f} ms")
+        # 6: syncs until the NACKed client's debt is repaid
+        for k in range(RAGGED_NACK_SYNCS):
+            st = sync(f"repaying the NACK ({k})")
+            if int(st.delta_deferred[vslot]) == 0:
+                break
+        else:
+            raise AssertionError(f"client {victim} still owes rows after "
+                                 f"{RAGGED_NACK_SYNCS} syncs")
+        nack_syncs = k + 1
+        lossfree = others.pop("lossfree")
+        mine = int(st.client_resident[vslot])
+        ref = int(lossfree.state.mgr.client_has[vslot].sum())
+        if mine != ref or not torch.equal(pooled.state.cut_gids[vslot],
+                                          lossfree.state.cut_gids[vslot]):
+            raise AssertionError(f"client {victim}: resident {mine} after the NACK, "
+                                 f"{ref} without the loss")
+        del lossfree
+        # 7: evicts down to 8 live clients, a shrink to 8 slots
+        live = pooled.active_ids
+        for c in [c for c in reversed(live) if c not in (0, 1, 2, victim)][:len(live) - 8]:
+            events["evict"].append(both("evict", c)[1])
+        render(f"{pooled.n_clients} live in {pooled.capacity} slots")
+        survivors = {c: pooled.client_cut(c).clone() for c in pooled.active_ids}
+        shrunk, ms = timed(pooled.maybe_shrink)
+        events["shrink"] = [ms]
+        with not_the_path():
+            shrunk_v = others["vmapped"].maybe_shrink()
+        if shrunk != 8 or shrunk_v != 8:
+            raise AssertionError(f"shrink: capacity {shrunk}, not 8")
+        for c, cut in survivors.items():
+            if not torch.equal(pooled.client_cut(c), cut):
+                raise AssertionError(f"client {c}'s cut moved across the shrink")
+        agree(pooled, others["vmapped"], "after the shrink")
+        # 8: two syncs
+        for _ in range(2):
+            sync("after the shrink")
+        warm8_ms = statistics.median(r["ms"] for r in rows[-2:])
+        del others["vmapped"]
+
+        # 9: the scheduler on the real clock, and lockstep on the same motion
+        ids = pooled.active_ids
+        normals, stragglers = ids[:6], ids[6:]
+        paths = {c: np.clip(pooled._slot_cams[pooled._slot_of(c)] + b, lo, hi)
+                 for c, b in zip(normals, burst_steps)}
+        paths.update(zip(stragglers, strag))
+        tight, loose = 3.0 * warm8_ms, 60.0 * warm8_ms
+        sched = SCH.DeadlineScheduler(pooled, default_deadline_ms=tight,
+                                      tick_budget_ms=2.0 * warm8_ms)
+        for c in stragglers:
+            sched.set_deadline(c, loose)
+        ticks = {"synced": 0, "idle": 0, "drain": 0}
+
+        def tick(what):
+            before = K.launch_counts()
+            st = sched.tick()
+            if st is None:
+                return None
+            check_kernels(st, before, what)
+            ticks["synced"] += 1
+            return st
+
+        for t in range(RAGGED_TICKS):
+            for i, c in enumerate(ids):
+                if deliver[t, i]:
+                    sched.observe_motion(c, paths[c][t])
+            if tick(f"tick {t}") is None:
+                ticks["idle"] += 1
+        for _ in range(16):
+            if tick("drain") is None:
+                break
+            ticks["drain"] += 1
+        mtp = sched.stats_summary()
+        # what a tick adds to its partial sync: the read-only staleness preview
+        with not_the_path():
+            preview_ms = statistics.median(timed(sched._predicted_pairs)[1]
+                                           for _ in range(5))
+        deadline = {c: loose if c in stragglers else tight for c in ids}
+        oldest, lock, cams = {c: None for c in ids}, [], {c: paths[c][0] for c in ids}
+        timed(lambda: pooled.sync(cams))
+        for t in range(RAGGED_TICKS):
+            now = time.monotonic()
+            for i, c in enumerate(ids):
+                if deliver[t, i]:
+                    cams[c] = paths[c][t]
+                    oldest[c] = now if oldest[c] is None else oldest[c]
+            if not any(o is not None for o in oldest.values()):
+                continue
+            before = K.launch_counts()
+            st = pooled.sync(cams)
+            torch.cuda.synchronize()
+            done = time.monotonic()
+            check_kernels(st, before, f"lockstep {t}")
+            for c in ids:
+                if oldest[c] is not None:
+                    lock.append(((done - oldest[c]) * 1e3, deadline[c]))
+                    oldest[c] = None
+        lock_ms = np.asarray([x for x, _d in lock])
+        lock_mtp = dict(n=len(lock), mtp_p50_ms=float(np.percentile(lock_ms, 50)),
+                        mtp_p99_ms=float(np.percentile(lock_ms, 99)),
+                        deadline_miss_rate=float(np.mean([x > d for x, d in lock])))
+
+        # 10: one pooled fallback render of the live clients
+        render("after the shrink and the scheduler")
+    counts = {name: n - aside[name] for name, n in K.launch_counts().items()}
+    if counts["rasterize_slabs"] != len(renders):
+        raise AssertionError(f"the ragged fleet's {len(renders)} renders launched K2 "
+                             f"{counts['rasterize_slabs']} times")
+    # K1 runs only in the vmapped reference service, beside the path
+    require_launched("ragged fleet", counts, ("lod_pair_sweep", "vq_assign",
+                                              "rasterize_slabs"))
+    if aside["lod_slab_sweep"] < 1:
+        raise AssertionError("the vmapped reference service never launched K1")
+    off = [n for key in shapes for n in shapes[key] if n & (n - 1) and n not in caps[key]]
+    if off:
+        raise AssertionError(f"K5/K6 launch sizes off the pow2 buckets: {off} "
+                             f"(caps {caps})")
+    # K6 and K5 against their plain versions on the path's own inputs: the
+    # largest launch of each and its first launch at a clamp
+    checked = []
+    for key, label, kern, plain in (
+            ("k6_pairs", "K6", lod_cut.lod_pair_sweep, lod_cut.pair_sweep_plain),
+            ("k5_rows", "K5", vq_assign.vq_assign, vq_assign.vq_assign_plain)):
+        if "largest" not in kept[key]:
+            raise AssertionError(f"{key}: no launch on the path")
+        for which, (n, a, kw) in kept[key].items():
+            got, want = kern(*a, **kw), plain(*a, **kw)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            for i, (x, y) in enumerate(zip(got, want, strict=True)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label} at its {which} launch ({n}): "
+                                         f"output {i} differs from the plain version")
+            checked.append(f"{label} {which} {n}")
+    log(f"[check] ragged fleet: K6 and K5 == plain on the path's inputs ({', '.join(checked)})")
+    del kept
+
+    log(f"[ragged] on {card}: lifecycle ms " + json.dumps(
+        {k: [round(x, 3) for x in v] for k, v in events.items()}))
+    log(f"[ragged] on {card}: warm sync {warm16_ms:.2f} ms at capacity 16 with 4 slots "
+        f"free; {warm8_ms:.2f} ms at capacity 8 after the shrink; the NACK repaid in "
+        f"{nack_syncs} syncs; every sync of the script equal to the vmapped service's")
+    for t_name, traj in trajectory.items():
+        log(f"[ragged] on {card}: tier {t_name} (allowance, τ scale) a sync: "
+            f"{[(a, round(s, 4)) for a, s in traj]}")
+    log(f"[ragged] on {card}: scheduler {RAGGED_TICKS} ticks ({ticks}), deadline "
+        f"{tight:.2f} ms (stragglers {loose:.1f}), budget {2.0 * warm8_ms:.2f} ms: MTP "
+        f"p50 {mtp['mtp_p50_ms']:.2f} p99 {mtp['mtp_p99_ms']:.2f} ms, miss rate "
+        f"{mtp['deadline_miss_rate']:.3f} (n {mtp['n']}); lockstep on the same motion: "
+        f"p50 {lock_mtp['mtp_p50_ms']:.2f} p99 {lock_mtp['mtp_p99_ms']:.2f} ms, miss rate "
+        f"{lock_mtp['deadline_miss_rate']:.3f} (n {lock_mtp['n']}); cost model "
+        f"{sched.cost.alpha:.3f} + {sched.cost.beta:.5f}·pairs ms; a tick's staleness "
+        f"preview {preview_ms:.2f} ms")
+    log(f"[ragged] on {card}: distinct launch sizes, K6 pairs "
+        f"{sorted(shapes['k6_pairs'])} (pool caps {sorted(caps['k6_pairs'])}), K5 rows "
+        f"{sorted(shapes['k5_rows'])} (stream budgets {sorted(caps['k5_rows'])})")
+    log(f"[ragged] on {card}: pooled fallback renders " + json.dumps(renders))
+    log(f"[ragged] kernels on the path {json.dumps(counts)}; launched beside it by the "
+        f"check services, the pair sizing and the reference renders {json.dumps(aside)}")
+    return dict(cut_budget=cfg.cut_budget, syncs=rows, lifecycle_ms=events,
+                warm16_ms=warm16_ms, warm8_ms=warm8_ms, nack=dict(
+                    client=victim, tier=tier(victim), page=page, rows=lost,
+                    syncs=nack_syncs, resident=mine),
+                trajectory=trajectory, scheduler=dict(
+                    ticks=ticks, deadline_ms=tight, straggler_deadline_ms=loose,
+                    mtp=mtp, lockstep=lock_mtp, cost=sched.cost.state_dict(),
+                    preview_ms=preview_ms),
+                shapes={k: sorted(v) for k, v in shapes.items()}, renders=renders,
+                checked=checked, aside=aside, counts=counts)
 
 
 def lm_serving(torch, dev) -> dict:
@@ -1298,6 +1793,15 @@ def main() -> int:
     shapes.update(k5_rows=m5, k5_dim=d5, k5_codes=kc5, k6_pairs=n6, k6_slab=s6)
     log(f"[kernel] shapes {json.dumps(shapes)}")
 
+    # 11. the ragged fleet, on phase 7's scene, before the LM phases free it -------
+    t_rag = time.perf_counter()
+    ragged = ragged_fleet(torch, dev, tree, city.extent, base, focal, width, height,
+                          pair_total, card)
+    counts_ragged = ragged.pop("counts")
+    report["ragged"] = ragged
+    report["phases"]["ragged_s"] = time.perf_counter() - t_rag
+    log(f"[ragged] phase 11 took {report['phases']['ragged_s']:.1f} s")
+
     # free the city before the LM phases
     del tree, leaves, cuts, sync_cuts, rigs, walks, fleet_rigs, q0, sk, left, ranks
     del origins, counts, k_out, p_out, sweep_args, rpe, top_expand, il, ir, ll, rl
@@ -1334,7 +1838,7 @@ def main() -> int:
     rows = []
     for name, k in kernels.items():
         by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
-                   "lm": counts_lm[name]}
+                   "ragged": counts_ragged[name], "lm": counts_lm[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

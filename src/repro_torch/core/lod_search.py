@@ -289,6 +289,17 @@ def batched_top_and_staleness(tree: LodTree, states: TemporalState, cam_position
     return top_cut, rpe, stale
 
 
+def predicted_stale_counts(tree: LodTree, states: TemporalState, cam_positions,
+                           focal: float, tau, active=None) -> torch.Tensor:
+    """(B,) int32 — the slabs each client would resweep if it synced now at
+    `cam_positions`: the staleness test of `batched_top_and_staleness`, with
+    nothing written back (the deadline scheduler prices a tick with it).
+    Slots masked out by `active` predict zero."""
+    _top, _rpe, stale = batched_top_and_staleness(tree, states, cam_positions, focal,
+                                                  tau, active)
+    return stale.sum(1).to(torch.int32)
+
+
 def sweep_slab_camera_pairs(slab_mu, slab_size, slab_parent, slab_level, slab_is_leaf,
                             slab_valid, rpe_sel, cam_sel, focal, tau, max_depth: int):
     """Sweep K (slab, camera) pairs, each at its own camera (K, 3) and τ (a

@@ -286,6 +286,20 @@ class CollaborativeSession:
     def frame_index(self) -> int:
         return self.state.frame_index
 
+    @property
+    def current_cut_ids(self) -> Optional[torch.Tensor]:
+        """The render queue's ids (cut_budget,) int32, -1 padded; None before
+        the first sync."""
+        return self.state.cut_gids if self.sync_index > 0 else None
+
+    def render(self, rig: StereoRig, gids: torch.Tensor):
+        """Render the client store's rows `gids` (-1 ids get opacity 0) for
+        `rig`: `render_stereo` on that queue."""
+        cfg = self.cfg
+        return render_stereo(_render_queue(self.state.client_store, gids.to(self.device)),
+                             rig, tile=cfg.tile, list_len=cfg.list_len,
+                             max_pairs=cfg.max_pairs)
+
     def step(self, rig: StereoRig, render: bool = True):
         """Advance one VR frame. LoD sync happens every cfg.w frames."""
         frame = self.state.frame_index

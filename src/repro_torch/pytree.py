@@ -34,3 +34,10 @@ def stack(items: Sequence):
 def take(tree, i):
     """Slice index `i` of every leaf's leading axis."""
     return tree_map(lambda x: x[i], tree)
+
+
+def leaves(tree) -> list:
+    """Every tensor leaf of `tree`, in field order."""
+    out = []
+    tree_map(lambda x: out.append(x) or x, tree)
+    return out

@@ -1,6 +1,5 @@
 """Encode-once fleet Δcut delivery (cross-client payload dedup). Port of
-`repro.serve.delta_path`, without the page checksums and the NACK row
-lookup.
+`repro.serve.delta_path`.
 
 `build_delta_batch` takes the fleet-union of one sync's Δcut masks, ranks
 its rows coarse-LoD-first (tree depth ascending, then fleet requester count
@@ -11,7 +10,9 @@ over the shared stream (`DeltaBatch.ref_mask`), in ascending-gid order, so
 it decodes bit for bit like its own per-client stream (`encode_per_client`,
 the tests' oracle). Rows a tight budget or a client's row allowance leave
 behind come back in `deferred`, for the service to fold into the next
-sync's union.
+sync's union. `page_checksums` and `lost_row_mask` are the host-side wire
+framing of the NACK path: a page whose checksum fails on the client is
+named back, and its rows return to the client's debt.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import compression as comp
@@ -176,6 +178,46 @@ def encode_per_client(gaussians: Gaussians, codec: comp.Codec,
         count = delta_masks[b].sum().to(torch.int32)
         ids = ls.compact_ids(delta_masks[b], budget)
         out.append((ids, comp.encode_rows(codec, gaussians, ids), count > budget))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# page integrity (loss detection + NACK retransmit)
+# ---------------------------------------------------------------------------
+
+# Knuth's multiplicative constant mixes each gid before the per-page sum, so
+# two gids swapped between pages flip both checksums; the +1 makes the row
+# count part of the sum (a gid-0 row would otherwise add nothing)
+_CKSUM_MIX = np.uint32(2654435761)
+
+
+def page_checksums(batch: DeltaBatch) -> np.ndarray:
+    """(pages,) uint32 — each priority page's checksum, carried in its wire
+    header (`manager.PAGE_HEADER_BYTES` budgets the 4 bytes): the wraparound
+    sum of its rows' mixed gids, order-independent, computed on the host in
+    numpy uint32 arithmetic."""
+    row_page = batch.row_page.cpu().numpy()
+    gids = batch.union_gids.cpu().numpy()
+    n_pages = int(batch.pages)
+    out = np.zeros((max(n_pages, 1),), np.uint32)
+    rows = row_page >= 0
+    with np.errstate(over="ignore"):
+        mix = gids[rows].astype(np.uint32) * _CKSUM_MIX + np.uint32(1)
+    np.add.at(out, row_page[rows], mix)
+    return out[:n_pages]
+
+
+def lost_row_mask(batch: DeltaBatch, client: int, lost_pages) -> np.ndarray:
+    """(N,) bool — the rows slot `client` ingested this sync from the given
+    priority pages: what a NACK naming those pages re-queues. Rows of a lost
+    page the client did not take are not its loss."""
+    row_page = batch.row_page.cpu().numpy()
+    gids = batch.union_gids.cpu().numpy()
+    ref = batch.ref_mask[client].cpu().numpy()
+    lost = np.asarray(sorted(set(int(p) for p in lost_pages)), np.int64)
+    rows = ref & np.isin(row_page, lost) & (gids >= 0)
+    out = np.zeros((batch.delivered.shape[1],), bool)
+    out[gids[rows]] = True
     return out
 
 

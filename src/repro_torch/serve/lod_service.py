@@ -1,6 +1,6 @@
 """Batched multi-client LoD service — the cloud half of paper Fig. 9/10 for B
 headsets on one shared city tree. Port of `repro.serve.lod_service`: the
-functional core and a fixed-fleet `LodService`.
+functional core and the ragged-fleet `LodService`.
 
   * one `LodTree` and one scene codec serve every client;
   * per-client state (`TemporalState`, `ManagerState`, sync counters, page
@@ -18,9 +18,15 @@ functional core and a fixed-fleet `LodService`.
     per-client masks, so downlink bytes and encode work grow with the
     fleet's unique Gaussians, not with B.
 
-Both schedulers give the same bits. Runtime admission and eviction,
-capacity growth and shrink, rate control, NACK retransmit, partial-fleet
-syncs and the serving mesh are not ported yet.
+Both schedulers give the same bits. The fleet is ragged at run time
+(`repro_torch.serve.fleet`): clients are admitted and evicted between syncs
+into a pow2 slot array that grows and shrinks; inactive slots add nothing
+to the wire or the stats and stay bitwise at their reset value. Around the
+sync paths sit the closed-loop per-client bitrate controller
+(`rate_control_step`, bandwidth tiers), the page-loss NACK path (a lost
+page's rows return as debt) and partial-fleet syncs (`participate`: the
+deadline scheduler's primitive, `repro_torch.serve.scheduler`). The serving
+mesh, snapshot and restore are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,13 +51,20 @@ from repro_torch.serve import delta_path as dp
 from repro_torch.serve import fleet as flt
 
 
+class AdmissionDenied(RuntimeError):
+    """`LodService.admit` refused: the fleet's budget (client count or state
+    bytes) is spent; backpressure instead of unbounded growth."""
+
+
 @dataclasses.dataclass(frozen=True)
 class ServiceState:
-    """All per-client cloud state, on a leading (C, ...) slot axis.
+    """All per-client cloud state, on a leading (C, ...) slot axis of the
+    fleet's capacity (not its live count).
 
     pending: (C, N) bool — Δ rows owed to the slot from earlier paged syncs
-    (deferred by the stream budget), folded into the next sync's union until
-    they ship. `fleet` records which slots hold a live client."""
+    (deferred by the stream budget or the row allowance, or NACKed), folded
+    into the next sync's union until they ship; all False for a free slot.
+    `fleet` records which slots hold a live client."""
 
     mgr: mgr.ManagerState       # leaves (C, N)
     temporal: ls.TemporalState  # leaves (C, Ns, ...)
@@ -59,6 +72,10 @@ class ServiceState:
     sync_index: torch.Tensor    # (C,) int32 — per-slot syncs while active
     pending: torch.Tensor       # (C, N) bool
     fleet: flt.FleetState
+
+    @property
+    def capacity(self) -> int:
+        return self.sync_index.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,16 +97,19 @@ class ServiceStats:
     delta_shipped: torch.Tensor     # int32 — union rows the client ingested
     delta_deferred: torch.Tensor    # int32 — rows owed to it after the sync
     pages: torch.Tensor             # int32 — priority pages it pulled from
-    mtp_ms: torch.Tensor            # float32 — stamped by a deadline
+    mtp_ms: torch.Tensor            # float32 — stamped by the deadline
     #                                 scheduler; 0 on the sync paths
     deadline_miss: torch.Tensor     # bool — likewise; False on the sync paths
 
 
-def service_init(tree: LodTree, cfg: SessionConfig, n_clients: int) -> ServiceState:
-    """Service state for `n_clients` live clients, one slot each, on the
-    tree's device."""
+def service_init(tree: LodTree, cfg: SessionConfig, n_clients: int,
+                 capacity: Optional[int] = None) -> ServiceState:
+    """Service state for `n_clients` live clients in a `capacity`-slot array
+    (default capacity == n_clients), on the tree's device."""
     m, dev = tree.meta, tree.device
-    cap = max(n_clients, 1)
+    cap = max(n_clients, 1) if capacity is None else int(capacity)
+    if cap < max(n_clients, 1):
+        raise ValueError(f"capacity {cap} < n_clients {n_clients}")
     return ServiceState(
         mgr=pytree.tree_map(lambda a: a.expand((cap,) + a.shape).clone(),
                             mgr.ManagerState.initial(tree.n_pad, dev)),
@@ -98,6 +118,90 @@ def service_init(tree: LodTree, cfg: SessionConfig, n_clients: int) -> ServiceSt
         sync_index=torch.zeros((cap,), dtype=torch.int32, device=dev),
         pending=torch.zeros((cap, tree.n_pad), dtype=torch.bool, device=dev),
         fleet=flt.fleet_init(cap, n_clients, device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# fleet lifecycle: slot admission / eviction / capacity growth and shrink
+# ---------------------------------------------------------------------------
+
+
+def _fresh_slot_leaves(state: ServiceState):
+    """(ManagerState, TemporalState, cut row, sync counter, pending row) of
+    one fresh slot, shaped like `state`'s."""
+    n = state.mgr.client_has.shape[1]
+    ns, s = state.temporal.slab_cut0.shape[1:]
+    dev = state.sync_index.device
+    return (mgr.ManagerState.initial(n, dev), ls.TemporalState.initial(ns, s, dev),
+            torch.full((state.cut_gids.shape[1],), -1, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.bool, device=dev))
+
+
+def _reset_slot(state: ServiceState, slot: int) -> ServiceState:
+    f_mgr, f_tmp, f_cut, f_idx, f_pend = _fresh_slot_leaves(state)
+    return ServiceState(
+        mgr=flt.reset_slot(state.mgr, f_mgr, slot),
+        temporal=flt.reset_slot(state.temporal, f_tmp, slot),
+        cut_gids=flt.reset_slot(state.cut_gids, f_cut, slot),
+        sync_index=flt.reset_slot(state.sync_index, f_idx, slot),
+        pending=flt.reset_slot(state.pending, f_pend, slot),
+        fleet=state.fleet,
+    )
+
+
+def service_admit_slot(state: ServiceState, slot: int, client_id: int) -> ServiceState:
+    """Admit `client_id` into `slot`: every per-slot leaf back to its fresh
+    value (the first sync is a cold sweep and a cold Δcut), the slot live."""
+    state = _reset_slot(state, slot)
+    return dataclasses.replace(state, fleet=flt.fleet_admit_slot(state.fleet, slot,
+                                                                  client_id))
+
+
+def service_nack_rows(state: ServiceState, slot: int, lost_rows) -> ServiceState:
+    """Re-queue one slot's lost Δ rows ((N,) bool) as pending debt: they ride
+    the next sync's union like budget-deferred pages. A free slot takes
+    nothing (a NACK that races an eviction does not bring its debt back)."""
+    lost = torch.as_tensor(lost_rows, dtype=torch.bool, device=state.pending.device)
+    pending = state.pending.clone()
+    pending[slot] = pending[slot] | (lost & state.fleet.active[slot])
+    return dataclasses.replace(state, pending=pending)
+
+
+def service_evict_slot(state: ServiceState, slot: int) -> ServiceState:
+    """Evict the client in `slot`: the slot is freed and reset at once, so
+    its next tenant finds it as fresh as a never-used one."""
+    state = _reset_slot(state, slot)
+    return dataclasses.replace(state, fleet=flt.fleet_evict_slot(state.fleet, slot))
+
+
+def service_grow(tree: LodTree, cfg: SessionConfig, state: ServiceState,
+                 new_capacity: int) -> ServiceState:
+    """Pad every slot-axis leaf to `new_capacity` (the new slots free and
+    fresh)."""
+    f_mgr, f_tmp, f_cut, f_idx, f_pend = _fresh_slot_leaves(state)
+    return ServiceState(
+        mgr=flt.pad_slots(state.mgr, f_mgr, new_capacity),
+        temporal=flt.pad_slots(state.temporal, f_tmp, new_capacity),
+        cut_gids=flt.pad_slots(state.cut_gids, f_cut, new_capacity),
+        sync_index=flt.pad_slots(state.sync_index, f_idx, new_capacity),
+        pending=flt.pad_slots(state.pending, f_pend, new_capacity),
+        fleet=flt.fleet_grow(state.fleet, new_capacity),
+    )
+
+
+def service_shrink(state: ServiceState, perm) -> ServiceState:
+    """Compact the fleet into the `len(perm)` slots named by `perm` (live
+    slots first, in slot order, then free ones): one gather a leaf.
+    Survivors keep their state and their relative order, so they replay
+    bitwise; the gathered free slots are fresh."""
+    return ServiceState(
+        mgr=flt.take_slots(state.mgr, perm),
+        temporal=flt.take_slots(state.temporal, perm),
+        cut_gids=flt.take_slots(state.cut_gids, perm),
+        sync_index=flt.take_slots(state.sync_index, perm),
+        pending=flt.take_slots(state.pending, perm),
+        fleet=flt.fleet_shrink(state.fleet, perm),
     )
 
 
@@ -112,7 +216,8 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                  nodes_touched: torch.Tensor, resweeps: torch.Tensor,
                  bytes_per_g: float, codec: Optional[comp.Codec] = None,
                  dedup: bool = False, delta_budget: Optional[int] = None,
-                 priority=None, page_size: Optional[int] = None
+                 priority=None, allowance=None, page_size: Optional[int] = None,
+                 participate=None
                  ) -> Tuple[ServiceState, ServiceStats, Optional[dp.DeltaBatch]]:
     """Shared tail of both sync paths: the batched management-table update,
     the per-client render queues, the Δcut payload and the accounting.
@@ -124,16 +229,28 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     unicast stream and the third element is None. The union folds in
     `state.pending`; the new `pending` is this sync's deferred rows minus
     those the shared reuse rule evicted meanwhile. `priority` is the (N,)
-    coarse-first rank key (default: the tree's node levels).
+    coarse-first rank key (default: the tree's node levels); `allowance`
+    the optional (C,) int32 per-client row cap (the bitrate controller's
+    knob).
 
     Inactive slots are masked out of everything here: no cut, no table
-    update, no Δ rows, 0 bytes, and their sync counter does not tick."""
-    eff = state.fleet.active
+    update, no Δ rows, 0 bytes, and their sync counter does not tick.
+
+    `participate` ((C,) bool) makes this a partial-fleet sync: an active
+    slot left out is treated like an inactive one (no table update, no
+    union rows, 0 bytes, no tick), except that it keeps what it had: its
+    render queue, its pending debt and (in the callers) its temporal state
+    survive bitwise. None is the lockstep sync."""
     dev = masks.device
+    eff = _effective_slots(state, participate)
     masks = masks & eff[:, None]
     new_mgr, plan = mgr.batched_cloud_sync(state.mgr, masks, state.sync_index, cfg.w_star)
     new_mgr = flt.freeze_inactive(new_mgr, state.mgr, eff)
     gids, counts = _batched_cut_gids(masks, cfg.cut_budget)
+    if participate is not None:
+        # a slot that sat out keeps its render queue (a free slot's is the
+        # fresh -1 row already)
+        gids = torch.where(eff[:, None], gids, state.cut_gids)
     unicast = mgr.batched_wire_bytes(plan, bytes_per_g, active=eff)
     batch = None
     zeros_i = torch.zeros(counts.shape, dtype=torch.int32, device=dev)
@@ -144,7 +261,7 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
             priority = tree.node_levels()
         batch = dp.build_delta_batch(tree.gaussians, codec, plan.delta_data, delta_budget,
                                      active=eff, pending=state.pending, priority=priority,
-                                     page_size=page_size)
+                                     allowance=allowance, page_size=page_size)
         sync_bytes = mgr.batched_wire_bytes(plan, bytes_per_g, shared_payload=True,
                                             active=eff, delivered=batch.delivered,
                                             client_pages=batch.client_pages)
@@ -154,6 +271,10 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
         # deferred rows stay owed until they ship, unless the shared reuse
         # rule evicted them meanwhile
         pending = batch.deferred & ~plan.evicted & eff[:, None]
+        if participate is not None:
+            # a slot that sat out keeps its debt (its rows were masked out
+            # of this union, so `deferred` is blank for it)
+            pending = torch.where(eff[:, None], pending, state.pending)
         delta_deferred = pending.sum(1).to(torch.int32)
         pages = batch.client_pages
     else:
@@ -186,6 +307,82 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     return new_state, stats, batch
 
 
+def _effective_slots(state: ServiceState, participate) -> torch.Tensor:
+    """(C,) bool — the slots a sync serves: the live ones, less those a
+    partial sync leaves out."""
+    active = state.fleet.active
+    if participate is None:
+        return active
+    return active & torch.as_tensor(np.asarray(participate, bool), device=active.device)
+
+
+# ---------------------------------------------------------------------------
+# closed-loop per-client bitrate control (heterogeneous bandwidth tiers)
+# ---------------------------------------------------------------------------
+
+
+BANDWIDTH_TIERS = {
+    # downlink budgets in bytes a sync: a phone on a cellular link, a
+    # standalone headset on home Wi-Fi, a tethered headset whose link is
+    # never the bottleneck
+    "phone": 2.5e5,
+    "headset": 1.5e6,
+    "tethered": 1.6e7,
+}
+
+
+def rate_control_step(target_bytes, measured_bytes, allowance, tau_scale, *,
+                      page_size: int, max_rows: int,
+                      tau_step: float = 1.25, tau_scale_max: float = 8.0):
+    """One update of the per-client closed-loop bitrate controller, in numpy
+    on the host, from the previous sync's measured bytes.
+
+      * `allowance` — rows the client may ingest a sync: scaled by
+        target/measured, the step clipped to [×0.5, ×2], floored at one page
+        (`min(page_size, max_rows)`, so the clip bounds never invert) and
+        capped at `max_rows` (the stream budget);
+      * `tau_scale` — when a client at the one-page floor still overshoots,
+        its foveation τ scales up by `tau_step` a sync (coarser cut, fewer
+        rows), up to `tau_scale_max`; once measured < target / tau_step it
+        decays back toward 1.
+
+    `measured == 0` under a finite target is the most headroom, not "no
+    signal": an idle client gets the full ×2 step and a τ relax. Clients
+    with a non-finite target (or a negative allowance) pass through.
+    Returns new (allowance int64, tau_scale float32) arrays."""
+    target = np.asarray(target_bytes, np.float64)
+    measured = np.asarray(measured_bytes, np.float64)
+    allowance = np.asarray(allowance, np.int64)
+    tau_scale = np.asarray(tau_scale, np.float32)
+    controlled = np.isfinite(target) & (allowance >= 0)
+    ratio = np.where(controlled,
+                     np.where(measured > 0.0, target / np.maximum(measured, 1.0), np.inf),
+                     1.0)
+    step = np.clip(ratio, 0.5, 2.0)
+    lo = min(int(page_size), int(max_rows))
+    new_allow = np.where(controlled, np.clip(np.floor(allowance * step), lo, max_rows),
+                         allowance).astype(np.int64)
+    at_floor = controlled & (new_allow <= lo) & (ratio < 1.0)
+    new_tau = np.where(at_floor, np.minimum(tau_scale * tau_step, tau_scale_max), tau_scale)
+    relaxed = controlled & ~at_floor & (ratio > tau_step) & (tau_scale > 1.0)
+    new_tau = np.where(relaxed, np.maximum(new_tau / tau_step, 1.0), new_tau)
+    return new_allow, new_tau.astype(np.float32)
+
+
+def _bandwidth_bytes(bw) -> float:
+    """One client's byte target a sync: a `BANDWIDTH_TIERS` name, a number,
+    or None (uncontrolled, inf)."""
+    if bw is None:
+        return float("inf")
+    if isinstance(bw, str):
+        try:
+            return float(BANDWIDTH_TIERS[bw])
+        except KeyError:
+            raise ValueError(f"unknown bandwidth tier {bw!r} (have "
+                             f"{sorted(BANDWIDTH_TIERS)})") from None
+    return float(bw)
+
+
 def _fleet_taus(cfg: SessionConfig, n_clients: int, taus, device) -> torch.Tensor:
     """(B,) per-client LoD thresholds: cfg.tau everywhere unless a foveated
     per-client vector is given."""
@@ -201,22 +398,25 @@ def service_sync_vmapped(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                          cam_positions, focal: float, bytes_per_g: float, taus=None,
                          codec: Optional[comp.Codec] = None, dedup: bool = False,
                          delta_budget: Optional[int] = None, priority=None,
-                         page_size: Optional[int] = None
+                         allowance=None, page_size: Optional[int] = None,
+                         participate=None
                          ) -> Tuple[ServiceState, ServiceStats, Optional[dp.DeltaBatch]]:
-    """One LoD sync for every client, each client's full temporal search in
-    turn (K1 per client on the card): the exactness reference of the pooled
-    scheduler. Inactive slots' temporal state is frozen at its reset value
-    afterwards, so the state equals the pooled scheduler's bit for bit."""
+    """One LoD sync for every client, each slot's full temporal search in
+    turn (K1 per slot on the card): the exactness reference of the pooled
+    scheduler. Inactive slots, and active ones that sit out a partial sync
+    (`participate`), get their temporal state back afterwards, so the state
+    equals the pooled scheduler's bit for bit."""
     cams = torch.as_tensor(cam_positions, dtype=torch.float32, device=tree.device)
     tau_b = _fleet_taus(cfg, cams.shape[0], taus, tree.device)
-    eff = state.fleet.active
+    eff = _effective_slots(state, participate)
     cut, temporal = ls.batched_temporal_search(tree, state.temporal, cams, focal, tau_b)
     temporal = flt.freeze_inactive(temporal, state.temporal, eff)
     masks = ls.batched_cut_mask(cut, tree)
     return _finish_sync(tree, cfg, state, temporal, masks, cut.nodes_touched,
                         cut.resweep.sum(1), bytes_per_g, codec=codec, dedup=dedup,
                         delta_budget=delta_budget, priority=priority,
-                        page_size=page_size)
+                        allowance=allowance, page_size=page_size,
+                        participate=participate)
 
 
 def _apply_pooled_updates(slab_cut, root_expand, rho, cam0, sel_b, sel_s, f_cut,
@@ -252,8 +452,8 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                         cam_positions, focal: float, bytes_per_g: float, taus=None,
                         codec: Optional[comp.Codec] = None, dedup: bool = False,
                         delta_budget: Optional[int] = None, priority=None,
-                        page_size: Optional[int] = None,
-                        tables: Optional[ls.SlabTables] = None
+                        allowance=None, page_size: Optional[int] = None,
+                        participate=None, tables: Optional[ls.SlabTables] = None
                         ) -> Tuple[ServiceState, ServiceStats, Optional[dp.DeltaBatch]]:
     """One LoD sync for every client with cross-client slab pooling.
 
@@ -262,12 +462,14 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     bucket and swept in one K6 launch, each pair with its own camera and τ,
     then scattered back. The same bits as `service_sync_vmapped`. The host
     reads the pool size (and, with dedup, the Δ-union size) and nothing
-    else. Inactive slots report no staleness, so they never enter the pool.
+    else. Inactive slots report no staleness, so they never enter the pool;
+    on a partial sync (`participate`) neither do the slots that sit out, and
+    their temporal state, render queue, debt and counter survive bitwise.
     `tables` are the resident slab tables (`SlabTables.from_tree`)."""
     m = tree.meta
     cams = torch.as_tensor(cam_positions, dtype=torch.float32, device=tree.device)
     tau_b = _fleet_taus(cfg, cams.shape[0], taus, tree.device)
-    eff = state.fleet.active
+    eff = _effective_slots(state, participate)
     if tables is None:
         tables = ls.SlabTables.from_tree(tree)
     top_cut, rpe, stale = ls.batched_top_and_staleness(tree, state.temporal, cams,
@@ -283,8 +485,9 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
         slab_cut, root_expand, rho, cam0 = _apply_pooled_updates(
             slab_cut, root_expand, rho, cam0, sel_b, sel_s, f_cut, f_rexp, f_rho,
             cams[sel_b])
-    # the scatter never touches an inactive slot; freeze the other two
-    # leaves the same way, so an inactive slot stays at its reset value
+    # the scatter never touches a slot outside `eff`; freeze the other two
+    # leaves the same way, so an inactive slot stays at its reset value and
+    # a slot that sat out keeps its own
     temporal = ls.TemporalState(
         cam0=cam0, rho=rho,
         parent_expand0=torch.where(eff[:, None], rpe, tp.parent_expand0),
@@ -296,7 +499,8 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     return _finish_sync(tree, cfg, state, temporal, ls.batched_cut_mask(cut, tree),
                         nodes_touched, stale.sum(1), bytes_per_g, codec=codec,
                         dedup=dedup, delta_budget=delta_budget, priority=priority,
-                        page_size=page_size)
+                        allowance=allowance, page_size=page_size,
+                        participate=participate)
 
 
 # ---------------------------------------------------------------------------
@@ -318,52 +522,92 @@ def service_render_step(tree: LodTree, state: ServiceState, rigs,
     are gathered from the tree's raw attributes. `rigs` lead with the slot
     axis (`render.stack_rigs`); `path` is "vmap" (per client) or "pooled"
     (the fleet's occupied tiles in one K2 launch). Returns (img_l
-    (C,H,W,3), img_r, per-client StereoFrameStats)."""
+    (C,H,W,3), img_r, per-client StereoFrameStats). A free slot's queue is
+    empty and the pooled path gives its tiles to no launch: it renders
+    black."""
     queues = pytree.stack([_masked_queue(tree.gaussians, g) for g in state.cut_gids])
     return rnd.batched_render_stereo(queues, rigs, rcfg, path=path,
                                      active=state.fleet.active)
 
 
 class LodService:
-    """Thin stateful wrapper: one shared tree and codec, a fixed fleet of
-    `n_clients` clients (client id == slot).
+    """Thin stateful wrapper: one shared tree and codec, a ragged fleet.
 
-    `sync(cam_positions)` advances every client by one LoD sync and returns
-    per-client `ServiceStats`; the encode-once payload of the latest sync is
-    kept on `last_delta` (`client_delta(cid)` decodes one client's slice).
-    `mode` picks the scheduler: "pooled" (the fleet's stale pairs in one K6
-    launch) or "vmapped" (each client's full search; K1 per client). `dedup`
-    toggles the encode-once wire format. `taus` gives every client its own
-    foveated LoD threshold. The Δ stream is paged: a sync whose union
-    exceeds `delta_budget` ships the coarsest `page_size`-row pages and
-    carries the rest as per-client debt. `render_fallback(rigs)` renders
-    every client's queue on the cloud.
+    `sync(cam_positions)` advances every live client by one LoD sync and
+    returns per-slot `ServiceStats` (free slots' rows are zero); the
+    encode-once payload of the latest sync is kept on `last_delta`
+    (`client_delta(cid)` decodes one client's slice). `mode` picks the
+    scheduler: "pooled" (the fleet's stale pairs in one K6 launch) or
+    "vmapped" (each slot's full search; K1 per slot). `dedup` toggles the
+    encode-once wire format. `taus` gives each initial client its own
+    foveated LoD threshold. `render_fallback(rigs)` renders every live
+    client's queue on the cloud.
+
+    Fleet lifecycle: `admit(cam, tau)` returns a stable client id (ids are
+    monotone, never reused), `evict(client_id)` frees its slot. Clients live
+    in a `capacity`-slot array (default capacity == n_clients); an admit
+    into a full array grows it to the next pow2 bucket, `maybe_shrink()`
+    compacts a sparse fleet into the smallest bucket that holds it
+    (survivors replay bitwise). `max_clients` / `max_state_bytes` turn
+    growth into backpressure: an admit past the budget raises
+    `AdmissionDenied` (or returns None with `required=False`) and leaves the
+    service untouched. Clients are addressed by stable id everywhere.
+
+    The Δ stream is paged: a sync whose union exceeds `delta_budget` ships
+    the coarsest `page_size`-row pages and carries the rest as per-slot
+    debt. `bandwidth` (a `BANDWIDTH_TIERS` name, bytes a sync, or one of
+    those per client) turns on the closed-loop bitrate controller
+    (`rate_control_step`): each sync, the previous sync's measured bytes set
+    the client's row allowance and, at the one-page floor, its τ scale.
+    `nack(cid, pages)` re-queues the rows of lost pages as debt.
+    `sync(participate=...)` syncs only some clients (the deadline
+    scheduler's primitive).
 
     The tree moves to `device` (the card when None; where there is no card
     that raises, unless the caller asks for the CPU)."""
 
     def __init__(self, tree: LodTree, cfg: SessionConfig, n_clients: int, focal: float,
                  mode: str = "pooled", taus=None, dedup: bool = True,
-                 delta_budget: Optional[int] = None, page_size: Optional[int] = None,
-                 device: DeviceLike = None):
+                 delta_budget: Optional[int] = None, capacity: Optional[int] = None,
+                 max_clients: Optional[int] = None,
+                 max_state_bytes: Optional[float] = None, bandwidth=None,
+                 page_size: Optional[int] = None, device: DeviceLike = None):
         if mode not in ("pooled", "vmapped"):
             raise ValueError(f"unknown scheduler mode: {mode!r}")
-        if n_clients < 1:
-            raise ValueError(f"need at least one client, got {n_clients}")
+        if n_clients < 0:
+            raise ValueError(f"n_clients must be >= 0, got {n_clients}")
         self.device = resolve_device(device)
         self.tree = tree if tree.device == self.device else tree.to(self.device)
         self.cfg = cfg
-        self.n_clients = int(n_clients)
+        self.max_clients = None if max_clients is None else int(max_clients)
+        self.max_state_bytes = None if max_state_bytes is None else float(max_state_bytes)
+        self.capacity = max(int(n_clients), 1) if capacity is None else int(capacity)
+        if self.capacity < max(n_clients, 1):
+            raise ValueError(f"capacity {self.capacity} < n_clients {n_clients}")
         self.focal = float(np.float32(focal))
         self.mode = mode
         self.dedup = bool(dedup)
-        self.taus = (None if taus is None
-                     else _fleet_taus(cfg, self.n_clients, taus, self.device))
+        # host mirror of state.fleet: slot lookups without reading the card
+        self._active = np.zeros(self.capacity, bool)
+        self._active[:n_clients] = True
+        self._client_ids = np.full(self.capacity, -1, np.int64)
+        self._client_ids[:n_clients] = np.arange(n_clients)
+        self._next_id = int(n_clients)
+        self._slot_cams = np.zeros((self.capacity, 3), np.float32)
+        # per-slot foveated thresholds (admitted clients get theirs at admit)
+        if taus is None:
+            self.taus = None
+        else:
+            per_client = _fleet_taus(cfg, n_clients, taus, "cpu").numpy()
+            self.taus = np.full(self.capacity, cfg.tau, np.float32)
+            self.taus[:n_clients] = per_client
         self.codec, self.bytes_per_g = session_wire_format(self.tree, cfg)
         # every client's Δcut is bounded by its cut budget, so the union is
-        # bounded by min(n_clients · cut_budget, N)
+        # bounded by min(capacity · cut_budget, N); recomputed when the
+        # capacity changes, unless the caller pinned it
+        self._delta_budget_arg = delta_budget
         self.delta_budget = (int(delta_budget) if delta_budget is not None
-                             else min(self.tree.n_pad, cfg.cut_budget * self.n_clients))
+                             else min(self.tree.n_pad, cfg.cut_budget * self.capacity))
         if page_size is None:
             self.page_size = max(1, min(256, self.delta_budget))
         else:
@@ -375,68 +619,403 @@ class LodService:
                                  "budget")
             self.page_size = int(page_size)
         self._priority = self.tree.node_levels()
-        self._cams = np.zeros((self.n_clients, 3), np.float32)
+        # the bitrate controller (host side): per-slot byte target (inf =
+        # uncontrolled), row allowance (-1 = uncontrolled), τ scale
+        self._bw_target = np.full(self.capacity, np.inf, np.float64)
+        self._allowance = np.full(self.capacity, -1, np.int64)
+        self._tau_scale = np.ones(self.capacity, np.float32)
+        self._last_stats: Optional[ServiceStats] = None
+        # rows of _last_stats the previous sync renewed: a slot that sat out
+        # keeps an older row, which the controller must not take twice
+        self._stats_fresh = np.zeros(self.capacity, bool)
+        if bandwidth is not None:
+            if isinstance(bandwidth, (list, tuple, np.ndarray)):
+                if len(bandwidth) != n_clients:
+                    raise ValueError(f"expected {n_clients} bandwidth entries, got "
+                                     f"{len(bandwidth)}")
+                targets = [_bandwidth_bytes(bw) for bw in bandwidth]
+            else:
+                targets = [_bandwidth_bytes(bandwidth)] * n_clients
+            for slot, target in enumerate(targets):
+                self._set_bandwidth_slot(slot, target)
         self.tables = ls.SlabTables.from_tree(self.tree) if mode == "pooled" else None
-        self.state = service_init(self.tree, cfg, self.n_clients)
+        self.state = service_init(self.tree, cfg, n_clients, capacity=self.capacity)
         self.last_delta: Optional[dp.DeltaBatch] = None
+        # which client each row of last_delta is for
+        self._delta_ids = np.full(self.capacity, -1, np.int64)
+
+    # -- fleet lifecycle ------------------------------------------------------
+
+    @property
+    def n_clients(self) -> int:
+        """Live clients."""
+        return int(self._active.sum())
+
+    @property
+    def active_ids(self):
+        """Stable ids of the live clients in slot order (the order of
+        `sync`'s array-form camera positions)."""
+        return [int(c) for c in self._client_ids[self._active]]
 
     def _slot_of(self, client_id: int) -> int:
-        if not 0 <= int(client_id) < self.n_clients:
-            raise KeyError(f"unknown client id {client_id}")
-        return int(client_id)
+        slots = np.flatnonzero(self._active & (self._client_ids == int(client_id)))
+        if slots.size == 0:
+            raise KeyError(f"no live client with id {client_id}")
+        return int(slots[0])
 
-    def sync(self, cam_positions=None) -> ServiceStats:
-        """One fleet sync. `cam_positions` is an (n_clients, 3) array in
-        client order, a {client_id: position} dict updating some clients
-        (the others keep their last position; an unknown id raises before
-        any position is stored), or None (everyone keeps theirs)."""
+    def client_tau(self, client_id: int) -> float:
+        """One live client's base LoD threshold (the controller's τ scale
+        multiplies it during a sync)."""
+        slot = self._slot_of(client_id)
+        return float(self.cfg.tau if self.taus is None else self.taus[slot])
+
+    def _set_bandwidth_slot(self, slot: int, target: float) -> None:
+        """Seed one slot's controller: its byte target and a first allowance
+        of target / bytes-per-row (-1 when uncontrolled)."""
+        self._bw_target[slot] = target
+        self._tau_scale[slot] = 1.0
+        if np.isfinite(target):
+            rows = int(target // max(self.bytes_per_g, 1.0))
+            self._allowance[slot] = int(np.clip(rows, self.page_size, self.delta_budget))
+        else:
+            self._allowance[slot] = -1
+
+    def set_bandwidth(self, client_id: int, bandwidth=None) -> None:
+        """Re-tier a live client's downlink (a tier name, bytes a sync, or
+        None for no control): its controller is reseeded as at admission."""
+        self._set_bandwidth_slot(self._slot_of(client_id), _bandwidth_bytes(bandwidth))
+
+    def client_bandwidth(self, client_id: int):
+        """(target bytes, row allowance, τ scale) of one live client (inf and
+        None when uncontrolled)."""
+        slot = self._slot_of(client_id)
+        allow = int(self._allowance[slot])
+        return (float(self._bw_target[slot]), None if allow < 0 else allow,
+                float(self._tau_scale[slot]))
+
+    def _slot_state_bytes(self) -> float:
+        """Device bytes of the service state a slot: every slot-axis leaf of
+        `ServiceState` (the fleet's bookkeeping included) over the capacity;
+        the unit of the admission byte budget."""
+        total = sum(x.numel() * x.element_size() for x in pytree.leaves(self.state)
+                    if x.dim() >= 1)
+        return float(total) / self.capacity
+
+    def _admission_denial(self) -> Optional[str]:
+        """Why the next admit must be refused (None: it may go ahead),
+        decided before anything changes."""
+        if self.max_clients is not None and self.n_clients + 1 > self.max_clients:
+            return (f"live clients {self.n_clients} at the configured "
+                    f"max_clients={self.max_clients}")
+        if self.max_state_bytes is not None and not (~self._active).any():
+            # a full fleet must grow to admit: deny when the grown slot array
+            # would pass the byte budget (an admit into a free slot is free)
+            grown = flt.fleet_capacity(self.capacity + 1)
+            need = self._slot_state_bytes() * grown
+            if need > self.max_state_bytes:
+                return (f"growing {self.capacity}->{grown} slots needs {need:.0f} state "
+                        f"bytes > max_state_bytes={self.max_state_bytes:.0f}")
+        return None
+
+    def admit(self, cam=None, tau: Optional[float] = None, required: bool = True,
+              bandwidth=None) -> Optional[int]:
+        """Admit one client; returns its stable id. Its slot starts fresh, so
+        its first sync is a cold full sweep and a cold Δcut. A full slot
+        array grows to the next pow2 bucket first. `cam` seeds the slot's
+        camera, `tau` its LoD threshold (default cfg.tau), `bandwidth` its
+        downlink tier (default uncontrolled). Past `max_clients` or
+        `max_state_bytes` the admit is denied: `AdmissionDenied`, or None
+        with `required=False`, and nothing changes."""
+        denial = self._admission_denial()
+        if denial is not None:
+            if required:
+                raise AdmissionDenied(denial)
+            return None
+        free = np.flatnonzero(~self._active)
+        if free.size == 0:
+            if self.capacity >= flt.MAX_CAPACITY:
+                raise ValueError(f"fleet at MAX_CAPACITY ({flt.MAX_CAPACITY})")
+            self._grow(flt.fleet_capacity(self.capacity + 1))
+            free = np.flatnonzero(~self._active)
+        slot = int(free[0])
+        client_id = self._next_id
+        self._next_id += 1
+        self.state = service_admit_slot(self.state, slot, client_id)
+        self._active[slot] = True
+        self._client_ids[slot] = client_id
+        self._slot_cams[slot] = (np.zeros(3, np.float32) if cam is None
+                                 else np.asarray(cam, np.float32))
+        if tau is not None and self.taus is None:
+            self.taus = np.full(self.capacity, self.cfg.tau, np.float32)
+        if self.taus is not None:
+            self.taus[slot] = float(self.cfg.tau if tau is None else tau)
+        self._set_bandwidth_slot(slot, _bandwidth_bytes(bandwidth))
+        return client_id
+
+    def evict(self, client_id: int) -> None:
+        """Evict a live client: its slot is freed and reset at once. Its
+        pending debt and its controller state go with it."""
+        slot = self._slot_of(client_id)
+        self.state = service_evict_slot(self.state, slot)
+        self._active[slot] = False
+        self._client_ids[slot] = -1
+        self._slot_cams[slot] = 0.0
+        if self.taus is not None:
+            self.taus[slot] = self.cfg.tau
+        self._bw_target[slot] = np.inf
+        self._allowance[slot] = -1
+        self._tau_scale[slot] = 1.0
+        self._stats_fresh[slot] = False
+
+    def _grow(self, new_capacity: int) -> None:
+        """Pad every slot-axis array, host mirrors included, to
+        `new_capacity`."""
+        self.state = service_grow(self.tree, self.cfg, self.state, new_capacity)
+        pad = new_capacity - self.capacity
+        self._active = np.concatenate([self._active, np.zeros(pad, bool)])
+        self._client_ids = np.concatenate([self._client_ids, np.full(pad, -1, np.int64)])
+        self._slot_cams = np.concatenate([self._slot_cams, np.zeros((pad, 3), np.float32)])
+        if self.taus is not None:
+            self.taus = np.concatenate([self.taus, np.full(pad, self.cfg.tau, np.float32)])
+        # the new slots have no slice in the latest payload
+        self._delta_ids = np.concatenate([self._delta_ids, np.full(pad, -1, np.int64)])
+        self._bw_target = np.concatenate([self._bw_target, np.full(pad, np.inf)])
+        self._allowance = np.concatenate([self._allowance, np.full(pad, -1, np.int64)])
+        self._tau_scale = np.concatenate([self._tau_scale, np.ones(pad, np.float32)])
+        self._stats_fresh = np.concatenate([self._stats_fresh, np.zeros(pad, bool)])
+        if self._last_stats is not None:
+            # zero rows for the new slots: uncontrolled until admitted, and a
+            # zero measurement is never read for them
+            self._last_stats = pytree.tree_map(
+                lambda a: torch.cat([a, a.new_zeros((new_capacity - a.shape[0],)
+                                                    + tuple(a.shape[1:]))]),
+                self._last_stats)
+        self.capacity = new_capacity
+        if self._delta_budget_arg is None:
+            self.delta_budget = min(self.tree.n_pad, self.cfg.cut_budget * self.capacity)
+
+    def maybe_shrink(self) -> Optional[int]:
+        """If the live clients fit a smaller pow2 bucket, move them to the
+        front (slot order kept) and cut every slot-axis array to that bucket.
+        Returns the new capacity, or None. Survivors replay bitwise: every
+        sync computation is slot-parallel and their order is kept. The
+        latest payload's per-slot rows and the controller's feedback follow
+        the same permutation, so `client_delta` still reads the right
+        slice."""
+        target = flt.fleet_capacity(max(self.n_clients, 1))
+        if target >= self.capacity:
+            return None
+        live = np.flatnonzero(self._active)
+        free = np.flatnonzero(~self._active)
+        perm = np.concatenate([live, free])[:target].astype(np.int64)
+        self.state = service_shrink(self.state, perm)
+        self._active = self._active[perm]
+        self._client_ids = self._client_ids[perm]
+        self._slot_cams = self._slot_cams[perm]
+        if self.taus is not None:
+            self.taus = self.taus[perm]
+        self.capacity = target
+        if self._delta_budget_arg is None:
+            self.delta_budget = min(self.tree.n_pad, self.cfg.cut_budget * self.capacity)
+
+        def remap_rows(a):
+            # a tree from before a growth is shorter: its missing rows are 0
+            idx = torch.as_tensor(np.minimum(perm, a.shape[0] - 1), device=a.device)
+            keep = torch.as_tensor(perm < a.shape[0], device=a.device)
+            return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)), a[idx],
+                               torch.zeros((), dtype=a.dtype, device=a.device))
+
+        if self._last_stats is not None:
+            self._last_stats = pytree.tree_map(remap_rows, self._last_stats)
+        if self.last_delta is not None:
+            ld = self.last_delta
+            self.last_delta = dataclasses.replace(
+                ld, ref_mask=remap_rows(ld.ref_mask), delivered=remap_rows(ld.delivered),
+                deferred=remap_rows(ld.deferred),
+                client_overflow=remap_rows(ld.client_overflow),
+                client_pages=remap_rows(ld.client_pages))
+        self._delta_ids = self._delta_ids[perm]
+        self._bw_target = self._bw_target[perm]
+        self._allowance = self._allowance[perm]
+        self._tau_scale = self._tau_scale[perm]
+        self._stats_fresh = self._stats_fresh[perm]
+        return target
+
+    # -- sync -----------------------------------------------------------------
+
+    def _participation_mask(self, participate) -> Optional[np.ndarray]:
+        """`sync`'s `participate` as a (capacity,) bool slot mask (None:
+        lockstep): a bool array of the capacity's length as it is, anything
+        else an iterable of client ids (an unknown id raises before anything
+        changes)."""
+        if participate is None:
+            return None
+        arr = np.asarray(participate)
+        if arr.dtype == bool:
+            if arr.shape != (self.capacity,):
+                raise ValueError(f"participation mask shape {arr.shape} != "
+                                 f"({self.capacity},)")
+            return arr.copy()
+        slots = [self._slot_of(int(c)) for c in np.atleast_1d(arr)]
+        return flt.slots_mask(self.capacity, slots)
+
+    def sync(self, cam_positions=None, participate=None) -> ServiceStats:
+        """One fleet sync; per-slot stats on the device.
+
+        `cam_positions` is an (n_clients, 3) array addressing the live
+        clients in slot order (`active_ids`), a {client_id: position} dict
+        updating some of them (an unknown id raises before any position is
+        stored), or None (everyone keeps theirs). `participate` (a
+        (capacity,) bool mask or client ids) makes it a partial-fleet sync:
+        only those slots sync, every other slot's state survives bitwise and
+        its stats row is zero.
+
+        With bandwidth-controlled clients the previous sync's bytes are read
+        back here to close the loop; after a partial sync only the slots that
+        took part commit a controller update."""
+        part_mask = self._participation_mask(participate)
         if isinstance(cam_positions, dict):
             updates = {self._slot_of(cid): np.asarray(pos, np.float32)
                        for cid, pos in cam_positions.items()}
             for slot, pos in updates.items():
-                self._cams[slot] = pos
+                self._slot_cams[slot] = pos
         elif cam_positions is not None:
             cams = np.asarray(cam_positions, np.float32)
             if cams.shape != (self.n_clients, 3):
                 raise ValueError(f"expected ({self.n_clients}, 3) camera positions, "
                                  f"got {cams.shape}")
-            self._cams[:] = cams
-        kw = dict(taus=self.taus, codec=self.codec, dedup=self.dedup,
+            self._slot_cams[self._active] = cams
+        allowance, taus_eff = None, self.taus
+        if self.dedup and np.isfinite(self._bw_target).any():
+            if self._last_stats is not None:
+                measured = self._last_stats.sync_bytes.cpu().numpy().astype(np.float64)
+                new_allow, new_tau = rate_control_step(
+                    self._bw_target, measured, self._allowance, self._tau_scale,
+                    page_size=self.page_size, max_rows=self.delta_budget)
+                commit = self._stats_fresh
+                self._allowance = np.where(commit, new_allow, self._allowance)
+                self._tau_scale = np.where(commit, new_tau,
+                                           self._tau_scale).astype(np.float32)
+            allowance = np.where(self._allowance >= 0, self._allowance,
+                                 self.delta_budget).astype(np.int32)
+            base = (self.taus if self.taus is not None
+                    else np.full(self.capacity, self.cfg.tau, np.float32))
+            taus_eff = (base * self._tau_scale).astype(np.float32)
+        kw = dict(taus=taus_eff, codec=self.codec, dedup=self.dedup,
                   delta_budget=self.delta_budget, priority=self._priority,
-                  page_size=self.page_size)
+                  allowance=allowance, page_size=self.page_size, participate=part_mask)
         if self.mode == "pooled":
             self.state, stats, batch = service_sync_pooled(
-                self.tree, self.cfg, self.state, self._cams, self.focal,
+                self.tree, self.cfg, self.state, self._slot_cams, self.focal,
                 self.bytes_per_g, tables=self.tables, **kw)
         else:
             self.state, stats, batch = service_sync_vmapped(
-                self.tree, self.cfg, self.state, self._cams, self.focal,
+                self.tree, self.cfg, self.state, self._slot_cams, self.focal,
                 self.bytes_per_g, **kw)
         if batch is not None:
             self.last_delta = batch
+            self._delta_ids = self._client_ids.copy()
+        # the controller's next measurement: after a partial sync each slot
+        # keeps its latest observed row
+        if part_mask is None or self._last_stats is None:
+            self._last_stats = stats
+        else:
+            pm = torch.as_tensor(part_mask, device=self.device)
+            self._last_stats = pytree.tree_map(
+                lambda n, o: torch.where(pm.reshape((-1,) + (1,) * (n.dim() - 1)), n, o),
+                stats, self._last_stats)
+        self._stats_fresh = (self._active.copy() if part_mask is None
+                             else self._active & part_mask)
         return stats
 
     def client_cut(self, client_id: int) -> torch.Tensor:
-        """(cut_budget,) int32 render-queue ids of one client (-1 padded)."""
+        """(cut_budget,) int32 render-queue ids of one live client (-1
+        padded)."""
         return self.state.cut_gids[self._slot_of(client_id)]
+
+    def _payload_slot(self, client_id: int, what: str) -> int:
+        """The slot of a client that has a slice in the latest payload."""
+        if self.last_delta is None:
+            raise ValueError("no sync performed yet (or dedup=False)")
+        slot = self._slot_of(client_id)
+        if slot >= len(self._delta_ids) or self._delta_ids[slot] != client_id:
+            raise ValueError(f"latest payload predates client {client_id}'s admission "
+                             f"— {what}")
+        return slot
 
     def client_delta(self, client_id: int):
         """One client's slice of the latest encode-once payload, decoded:
-        (ids (U,) int32, -1 where the union row is not its; decoded rows)."""
+        (ids (U,) int32, -1 where the union row is not its; decoded rows).
+        A client admitted (or a slot recycled) after that sync has no slice:
+        that raises."""
+        slot = self._payload_slot(client_id, "sync first")
+        return dp.decode_client(self.codec, self.last_delta,
+                                self.tree.gaussians.sh.shape[1], slot)
+
+    def delta_checksums(self) -> np.ndarray:
+        """(pages,) uint32 checksums of the latest sync's pages (the page
+        headers' values)."""
         if self.last_delta is None:
             raise ValueError("no sync performed yet (or dedup=False)")
-        return dp.decode_client(self.codec, self.last_delta,
-                                self.tree.gaussians.sh.shape[1], self._slot_of(client_id))
+        return dp.page_checksums(self.last_delta)
+
+    def resolve_nack(self, client_id: int, lost_pages) -> np.ndarray:
+        """The ascending gids client `client_id` ingested from the named pages
+        of the latest sync's stream: what those pages' loss costs it. Reads
+        nothing but the payload; `nack` applies it."""
+        slot = self._payload_slot(client_id, "nothing to NACK")
+        n_pages = int(self.last_delta.pages)
+        pages = sorted(set(int(p) for p in lost_pages))
+        bad = [p for p in pages if not 0 <= p < n_pages]
+        if bad:
+            raise ValueError(f"NACK names pages {bad} outside the latest stream's "
+                             f"{n_pages} pages")
+        return np.flatnonzero(dp.lost_row_mask(self.last_delta, slot, pages))
+
+    def nack_rows(self, client_id: int, gids) -> int:
+        """Re-queue the given Gaussians as one live client's pending debt:
+        they return through the next sync's priority stream. Returns the
+        rows queued."""
+        slot = self._slot_of(client_id)
+        g = np.asarray(list(gids), np.int64)
+        if g.size and (g.min() < 0 or g.max() >= self.tree.n_pad):
+            raise ValueError(f"NACK gids outside [0, {self.tree.n_pad})")
+        mask = np.zeros((self.tree.n_pad,), bool)
+        mask[g] = True
+        self.state = service_nack_rows(self.state, slot, mask)
+        return int(mask.sum())
+
+    def nack(self, client_id: int, lost_pages) -> int:
+        """A client reports lost pages of the latest sync's stream: the rows
+        it took from them become its pending debt (`resolve_nack` +
+        `nack_rows`). Returns the rows re-queued."""
+        return self.nack_rows(client_id, self.resolve_nack(client_id, lost_pages))
+
+    # -- fallback rendering ---------------------------------------------------
+
+    def _slot_aligned_rigs(self, rigs):
+        """An n_clients rig list (slot order) as a capacity-length list; a
+        free slot borrows the first rig only for its shape: its queue is
+        empty and the pooled path gives its tiles no launch."""
+        rigs = list(rigs)
+        if self.n_clients == 0:
+            raise ValueError("no live clients to render (fleet is empty)")
+        if len(rigs) == self.capacity and self.n_clients == self.capacity:
+            return rigs
+        if len(rigs) != self.n_clients:
+            raise ValueError(f"expected {self.n_clients} rigs (one per live client, "
+                             f"slot order), got {len(rigs)}")
+        slot_rigs = [rigs[0]] * self.capacity
+        for slot, rig in zip(np.flatnonzero(self._active), rigs):
+            slot_rigs[int(slot)] = rig
+        return slot_rigs
 
     def render_fallback(self, rigs, *, tile: int = 16, list_len: int = 256,
                         max_pairs: int = 1 << 16, path: str = "vmap"):
-        """Fleet render of every client's queue → (img_l, img_r, stats) with a
-        leading client axis. `rigs` is a list of n_clients StereoRigs (one
-        resolution and baseline; client order)."""
-        rigs = list(rigs)
-        if len(rigs) != self.n_clients:
-            raise ValueError(f"expected {self.n_clients} rigs (one per client), "
-                             f"got {len(rigs)}")
+        """Fleet render of every live client's queue → (img_l, img_r, stats)
+        with a leading slot axis (free slots render black). `rigs` is a list
+        of n_clients StereoRigs (one resolution and baseline; slot order)."""
+        rigs = self._slot_aligned_rigs(rigs)
         rcfg = rnd.RenderConfig.for_fleet(rigs, tile=tile, list_len=list_len,
                                           max_pairs=max_pairs)
         return service_render_step(self.tree, self.state, rnd.stack_rigs(rigs), rcfg,

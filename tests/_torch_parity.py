@@ -137,3 +137,24 @@ def dense_cache_layers(cache, cfg) -> list:
         kv = {n: flat[f"{prefix}/{n}"] for n in ("k", "v")}
         out.append({n: a if g is None else a[g] for n, a in kv.items()})
     return out
+
+
+def state_arrays(obj, prefix: str = "") -> dict:
+    """{field path: numpy array} over a (JAX or port) dataclass of arrays,
+    such as a service's state or its stats."""
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            out.update(state_arrays(getattr(obj, f.name), f"{prefix}{f.name}/"))
+        return out
+    return {prefix.rstrip("/"): np_(obj)}
+
+
+def assert_states_equal(ours, theirs, ctx: str = "") -> None:
+    """Every leaf of two dataclasses of arrays equal, dtypes included (a
+    float leaf bit for bit)."""
+    a, b = state_arrays(ours), state_arrays(theirs)
+    assert a.keys() == b.keys(), ctx
+    for k in b:
+        assert a[k].dtype == b[k].dtype, f"{ctx}: {k} {a[k].dtype} vs {b[k].dtype}"
+        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{ctx}: {k}")

@@ -435,6 +435,99 @@ def test_fleet_pooled_matches_vmapped_and_launches(scene):
         assert torch.equal(getattr(ps, f.name), getattr(vs, f.name)), f.name
 
 
+def _churn_script(svc, base, rng_seed=0):
+    """A ragged-fleet script: syncs at moving cameras, a growing admit, an
+    evict and a recycled slot, a NACK of one page, a partial sync and a
+    shrink. Returns each sync's stats and cut ids, and the checksums of
+    each sync's pages, all on the host."""
+    rng = np.random.default_rng(rng_seed)
+    out = []
+
+    def sync(cams=None, participate=None):
+        st = svc.sync(cams, participate=participate)
+        out.append(({f.name: getattr(st, f.name).cpu().numpy()
+                     for f in dataclasses.fields(st)},
+                    svc.state.cut_gids.cpu().numpy(), svc.delta_checksums()))
+
+    def moved():
+        return {c: base + rng.normal(0, 4.0, 3).astype(np.float32) for c in svc.active_ids}
+
+    sync(moved())
+    svc.admit(base + 2.0, bandwidth="phone")          # capacity 2 -> 4
+    sync(moved())
+    svc.evict(0)
+    svc.admit(base - 1.0, tau=24.0)                   # into the recycled slot 0
+    sync(moved())
+    # client 3's first (cold) sync: drop the first page it took rows from
+    rows = svc.last_delta.row_page.cpu().numpy()
+    took = rows[svc.last_delta.ref_mask[svc._slot_of(3)].cpu().numpy() & (rows >= 0)]
+    assert took.size and svc.nack(3, np.unique(took)[:1]) > 0
+    sync(moved())
+    sync(moved(), participate=svc.active_ids[:2])
+    svc.evict(1)
+    assert svc.maybe_shrink() == 2
+    sync(moved())
+    return out
+
+
+def test_ragged_fleet_on_card_matches_cpu(scene):
+    """A churned pooled service on the card (K6, K5) against the same script
+    run by the port on the CPU (plain versions): every stats column equal
+    (ids and counts exactly, `sync_bytes` bit for bit), the cut ids equal,
+    and the page checksums of each card-built payload equal the CPU's."""
+    tree, rig = scene
+    cfg = P.SessionConfig(tau=16.0, cut_budget=4096)
+    kw = dict(focal=400.0, mode="pooled", bandwidth=[2e4, None], page_size=64)
+    card = LodService(tree, cfg, 2, **kw)
+    host = LodService(tree.to("cpu"), cfg, 2, device="cpu", **kw)
+    host.codec = pytree.tree_map(lambda x: x.cpu(), card.codec)
+    base = rig.left.pos.cpu().numpy()
+    K.reset_launch_counts()
+    got = _churn_script(card, base)
+    counts = K.launch_counts()
+    want = _churn_script(host, base)
+    assert counts["lod_pair_sweep"] >= 1 and counts["vq_assign"] >= len(got), counts
+    for k, ((gs, gc, gk), (ws, wc, wk)) in enumerate(zip(got, want)):
+        for name, arr in ws.items():
+            assert gs[name].dtype == arr.dtype, name
+            np.testing.assert_array_equal(gs[name], arr, err_msg=f"sync {k}: {name}")
+        np.testing.assert_array_equal(gc, wc, err_msg=f"sync {k}: cut ids")
+        assert gk.dtype == np.uint32
+        np.testing.assert_array_equal(gk, wk, err_msg=f"sync {k}: checksums")
+    assert card.active_ids == host.active_ids and card.capacity == 2
+
+
+def test_ragged_pooled_render_masks_free_slots(scene):
+    """A fleet of 4 slots with 2 free (an evicted one and one from growth):
+    the pooled render is one K2 launch, the free slots' frames are black and
+    the frames equal the per-client render on the card bit for bit."""
+    tree, rig = scene
+    cfg = P.SessionConfig(tau=16.0, cut_budget=4096)
+    svc = LodService(tree, cfg, 2, focal=400.0, mode="pooled")
+    base = rig.left.pos.cpu().numpy()
+    svc.admit(base + [0.8, 0.0, 0.0])                  # capacity 2 -> 4
+    svc.evict(1)
+    svc.sync({c: base + [0.4 * c, 0.0, 0.0] for c in svc.active_ids})
+    assert svc.capacity == 4 and svc.active_ids == [0, 2]
+    rigs = [C.StereoRig(left=rig.left.translated(
+        torch.tensor([0.4 * c, 0.0, 0.0], device=rig.left.pos.device)))
+        for c in svc.active_ids]
+    K.reset_launch_counts()
+    pl, pr, ps = svc.render_fallback(rigs, list_len=64, max_pairs=1 << 18, path="pooled")
+    assert K.launch_counts()["rasterize_slabs"] == 1
+    vl, vr, vs = svc.render_fallback(rigs, list_len=64, max_pairs=1 << 18, path="vmap")
+    torch.cuda.synchronize()
+    free = torch.as_tensor(~svc._active, device=pl.device)
+    assert not pl[free].any() and not pr[free].any() and float(pl.max()) > 0
+    assert torch.equal(pl, vl) and torch.equal(pr, vr)
+    # the pooled launch keeps the Pallas contract (no flag past a stop)
+    for f in dataclasses.fields(ps):
+        a, b = getattr(ps, f.name), getattr(vs, f.name)
+        assert bool((a >= b).all()) if f.name == "right_alpha_skipped" else torch.equal(a, b), \
+            f.name
+        assert not a[free].any(), f.name
+
+
 # K7: every mask, both types, every padded head dim of the bf16 kernel
 # (D 16..320), lengths that are not a multiple of the kernels' blocks,
 # GQA groups 1, 2 and 8 (tolerances of tests/test_kernels.py). Every row

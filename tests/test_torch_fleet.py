@@ -298,7 +298,7 @@ def test_service_pooled_equals_vmapped_and_delta(services):
     and a client's slice of the shared stream decodes like the JAX one."""
     js, ports, _out = services
     a, b = ports["pooled"].state, ports["vmapped"].state
-    for x, y in zip(_leaves(a), _leaves(b)):
+    for x, y in zip(pytree.leaves(a), pytree.leaves(b)):
         assert torch.equal(x, y)
     for c in range(B):
         (tids, tdec), (jids, jdec) = ports["pooled"].client_delta(c), js.client_delta(c)
@@ -308,16 +308,11 @@ def test_service_pooled_equals_vmapped_and_delta(services):
         ports["pooled"].client_cut(B)
 
 
-def _leaves(tree):
-    out = []
-    pytree.tree_map(lambda x: out.append(x) or x, tree)
-    return out
-
-
 def test_render_fallback_pooled_equals_vmap_and_jax(services):
     js, ports, _out = services
     svc = ports["pooled"]
-    jrigs = [StereoRig(left=make_camera(svc._cams[c], svc._cams[c] + [20.0, 15.0, -1.0],
+    cams = svc._slot_cams
+    jrigs = [StereoRig(left=make_camera(cams[c], cams[c] + [20.0, 15.0, -1.0],
                                         focal_px=120.0, width=96, height=64, near=0.2),
                        baseline=0.06) for c in range(B)]
     trigs = [to_torch_rig(r) for r in jrigs]
@@ -326,7 +321,7 @@ def test_render_fallback_pooled_equals_vmap_and_jax(services):
     vl, vr, vst = svc.render_fallback(trigs, list_len=128, path="vmap")
     assert sum(tkernels.launch_counts().values()) == 0  # CPU: plain versions
     assert torch.equal(pl, vl) and torch.equal(pr, vr)
-    for x, y in zip(_leaves(pst), _leaves(vst)):
+    for x, y in zip(pytree.leaves(pst), pytree.leaves(vst)):
         assert torch.equal(x, y)
     assert pl.shape == (B, 64, 96, 3) and float(pl.max()) > 0
     jl, jr, jst = js.render_fallback(jrigs, list_len=128, path="vmap")

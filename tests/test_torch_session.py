@@ -177,6 +177,43 @@ def test_compressed_session_exact_over_frames(setup):
     assert ts.sync_index == 3
 
 
+def test_current_cut_ids_and_render_match_jax(setup):
+    """`current_cut_ids` (None before the first sync) equals the JAX
+    session's ids exactly, every id it lists is in the client store, and
+    `render(rig, gids)` (−1 ids at opacity 0) equals `render_stereo` on that
+    queue and the JAX session's `render` within the session test's
+    tolerance, its stats exactly (as `tests/test_pipeline.py` reads them)."""
+    tree, ttree, rig0, rigs = setup
+    cfg = dict(CFG, w=1, w_star=16, use_compression=True)
+    js = jpipe.CollaborativeSession(tree, jpipe.SessionConfig(**cfg), rig0)
+    ts = tpipe.CollaborativeSession(ttree, tpipe.SessionConfig(**cfg), to_torch_rig(rig0),
+                                    device=CPU)
+    ts.codec = to_torch_codec(js.codec)
+    assert ts.current_cut_ids is None and js.current_cut_ids is None
+    for rig in rigs[:3]:
+        js.step(rig, render=False)
+        ts.step(to_torch_rig(rig), render=False)
+        gids = ts.current_cut_ids
+        assert gids.dtype == torch.int32
+        assert_equal(gids, js.current_cut_ids)
+        valid = gids[gids >= 0].long()
+        assert bool(ts.client.has[valid].all())
+    rig = rigs[2]
+    tl, tr, (_s, _ll, _rl, tstats) = ts.render(to_torch_rig(rig), gids)
+    queue = tpipe._render_queue(ts.client_store, gids)
+    assert bool((queue.opacity[gids < 0] == 0).all()) and bool((gids < 0).any())
+    rl, rr, (_s2, _l2, _r2, rstats) = tpipe.render_stereo(
+        queue, to_torch_rig(rig), tile=ts.cfg.tile, list_len=ts.cfg.list_len,
+        max_pairs=ts.cfg.max_pairs)
+    assert torch.equal(tl, rl) and torch.equal(tr, rr)
+    assert dataclasses.asdict(tstats) == dataclasses.asdict(rstats)
+    jl, jr, (_js, _jll, _jrl, jstats) = js.render(rig, js.current_cut_ids)
+    assert_close(tl, jl, 1e-4, 1e-5)
+    assert_close(tr, jr, 1e-4, 1e-5)
+    assert dataclasses.asdict(tstats) == dataclasses.asdict(jstats)
+    assert float(tl.max()) > 0
+
+
 SAT_CFG = dict(tau=32.0, w=2, w_star=2, cut_budget=2048, tile=16, list_len=256,
                max_pairs=1 << 16, use_compression=False)
 
