@@ -76,6 +76,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each tier's allowance and τ scale, the scheduler's and lockstep's MTP
      p50/p99 and miss rates and the distinct K5/K6 launch sizes, each with
      the card's name and power limit.
+ 12. (run after phase 11, on phase 7's scene, before the LM phases free it)
+     recovery, with the counters set to 0 first: a pooled service like
+     phase 11's (8 clients at capacity 8, max_clients 16, the three tiers,
+     foveated τ, phase 11's cut budget), driven through
+     `RecoveryManager(every=4, keep=2)` in a temporary directory, takes 2
+     syncs, 4 admits (8 -> 16 slots), a bandwidth re-tier, 3 syncs, 2
+     evicts, a seeded lost page and its NACK, and 2 syncs. Then it crashes
+     (every reference dropped, half a record appended to the journal) and
+     `recover` restores the newest snapshot onto the card and replays the
+     journal's tail (syncs and the NACK among it). A vmapped twin (K1) that
+     never crashed takes the same script: the recovered service must equal
+     it bit for bit (every state leaf, host mirror and stats column) right
+     after the recovery and after each of 4 more syncs, and its pooled
+     fallback render must equal the twin's, free slots black. Then a leaf
+     file of the newest snapshot is truncated, and `recover` must fall back
+     to the one before it and replay the longer tail to the same bits. K6
+     and K5 must launch in the replays and equal their plain versions at
+     the largest launches. It prints each snapshot's ms (copy to the host,
+     write) and bytes on disk, a sync that snapshots beside ones that do
+     not, each restore's ms (read, copy to the card), the records replayed
+     and the replay's ms, and the total, each with the card's name and
+     power limit. The twin's, the pair sizing's and the twin render's
+     launches are counted apart; the directory is removed at the end.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
@@ -91,6 +114,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -257,6 +281,10 @@ class StageTimer:
             self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
             return r
         return run
+
+    def take(self, name) -> float:
+        """The ms accumulated under `name` since the last take (0 if none)."""
+        return self.ms.pop(name, 0.0)
 
 
 def ptxas_report(text: str) -> list:
@@ -763,6 +791,368 @@ def ragged_fleet(torch, dev, tree, extent, base, focal, width, height, pair_tota
                     preview_ms=preview_ms),
                 shapes={k: sorted(v) for k, v in shapes.items()}, renders=renders,
                 checked=checked, aside=aside, counts=counts)
+
+
+RECOVERY_EVERY = 4           # phase 12: a snapshot every this many syncs
+RECOVERY_KEEP = 2            # phase 12: snapshots kept
+RECOVERY_AFTER = 4           # phase 12: syncs after the recovery, each held to the twin
+RECOVERY_SEED = 12
+
+
+def fleet_recovery(torch, dev, tree, extent, base, focal, width, height, pair_total,
+                   cut_budget, card) -> dict:
+    """Phase 12 of the module docstring, on phase 7's scene. Raises on a
+    failed check; returns the phase's report, with the launch counts of the
+    recovery path under "counts"."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch import pytree
+    from repro_torch import render as R
+    from repro_torch.checkpoint import manager as CK
+    from repro_torch.core import camera as C
+    from repro_torch.core import compression as CP
+    from repro_torch.core import pipeline as P
+    from repro_torch.kernels import lod_cut, vq_assign
+    from repro_torch.serve import lod_service as SV
+    from repro_torch.serve import recovery as REC
+
+    K.reset_launch_counts()
+    w, (ex, ey) = base.w, extent
+    rng = np.random.default_rng(RECOVERY_SEED)
+    n_frames = (8 + RECOVERY_AFTER) * w + 1
+    walks = [np.stack([cam.pos.numpy() for cam in C.walk_trajectory(
+        C.TrajectoryConfig(seed=c), n_frames, extent, focal_px=focal, width=width,
+        height=height, device="cpu")]).astype(np.float32) for c in range(RAGGED_START + 4)]
+    centre = np.asarray([ex / 2, ey / 2, 1.7], np.float32)
+
+    def tier(c):
+        return RAGGED_TIERS[c % 3]
+
+    def tau(c):
+        return 48.0 if c % 2 == 0 else 84.0
+
+    cfg = P.SessionConfig(tau=48.0, w=w, w_star=32, cut_budget=cut_budget)
+    directory = tempfile.mkdtemp(prefix="nebula_recovery_")
+    free_gb = shutil.disk_usage(directory).free / 2**30
+    log(f"[recovery] snapshots under {directory} ({free_gb:.1f} GiB free); every "
+        f"{RECOVERY_EVERY} syncs, keep {RECOVERY_KEEP}; {RAGGED_START} clients at capacity "
+        f"{RAGGED_START}, max_clients {RAGGED_MAX}, cut_budget {cut_budget}")
+
+    aside = dict.fromkeys(K.launch_counts(), 0)
+    checking, replaying = [False], [False]
+
+    @contextlib.contextmanager
+    def not_the_path():
+        before = K.launch_counts()
+        checking[0] = True
+        try:
+            yield
+        finally:
+            checking[0] = False
+            for name, n in K.launch_counts().items():
+                aside[name] += n - before[name]
+
+    # the replays' K6 and K5 launches: sizes, and the arguments of the largest
+    replayed_at = {"k6_pairs": [], "k5_rows": []}
+    kept = {}
+
+    def recorder(key, fn):
+        def run(*a, **kw):
+            if replaying[0] and not checking[0]:
+                n = int(a[0].shape[0])
+                replayed_at[key].append(n)
+                if n > kept.get(key, (0,))[0]:
+                    kept[key] = (n, a, kw)
+            return fn(*a, **kw)
+        return run
+
+    spans = StageTimer(torch)
+    real_replay, real_snapshot = REC.replay, REC.snapshot_service
+    snapshots = []
+
+    def snapshot(service, directory_, *a, **kw):
+        path = spans.wrap("snapshot", real_snapshot)(service, directory_, *a, **kw)
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        snapshots.append(dict(step=int(Path(path).name.split("_")[1]),
+                              capacity=service.capacity, ms=spans.take("snapshot"),
+                              host_copy_ms=spans.take("host_copy"),
+                              write_ms=spans.take("write"),
+                              fingerprint_ms=spans.take("fingerprint"), bytes=nbytes))
+        return path
+
+    def replay(service, records):
+        replaying[0] = True
+        try:
+            return spans.wrap("replay", real_replay)(service, records)
+        finally:
+            replaying[0] = False
+
+    def restore_spans():
+        """ms of a recovery's parts: the fresh service, the tree's
+        fingerprint, the leaf files' read, the copy to the card, the replay
+        (a snapshot that fails to restore adds its part to each)."""
+        return {f"{k}_ms": spans.take(k)
+                for k in ("service", "fingerprint", "read", "to_card", "replay")}
+
+    def spans_text(d):
+        return ", ".join(f"{k[:-3]} {d[k]:.1f}" for k in (
+            "service_ms", "fingerprint_ms", "read_ms", "to_card_ms", "replay_ms"))
+
+    def state_of(svc):
+        out = {key: leaf for key, leaf in pytree.flatten_with_paths(svc.state)}
+        for name in ("_active", "_client_ids", "_slot_cams", "_delta_ids", "_bw_target",
+                     "_allowance", "_tau_scale", "_stats_fresh"):
+            out[name] = torch.from_numpy(np.array(getattr(svc, name)))
+        out["next_id"] = torch.tensor(svc._next_id)
+        out["taus"] = None if svc.taus is None else torch.from_numpy(svc.taus.copy())
+        out["last_sync_bytes"] = (None if svc._last_stats is None
+                                  else svc._last_stats.sync_bytes)
+        return out
+
+    def same(a, b, what, sa=None, sb=None):
+        """Every state leaf, host mirror and stats column of `a` equal to
+        `b`'s bit for bit, dtypes included."""
+        pairs = list(zip(state_of(a).items(), state_of(b).items(), strict=True))
+        if sa is not None:
+            pairs += [((f.name, getattr(sa, f.name)), (f.name, getattr(sb, f.name)))
+                      for f in dataclasses.fields(sa)]
+        for (ka, x), (kb, y) in pairs:
+            if ka != kb or (x is None) != (y is None):
+                raise AssertionError(f"{what}: {ka} / {kb} differ in kind")
+            if x is not None and (x.dtype != y.dtype or not torch.equal(x, y)):
+                raise AssertionError(f"{what}: {ka} differs from the twin's")
+        if a.capacity != b.capacity or a.active_ids != b.active_ids:
+            raise AssertionError(f"{what}: fleets differ")
+        for key, leaf in pytree.flatten_with_paths(a.state):
+            if leaf.device.type != dev.type:
+                raise AssertionError(f"{what}: leaf {key} is on {leaf.device}")
+
+    with not_the_path():
+        twin = SV.LodService(tree, cfg, RAGGED_START, focal=focal, mode="vmapped",
+                             taus=[tau(c) for c in range(RAGGED_START)],
+                             capacity=RAGGED_START, max_clients=RAGGED_MAX,
+                             bandwidth=[tier(c) for c in range(RAGGED_START)])
+    syncs, t_walk = [], [0]
+
+    def both(op, *args):
+        out = getattr(mgr, op)(*args)
+        with not_the_path():
+            if getattr(twin, op)(*args) != out:
+                raise AssertionError(f"{op}{args}: the service and its twin disagree")
+        return out
+
+    def sync(what, ops):
+        t = t_walk[0]
+        t_walk[0] += 1
+        svc = ops.service if hasattr(ops, "service") else ops
+        cams = {c: walks[c][t * w] for c in svc.active_ids}
+        n_snap = len(snapshots)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = ops.sync(cams)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with not_the_path():
+            st_twin = twin.sync(cams)
+        same(svc, twin, what, st, st_twin)
+        if bool(st.overflow.any()):
+            raise AssertionError(f"{what}: a cut overflowed {cfg.cut_budget}")
+        syncs.append(dict(what=what, ms=ms, capacity=svc.capacity, live=svc.n_clients,
+                          snapshot=len(snapshots) > n_snap))
+        log(f"[recovery sync {t}] on {card}: {what}: {ms:.2f} ms, {svc.n_clients} live in "
+            f"{svc.capacity} slots{' (took a snapshot)' if len(snapshots) > n_snap else ''}; "
+            f"equal to the twin")
+        return st
+
+    events = {}
+    try:
+        with contextlib.ExitStack() as patches:
+            for obj, name, fn in (
+                    (SV, "lod_pair_sweep", recorder("k6_pairs", SV.lod_pair_sweep)),
+                    (CP, "vq_assign", recorder("k5_rows", CP.vq_assign)),
+                    (CK, "host_items", spans.wrap("host_copy", CK.host_items)),
+                    (CK, "write_items", spans.wrap("write", CK.write_items)),
+                    (CK, "load_leaves", spans.wrap("read", CK.load_leaves)),
+                    (CK, "place", spans.wrap("to_card", CK.place)),
+                    (REC, "LodService", spans.wrap("service", REC.LodService)),
+                    (REC, "tree_fingerprint", spans.wrap("fingerprint", REC.tree_fingerprint)),
+                    (REC, "snapshot_service", snapshot), (REC, "replay", replay)):
+                patches.enter_context(mock.patch.object(obj, name, fn))
+            service = SV.LodService(tree, cfg, RAGGED_START, focal=focal, mode="pooled",
+                                    taus=[tau(c) for c in range(RAGGED_START)],
+                                    capacity=RAGGED_START, max_clients=RAGGED_MAX,
+                                    bandwidth=[tier(c) for c in range(RAGGED_START)])
+            twin.codec = service.codec
+            mgr = REC.RecoveryManager(service, directory, every=RECOVERY_EVERY,
+                                      keep=RECOVERY_KEEP)
+            same(service, twin, "the base snapshot")
+            # the script: 2 syncs, 4 admits (8 -> 16 slots), a re-tier, 3
+            # syncs, 2 evicts, a seeded lost page and its NACK, 2 syncs
+            for _ in range(2):
+                sync("start", mgr)
+            for _ in range(4):
+                c = service._next_id
+                both("admit", walks[c][t_walk[0] * w], tau(c), True, tier(c))
+            if service.capacity != 16:
+                raise AssertionError(f"capacity {service.capacity} after the admits, not 16")
+            both("set_bandwidth", 1, "tethered")
+            for _ in range(3):
+                sync("after the admits", mgr)
+            for c in (3, 9):
+                both("evict", c)
+            batch = service.last_delta
+            took = batch.ref_mask.sum(1).cpu().numpy()
+            cands = [c for c in service.active_ids
+                     if service._delta_ids[service._slot_of(c)] == c
+                     and took[service._slot_of(c)] > 0]
+            victim = int(rng.choice(cands))
+            rp = batch.row_page.cpu().numpy()
+            vmask = batch.ref_mask[service._slot_of(victim)].cpu().numpy()
+            page = int(rng.choice(np.unique(rp[vmask & (rp >= 0)])))
+            lost = both("nack", victim, [page])
+            if lost <= 0:
+                raise AssertionError(f"the NACK of page {page} of client {victim} "
+                                     f"re-queued nothing")
+            log(f"[recovery] client {victim} lost page {page}: {lost} rows re-queued")
+            for _ in range(2):
+                sync("after the NACK", mgr)
+            head = mgr.journal.seq
+            snap_dir = mgr.snapshot_dir
+            newest = CK.latest_step(snap_dir)
+            tail = [r["kind"] for r in REC.SyncJournal.read(mgr.journal.path)[newest:]]
+            if "sync" not in tail or "nack" not in tail:
+                raise AssertionError(f"the journal's tail after step {newest} is {tail}")
+
+            # the crash: every reference dropped, a torn last record
+            del mgr, service, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            with open(os.path.join(directory, REC.JOURNAL_NAME), "a") as f:
+                f.write('{"cams": {"0": [1.5, ')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr, replayed = REC.recover(tree, directory, every=RECOVERY_EVERY,
+                                        keep=RECOVERY_KEEP)
+            torch.cuda.synchronize()
+            recover_ms = (time.perf_counter() - t0) * 1e3
+            service = mgr.service
+            first = dict(step=newest, records=replayed, tail=tail, total_ms=recover_ms,
+                         **restore_spans())
+            if replayed != head - newest or mgr.journal.seq != head:
+                raise AssertionError(f"recovered {replayed} records from step {newest}, "
+                                     f"journal head {mgr.journal.seq} (want {head})")
+            same(service, twin, "right after the recovery")
+            log(f"[recovery] on {card}: recovered from step {newest} in {recover_ms:.1f} ms: "
+                f"{spans_text(first)}; {replayed} records {tail}; equal to the twin bit "
+                f"for bit")
+            for k in range(RECOVERY_AFTER):
+                sync(f"after the recovery ({k})", mgr)
+
+            # one pooled fallback render of each
+            ids = service.active_ids
+            rigs = []
+            for c in ids:
+                pos = service._slot_cams[service._slot_of(c)]
+                target = (centre if np.linalg.norm(centre[:2] - pos[:2]) > 1.0
+                          else pos + [10, 10, 0])
+                rigs.append(C.StereoRig(left=C.make_camera(
+                    pos, target, focal_px=focal, width=width, height=height, near=0.25,
+                    device=dev), baseline=0.06))
+            with not_the_path():
+                rc = R.RenderConfig.for_fleet(rigs, tile=base.tile, list_len=base.list_len)
+                max_pairs = pow2_at_least(max(
+                    pair_total(SV._masked_queue(tree.gaussians, service.client_cut(c)), r, rc)
+                    for c, r in zip(ids, rigs)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fl, fr, fst = service.render_fallback(rigs, list_len=base.list_len,
+                                                  max_pairs=max_pairs, path="pooled")
+            torch.cuda.synchronize()
+            render_ms = (time.perf_counter() - t0) * 1e3
+            with not_the_path():
+                tl, tr, tst = twin.render_fallback(rigs, list_len=base.list_len,
+                                                   max_pairs=max_pairs, path="pooled")
+                torch.cuda.synchronize()
+            live = torch.as_tensor(service._active, device=dev)
+            if bool(fl[~live].any()) or bool(fr[~live].any()):
+                raise AssertionError("a free slot's frame is not black")
+            if not (torch.equal(fl, tl) and torch.equal(fr, tr)) or not all(
+                    torch.equal(getattr(fst, f.name), getattr(tst, f.name))
+                    for f in dataclasses.fields(fst)):
+                raise AssertionError("the recovered fleet's render differs from the twin's")
+            if bool((fl[live].flatten(1).amax(1) <= 0).all()):
+                raise AssertionError("every live client's frame is blank")
+            log(f"[recovery] on {card}: pooled render of {len(ids)} clients in "
+                f"{service.capacity} slots {render_ms:.1f} ms, equal to the twin's bit for "
+                f"bit, free slots black")
+            del fl, fr, fst, tl, tr, tst
+
+            # the fault leg: a truncated leaf file in the newest snapshot
+            head = mgr.journal.seq
+            steps = CK.valid_steps(snap_dir)
+            bad_dir = Path(snap_dir) / f"step_{steps[0]:08d}"
+            leaf = sorted(bad_dir.glob("leaf_*.npy"))[0]
+            leaf.write_bytes(leaf.read_bytes()[: max(1, leaf.stat().st_size // 2)])
+            del mgr, service
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr, replayed2 = REC.recover(tree, directory, every=RECOVERY_EVERY,
+                                         keep=RECOVERY_KEEP)
+            torch.cuda.synchronize()
+            fallback_ms = (time.perf_counter() - t0) * 1e3
+            fallback = dict(bad_step=steps[0], step=steps[1], records=replayed2,
+                            total_ms=fallback_ms, **restore_spans())
+            if replayed2 != head - steps[1]:
+                raise AssertionError(f"the fallback replayed {replayed2} records, not "
+                                     f"{head - steps[1]} from step {steps[1]}")
+            same(mgr.service, twin, "after the fallback to an earlier snapshot")
+            log(f"[recovery] on {card}: step {steps[0]} truncated: fell back to step "
+                f"{steps[1]} in {fallback_ms:.1f} ms ({spans_text(fallback)}; {replayed2} "
+                f"records); equal to the twin bit for bit")
+            del mgr
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    counts = {name: n - aside[name] for name, n in K.launch_counts().items()}
+    require_launched("recovery", counts, ("lod_pair_sweep", "vq_assign", "rasterize_slabs",
+                                          "preprocess", "stereo_merge"))
+    if not (replayed_at["k6_pairs"] and replayed_at["k5_rows"]):
+        raise AssertionError(f"K6 or K5 never launched in a replay: {replayed_at}")
+    if aside["lod_slab_sweep"] < 1:
+        raise AssertionError("the vmapped twin never launched K1")
+    checked = []
+    for key, label, kern, plain in (
+            ("k6_pairs", "K6", lod_cut.lod_pair_sweep, lod_cut.pair_sweep_plain),
+            ("k5_rows", "K5", vq_assign.vq_assign, vq_assign.vq_assign_plain)):
+        n, a, kw = kept.pop(key)
+        got, want = kern(*a, **kw), plain(*a, **kw)
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for i, (x, y) in enumerate(zip(got, want, strict=True)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label} at the replays' largest launch ({n}): "
+                                     f"output {i} differs from the plain version")
+        checked.append(f"{label} {n}")
+    log(f"[check] recovery: K6 and K5 == plain at the replays' largest launches "
+        f"({', '.join(checked)}); replay launch sizes {json.dumps(replayed_at)}")
+    snap_ms = [x["ms"] for x in snapshots]
+    plain_sync = [x["ms"] for x in syncs if not x["snapshot"] and x["capacity"] == 16]
+    snap_sync = [x["ms"] for x in syncs if x["snapshot"]]
+    log(f"[recovery] on {card}: snapshots " + json.dumps(
+        [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in x.items()}
+         for x in snapshots]))
+    log(f"[recovery] on {card}: a sync that snapshots {[round(x, 2) for x in snap_sync]} "
+        f"ms, one that does not "
+        f"(capacity 16) {[round(x, 2) for x in plain_sync]} ms; snapshot total "
+        f"{[round(x, 1) for x in snap_ms]} ms")
+    log(f"[recovery] kernels on the path {json.dumps(counts)}; launched beside it by the "
+        f"twin, the pair sizing and the twin's render {json.dumps(aside)}")
+    return dict(snapshots=snapshots, syncs=syncs, recover=first, fallback=fallback,
+                render_ms=render_ms, nack=dict(client=victim, page=page, rows=lost),
+                replay_launches=replayed_at, checked=checked, aside=aside, counts=counts)
 
 
 def lm_serving(torch, dev) -> dict:
@@ -1802,6 +2192,15 @@ def main() -> int:
     report["phases"]["ragged_s"] = time.perf_counter() - t_rag
     log(f"[ragged] phase 11 took {report['phases']['ragged_s']:.1f} s")
 
+    # 12. recovery, on phase 7's scene, before the LM phases free it ---------------
+    t_rec = time.perf_counter()
+    recovered = fleet_recovery(torch, dev, tree, city.extent, base, focal, width, height,
+                               pair_total, ragged["cut_budget"], card)
+    counts_recovery = recovered.pop("counts")
+    report["recovery"] = recovered
+    report["phases"]["recovery_s"] = time.perf_counter() - t_rec
+    log(f"[recovery] phase 12 took {report['phases']['recovery_s']:.1f} s")
+
     # free the city before the LM phases
     del tree, leaves, cuts, sync_cuts, rigs, walks, fleet_rigs, q0, sk, left, ranks
     del origins, counts, k_out, p_out, sweep_args, rpe, top_expand, il, ir, ll, rl
@@ -1838,7 +2237,8 @@ def main() -> int:
     rows = []
     for name, k in kernels.items():
         by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
-                   "ragged": counts_ragged[name], "lm": counts_lm[name]}
+                   "ragged": counts_ragged[name], "recovery": counts_recovery[name],
+                   "lm": counts_lm[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

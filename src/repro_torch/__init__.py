@@ -14,7 +14,9 @@ Layout:
                          fit, projection, binning, stereo merge, session.
   repro_torch.render   — the client render stages (project → bin_shared →
                          stereo_merge → rasterize).
-  repro_torch.serve    — the multi-client LoD service (fleet, Δ stream).
+  repro_torch.serve    — the multi-client LoD service (fleet, Δ stream,
+                         snapshot/restore and journal crash recovery).
+  repro_torch.checkpoint — atomic checkpoints in the reference's layout.
   repro_torch.models   — the LM family's serving path (dense: prefill and
                          cached decode); `repro_torch.configs` holds the
                          architectures.

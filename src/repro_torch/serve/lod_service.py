@@ -25,8 +25,9 @@ to the wire or the stats and stay bitwise at their reset value. Around the
 sync paths sit the closed-loop per-client bitrate controller
 (`rate_control_step`, bandwidth tiers), the page-loss NACK path (a lost
 page's rows return as debt) and partial-fleet syncs (`participate`: the
-deadline scheduler's primitive, `repro_torch.serve.scheduler`). The serving
-mesh, snapshot and restore are not ported yet.
+deadline scheduler's primitive, `repro_torch.serve.scheduler`), and
+`snapshot` / `restore` (`repro_torch.serve.recovery`, in the reference's
+format). Only the serving mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -840,6 +841,28 @@ class LodService:
         self._tau_scale = self._tau_scale[perm]
         self._stats_fresh = self._stats_fresh[perm]
         return target
+
+    # -- snapshot / restore ------------------------------------------------------
+
+    def snapshot(self, directory: str, step: int = 0, *, journal_seq: int = 0) -> str:
+        """Atomically write the whole service (`ServiceState`, the host
+        control-plane mirrors, the bitrate controller's state, the static
+        config) as checkpoint `step_<step>` under `directory`
+        (`repro_torch.serve.recovery.snapshot_service`). Returns the final
+        path."""
+        from repro_torch.serve import recovery
+        return recovery.snapshot_service(self, directory, step=step,
+                                         journal_seq=journal_seq)
+
+    @classmethod
+    def restore(cls, tree: LodTree, directory: str, step: Optional[int] = None,
+                device: DeviceLike = None) -> "LodService":
+        """Rebuild a service from a snapshot of either package against the
+        same shared city tree (fingerprint-checked), its tensors on `device`
+        (the card when None). A torn, corrupt or mismatched snapshot raises
+        `repro_torch.serve.recovery.RecoveryError`."""
+        from repro_torch.serve import recovery
+        return recovery.restore_service(tree, directory, step=step, device=device)
 
     # -- sync -----------------------------------------------------------------
 

@@ -435,16 +435,18 @@ def test_fleet_pooled_matches_vmapped_and_launches(scene):
         assert torch.equal(getattr(ps, f.name), getattr(vs, f.name)), f.name
 
 
-def _churn_script(svc, base, rng_seed=0):
+def _churn_script(svc, base, rng_seed=0, ops=None):
     """A ragged-fleet script: syncs at moving cameras, a growing admit, an
     evict and a recycled slot, a NACK of one page, a partial sync and a
-    shrink. Returns each sync's stats and cut ids, and the checksums of
-    each sync's pages, all on the host."""
+    shrink, each call made through `ops` (the service itself, or a
+    `RecoveryManager` over it). Returns each sync's stats and cut ids, and
+    the checksums of each sync's pages, all on the host."""
+    ops = svc if ops is None else ops
     rng = np.random.default_rng(rng_seed)
     out = []
 
     def sync(cams=None, participate=None):
-        st = svc.sync(cams, participate=participate)
+        st = ops.sync(cams, participate=participate)
         out.append(({f.name: getattr(st, f.name).cpu().numpy()
                      for f in dataclasses.fields(st)},
                     svc.state.cut_gids.cpu().numpy(), svc.delta_checksums()))
@@ -453,19 +455,19 @@ def _churn_script(svc, base, rng_seed=0):
         return {c: base + rng.normal(0, 4.0, 3).astype(np.float32) for c in svc.active_ids}
 
     sync(moved())
-    svc.admit(base + 2.0, bandwidth="phone")          # capacity 2 -> 4
+    ops.admit(base + 2.0, bandwidth="phone")          # capacity 2 -> 4
     sync(moved())
-    svc.evict(0)
-    svc.admit(base - 1.0, tau=24.0)                   # into the recycled slot 0
+    ops.evict(0)
+    ops.admit(base - 1.0, tau=24.0)                   # into the recycled slot 0
     sync(moved())
     # client 3's first (cold) sync: drop the first page it took rows from
     rows = svc.last_delta.row_page.cpu().numpy()
     took = rows[svc.last_delta.ref_mask[svc._slot_of(3)].cpu().numpy() & (rows >= 0)]
-    assert took.size and svc.nack(3, np.unique(took)[:1]) > 0
+    assert took.size and ops.nack(3, np.unique(took)[:1]) > 0
     sync(moved())
     sync(moved(), participate=svc.active_ids[:2])
-    svc.evict(1)
-    assert svc.maybe_shrink() == 2
+    ops.evict(1)
+    assert ops.maybe_shrink() == 2
     sync(moved())
     return out
 
@@ -526,6 +528,85 @@ def test_ragged_pooled_render_masks_free_slots(scene):
         assert bool((a >= b).all()) if f.name == "right_alpha_skipped" else torch.equal(a, b), \
             f.name
         assert not a[free].any(), f.name
+
+
+def _service_arrays(svc) -> dict:
+    """Every `ServiceState` leaf, every host mirror and the controller's
+    carried bytes of a service, on the host."""
+    out = {key: leaf.cpu().numpy() for key, leaf in pytree.flatten_with_paths(svc.state)}
+    for name in ("_active", "_client_ids", "_slot_cams", "_delta_ids", "_bw_target",
+                 "_allowance", "_tau_scale", "_stats_fresh"):
+        out[name] = np.asarray(getattr(svc, name))
+    out["next_id"] = np.asarray(svc._next_id)
+    if svc._last_stats is not None:
+        out["last_sync_bytes"] = svc._last_stats.sync_bytes.cpu().numpy()
+    return out
+
+
+def _assert_same_service(got, want, ctx):
+    a, b = _service_arrays(got), _service_arrays(want)
+    assert a.keys() == b.keys(), ctx
+    for key in b:
+        assert a[key].dtype == b[key].dtype, f"{ctx}: {key}"
+        np.testing.assert_array_equal(a[key], b[key], err_msg=f"{ctx}: {key}")
+
+
+def _on(svc, device_type):
+    return all(leaf.device.type == device_type
+               for _key, leaf in pytree.flatten_with_paths(svc.state)) and (
+        svc._last_stats is None or svc._last_stats.sync_bytes.device.type == device_type)
+
+
+def test_recovery_on_card_matches_cpu(scene, tmp_path):
+    """The churn script journaled through a `RecoveryManager` on the card,
+    then a crash and `recover` on the card (K6 and K5 in the replay),
+    against the same script on the CPU port: every state leaf and host
+    mirror equal after the recovery and after one more sync, every restored
+    tensor on the card. A snapshot taken on the card restores onto the CPU
+    and one taken on the CPU onto the card, equal to each other."""
+    from repro_torch.serve import recovery
+    tree, rig = scene
+    cfg = P.SessionConfig(tau=16.0, cut_budget=4096)
+    kw = dict(focal=400.0, mode="pooled", bandwidth=[2e4, None], page_size=64)
+    card = LodService(tree, cfg, 2, **kw)
+    host = LodService(tree.to("cpu"), cfg, 2, device="cpu", **kw)
+    host.codec = pytree.tree_map(lambda x: x.cpu(), card.codec)
+    base = rig.left.pos.cpu().numpy()
+    d_card, d_host = str(tmp_path / "card"), str(tmp_path / "host")
+    # six syncs: the newest snapshot follows the fourth, so the tail holds
+    # the partial sync, the evict, the shrink and the last sync
+    mgr = recovery.RecoveryManager(card, d_card, every=4, keep=2)
+    _churn_script(card, base, ops=mgr)
+    _churn_script(host, base, ops=recovery.RecoveryManager(host, d_host, every=4, keep=2))
+    del card, mgr
+    torch.cuda.empty_cache()
+
+    K.reset_launch_counts()
+    rmgr, replayed = recovery.recover(tree, d_card)
+    counts = K.launch_counts()
+    records = recovery.SyncJournal.read(rmgr.journal.path)
+    tail = [r["kind"] for r in records[len(records) - replayed:]]
+    assert tail == ["sync", "evict", "shrink", "sync"], tail
+    assert counts["vq_assign"] >= 2, counts
+    svc = rmgr.service
+    assert svc.device.type == "cuda" and _on(svc, "cuda")
+    _assert_same_service(svc, host, "recovered")
+    cams = {c: base + 0.5 for c in host.active_ids}
+    st_c, st_h = rmgr.sync(cams), host.sync(cams)
+    for f in dataclasses.fields(st_h):
+        np.testing.assert_array_equal(getattr(st_c, f.name).cpu().numpy(),
+                                      getattr(st_h, f.name).numpy(), err_msg=f.name)
+    _assert_same_service(svc, host, "one more sync")
+
+    snap_card = str(tmp_path / "snap_card")
+    snap_host = str(tmp_path / "snap_host")
+    svc.snapshot(snap_card)
+    host.snapshot(snap_host)
+    on_cpu = LodService.restore(tree.to("cpu"), snap_card, device="cpu")
+    on_card = LodService.restore(tree, snap_host)
+    assert _on(on_cpu, "cpu") and _on(on_card, "cuda")
+    _assert_same_service(on_cpu, host, "card snapshot on the CPU")
+    _assert_same_service(on_card, host, "CPU snapshot on the card")
 
 
 # K7: every mask, both types, every padded head dim of the bf16 kernel

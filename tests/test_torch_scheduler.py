@@ -1,7 +1,7 @@
 """Port parity for partial-fleet syncs and the deadline scheduler
 (`repro_torch.serve.scheduler`) against the JAX package (mirrors
-`tests/test_scheduler.py`, without its recovery test and its mesh
-subprocess).
+`tests/test_scheduler.py`, without its mesh subprocess; its recovery test
+is mirrored in `tests/test_torch_recovery.py`).
 
 A sync that selects every live slot replays the lockstep sync bitwise;
 slots that sit out keep their state bitwise and report zero rows; bad
