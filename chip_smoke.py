@@ -99,6 +99,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and the replay's ms, and the total, each with the card's name and
      power limit. The twin's, the pair sizing's and the twin render's
      launches are counted apart; the directory is removed at the end.
+ 13. (run after phase 12, on phase 7's scene, before the LM phases free it)
+     the serving mesh, with the counters set to 0 first. (a) In this process,
+     a 1x1 mesh (NCCL, a world of one): a meshed service like phase 11's (8
+     clients at capacity 8, max_clients 16, the three tiers, foveated τ,
+     phase 11's cut budget) and a meshless twin take one script: 2 syncs, 4
+     admits (8 -> 16 slots), 2 syncs, 3 evicts, a sync, a seeded lost page
+     and its NACK, a sync, 6 deadline-scheduler ticks on a scripted clock
+     (partial syncs), an evict and a shrink to 8 slots, a sync,
+     `resize_mesh(None)`, a sync, `resize_mesh` back, a sync, a pooled
+     render; every sync, tick and the render must be bitwise the twin's,
+     and a snapshot of the meshed service must restore meshless to the
+     twin's bits. (b) Four gloo ranks time-sharing the card on a 2x2 mesh
+     (`--mesh-rank`: this script as a child), which load phase 7's tree
+     from a file this process writes: 8 clients at capacity 16 (8 slots a
+     client shard) take 6 syncs with an admit and an evict and a pooled
+     render; every sync's whole-fleet stats, every slot's frames (sha256)
+     and a snapshot restored meshless must be the meshless service's bits,
+     `fleet_totals` within rtol 1e-6; K6, K5, K2, K3 and K4 must launch on
+     every rank. It prints the meshed and meshless warm sync, each rank's
+     syncs and the collectives' share, and each rank's resident bytes
+     against the meshless service's, each with the card's name and power
+     limit. A rank that exits non-zero fails the phase.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
@@ -1155,6 +1177,651 @@ def fleet_recovery(torch, dev, tree, extent, base, focal, width, height, pair_to
                 replay_launches=replayed_at, checked=checked, aside=aside, counts=counts)
 
 
+MESH_SEED = 13
+MESH_RANKS = (2, 2)          # phase 13 (b): clients x slabs, four ranks on the one card
+MESH_CAPACITY = 16           # (b): slots, 8 a client shard
+MESH_SYNCS = 6               # (b): syncs; an admit before the third, an evict before the fifth
+MESH_TICKS = 6               # (a): deadline-scheduler ticks, each a partial sync
+MESH_VMAPPED_SYNCS = 3       # (a): syncs of the vmapped scheduler on the mesh and off it
+MESH_WAIT_S = 400            # the longest the parent waits on a rank, or a rank on the parent
+
+
+class ScriptedClock:
+    """A monotonic clock that moves 1 ms a read: two schedulers given one
+    each take the same decisions."""
+
+    def __init__(self, t0: float = 100.0):
+        self.t = float(t0)
+
+    def __call__(self) -> float:
+        self.t += 1e-3
+        return self.t
+
+
+def mesh_walks(np, C, extent, focal, width, height, n_frames: int):
+    """Seeded walks of phase 13's clients (four more than it starts with, for
+    the admits), as (clients, n_frames, 3) float32 positions."""
+    return np.stack([np.stack([cam.pos.numpy() for cam in C.walk_trajectory(
+        C.TrajectoryConfig(seed=MESH_SEED + c), n_frames, extent, focal_px=focal,
+        width=width, height=height, device="cpu")]) for c in range(RAGGED_START + 4)]
+    ).astype(np.float32)
+
+
+def mesh_service(SV, tree, cfg, focal, mesh, capacity, mode="pooled"):
+    """Phase 13's fleet: phase 11's 8 clients (the three tiers, foveated τ,
+    max_clients 16) in `capacity` slots, on `mesh` (None: meshless)."""
+    return SV.LodService(tree, cfg, RAGGED_START, focal=focal, mode=mode,
+                         taus=[48.0 if c % 2 == 0 else 84.0 for c in range(RAGGED_START)],
+                         capacity=capacity, max_clients=RAGGED_MAX,
+                         bandwidth=[RAGGED_TIERS[c % 3] for c in range(RAGGED_START)],
+                         mesh=mesh)
+
+
+def delta_digests(torch, svc, hashed: bool = True) -> dict:
+    """{client: sha256 of its slice of the latest encode-once payload,
+    decoded} for every live client: its union ids and every decoded row
+    (`client_delta`, which gathers a meshed payload's split rows; every rank
+    of a mesh calls it, and a rank that does not report passes `hashed`
+    False)."""
+    import hashlib
+    from repro_torch import pytree
+    out = {}
+    for c in svc.active_ids:
+        ids, dec = svc.client_delta(c)
+        if not hashed:
+            continue
+        h = hashlib.sha256(ids.contiguous().cpu().numpy().tobytes())
+        for x in pytree.leaves(dec):
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        out[str(c)] = h.hexdigest()
+    if svc.mesh is not None:
+        # the ranks enter the next sync together, so the reporting rank's
+        # hashing is not timed as the others' wait in a collective
+        torch.distributed.barrier()
+    return out
+
+
+def mesh_script(torch, svc, walks, w, hashed: bool = True):
+    """Phase 13 (b)'s script on one service (every rank of a mesh runs it):
+    MESH_SYNCS syncs on the walks, client 8 admitted before the third and
+    client 3 evicted before the fifth. Returns each sync's whole-fleet stats
+    on the host, its ms and the digests of its decoded Δ slices
+    (`delta_digests`), and the last sync's stats as returned."""
+    from repro_torch import pytree
+    rows, ms, digests = [], [], []
+    for k in range(MESH_SYNCS):
+        if k == 2:
+            svc.admit(walks[RAGGED_START][k * w], 48.0, True, RAGGED_TIERS[RAGGED_START % 3])
+        if k == 4:
+            svc.evict(3)
+        cams = {c: walks[c][k * w] for c in svc.active_ids}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = svc.sync(cams)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(pytree.tree_map(lambda x: x.cpu(), svc.gather_slots(st)))
+        digests.append(delta_digests(torch, svc, hashed))
+    return rows, ms, digests, st
+
+
+def mesh_rigs(C, svc, extent, focal, width, height, dev):
+    """A rig for each live client, looking at the city's centre from where
+    the service last synced it."""
+    import numpy as np
+    centre = np.asarray([extent[0] / 2, extent[1] / 2, 1.7], np.float32)
+    rigs = []
+    for c in svc.active_ids:
+        pos = svc._slot_cams[svc._slot_of(c)]
+        target = centre if np.linalg.norm(centre[:2] - pos[:2]) > 1.0 else pos + [10, 10, 0]
+        rigs.append(C.StereoRig(left=C.make_camera(pos, target, focal_px=focal, width=width,
+                                                   height=height, near=0.25, device=dev),
+                                baseline=0.06))
+    return rigs
+
+
+def frame_digests(torch, img_l, img_r, lo: int) -> dict:
+    """{slot: sha256 of its left and right frames' bytes} of a block of
+    frames whose first slot is `lo`."""
+    import hashlib
+    out = {}
+    for i in range(img_l.shape[0]):
+        h = hashlib.sha256(img_l[i].contiguous().cpu().numpy().tobytes())
+        h.update(img_r[i].contiguous().cpu().numpy().tobytes())
+        out[str(lo + i)] = h.hexdigest()
+    return out
+
+
+def _wait_for(path: Path, what: str) -> None:
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > MESH_WAIT_S:
+            raise TimeoutError(f"no {what} after {MESH_WAIT_S} s")
+        time.sleep(0.05)
+
+
+def mesh_rank_main(rank: int, workdir: str) -> int:
+    """One rank of phase 13 (b), started by the parent as `chip_smoke.py
+    --mesh-rank R --mesh-dir D`: joins the gloo group of the four ranks, loads
+    phase 7's tree and the codec the parent wrote, builds the 2x2-meshed
+    service, waits for the parent's go (the render's pair budget), runs
+    `mesh_script` and a pooled render with its launch counters set to 0 and
+    its collectives timed, holds K6 and K5 at their largest launches on
+    this rank (its pairs, its split of the union's rows) against their
+    plain versions, then takes a snapshot. Writes its report (and rank 0
+    the whole fleet's stats, Δ digests and totals) under D."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import camera as C
+    from repro_torch.core import compression as CP
+    from repro_torch.core import pipeline as P
+    from repro_torch.kernels import lod_cut, vq_assign
+    from repro_torch.launch.mesh import destroy_fleet_group, init_fleet_group, make_fleet_mesh
+    from repro_torch.serve import lod_service as SV
+    from repro_torch.sharding import fleet as SH
+
+    d = Path(workdir)
+    setup = json.loads((d / "setup.json").read_text())
+    dev = torch.device(setup["device"])
+    init_fleet_group(str(d / "store"), rank, MESH_RANKS[0] * MESH_RANKS[1], "gloo",
+                     device=dev)
+    try:
+        mesh = make_fleet_mesh(*MESH_RANKS, device=dev)
+        tree = torch.load(d / "tree.pt", map_location=dev, weights_only=False)
+        codec = torch.load(d / "codec.pt", map_location=dev, weights_only=False)
+        walks = np.load(d / "walks.npy")
+        cfg = P.SessionConfig(**setup["cfg"])
+        svc = mesh_service(SV, tree, cfg, setup["focal"], mesh, MESH_CAPACITY)
+        svc.codec = codec
+        (d / f"ready_{rank}").write_text("")
+        _wait_for(d / "go.json", "go from the parent")
+        go = json.loads((d / "go.json").read_text())
+        coll = []
+        kept = {}
+
+        def recorder(key, fn):
+            def run(*a, **kw):
+                n = int(a[0].shape[0])
+                if n > kept.get(key, (0,))[0]:
+                    kept[key] = (n, a, kw)
+                return fn(*a, **kw)
+            return run
+
+        def timed(fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                coll.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        with mock.patch.object(SH, "all_gather_blocks", timed(SH.all_gather_blocks)), \
+                mock.patch.object(SH, "all_reduce", timed(SH.all_reduce)), \
+                mock.patch.object(SV, "lod_pair_sweep", recorder("K6", SV.lod_pair_sweep)), \
+                mock.patch.object(CP, "vq_assign", recorder("K5", CP.vq_assign)):
+            per_sync, n_coll = [], [0]
+            real_sync = svc.sync
+
+            def sync(*a, **kw):
+                before, calls = sum(coll), len(coll)
+                out = real_sync(*a, **kw)
+                per_sync.append(sum(coll) - before)
+                n_coll[0] += len(coll) - calls
+                return out
+
+            svc.sync = sync
+            K.reset_launch_counts()
+            rows, ms, deltas, last = mesh_script(torch, svc, walks, setup["w"],
+                                                 hashed=rank == 0)
+            rigs = mesh_rigs(C, svc, setup["extent"], setup["focal"], setup["width"],
+                             setup["height"], dev)
+            lo, hi = svc.slot_block()
+            # every rank renders its client shard's slots (the slabs ranks of
+            # one shard repeat it), in turn: four renders at once would not
+            # fit the card's memory beside the parent's
+            for turn in range(MESH_RANKS[0] * MESH_RANKS[1]):
+                if turn == rank:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fl, fr, _fst = svc.render_fallback(rigs, list_len=setup["list_len"],
+                                                       max_pairs=go["max_pairs"],
+                                                       path="pooled")
+                    torch.cuda.synchronize()
+                    render_ms = (time.perf_counter() - t0) * 1e3
+                    digests = frame_digests(torch, fl, fr, lo)
+                    del fl, fr, _fst
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                torch.distributed.barrier()
+            counts = K.launch_counts()
+        checked = {}
+        for key, kern, plain in (("K6", lod_cut.lod_pair_sweep, lod_cut.pair_sweep_plain),
+                                 ("K5", vq_assign.vq_assign, vq_assign.vq_assign_plain)):
+            n, a, kw = kept.pop(key)
+            got, want = kern(*a, **kw), plain(*a, **kw)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            for i, (x, y) in enumerate(zip(got, want, strict=True)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"rank {rank}: {key} at its largest launch ({n}): "
+                                         f"output {i} differs from the plain version")
+            checked[key] = n
+        del kept
+        totals = SH.fleet_totals(last, mesh, capacity=svc.capacity)
+        resident = SH.shard_resident_bytes(mesh, svc.tree, svc.state, svc.tables)
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.snapshot(str(d / "snap"))
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        report = dict(rank=rank, coords=list(mesh.coords), sync_ms=ms,
+                      collective_ms=per_sync, collective_calls=n_coll[0], render_ms=render_ms,
+                      snapshot_ms=snapshot_ms, counts=counts, resident_bytes=resident,
+                      allocated_bytes=allocated, slots=[lo, hi], digests=digests,
+                      checked=checked)
+        if rank == 0:
+            from repro_torch import pytree
+            torch.save({"rows": rows, "deltas": deltas,
+                        "totals": pytree.tree_map(lambda x: x.cpu(), totals)},
+                       d / "results.pt")
+        (d / f"rank_{rank}.json").write_text(json.dumps(report))
+    finally:
+        destroy_fleet_group()
+    return 0
+
+
+def _service_state(torch, svc, delta: bool) -> dict:
+    """Every state leaf and host mirror of a service, by name, and with
+    `delta` every leaf of the latest encode-once payload."""
+    import numpy as np
+    from repro_torch import pytree
+    out = {key: leaf for key, leaf in pytree.flatten_with_paths(svc.state)}
+    if delta:
+        ld = svc.last_delta
+        out["last_delta"] = None if ld is None else torch.tensor(ld.payload_shards)
+        out.update({f"last_delta{key}": leaf for key, leaf in
+                    ([] if ld is None else pytree.flatten_with_paths(ld))})
+    for name in ("_active", "_client_ids", "_slot_cams", "_delta_ids", "_bw_target",
+                 "_allowance", "_tau_scale", "_stats_fresh"):
+        out[name] = torch.from_numpy(np.array(getattr(svc, name)))
+    out["next_id"] = torch.tensor(svc._next_id)
+    out["last_sync_bytes"] = (None if svc._last_stats is None
+                              else svc._last_stats.sync_bytes.cpu())
+    return out
+
+
+def same_service(torch, a, b, what, sa=None, sb=None, delta=True) -> None:
+    """Raise unless services `a` and `b` (and stats `sa`, `sb`) agree bit for
+    bit: every state leaf and host mirror, every stats column and, with
+    `delta`, every leaf of the latest payload (a restored service has none),
+    dtypes included."""
+    state_a, state_b = _service_state(torch, a, delta), _service_state(torch, b, delta)
+    if list(state_a) != list(state_b):
+        raise AssertionError(f"{what}: the services hold different leaves")
+    pairs = list(zip(state_a.items(), state_b.items()))
+    if sa is not None:
+        pairs += [((f.name, getattr(sa, f.name)), (f.name, getattr(sb, f.name)))
+                  for f in dataclasses.fields(sa)]
+    for (ka, x), (kb, y) in pairs:
+        if ka != kb or (x is None) != (y is None):
+            raise AssertionError(f"{what}: {ka} / {kb} differ in kind")
+        if x is not None and (x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu())):
+            raise AssertionError(f"{what}: {ka} differs from the meshless service's")
+    if a.capacity != b.capacity or a.active_ids != b.active_ids:
+        raise AssertionError(f"{what}: the fleets differ")
+
+
+def fleet_mesh(torch, dev, tree, extent, base, focal, width, height, pair_total,
+               cut_budget, card) -> dict:
+    """Phase 13 of the module docstring, on phase 7's scene. Raises on a
+    failed check; returns the phase's report, with the launch counts of the
+    meshed services (in this process and on the four ranks) under
+    "counts"."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch import render as R
+    from repro_torch.core import camera as C
+    from repro_torch.core import pipeline as P
+    from repro_torch.checkpoint import manager as CK
+    from repro_torch.launch.mesh import destroy_fleet_group, init_fleet_group, make_fleet_mesh
+    from repro_torch.serve import lod_service as SV
+    from repro_torch.serve import recovery as REC
+    from repro_torch.serve import scheduler as SCH
+    from repro_torch.sharding import fleet as SH
+
+    K.reset_launch_counts()
+    w = base.w
+    cfg = P.SessionConfig(tau=48.0, w=w, w_star=32, cut_budget=cut_budget)
+    walks = mesh_walks(np, C, extent, focal, width, height, 16 * w + 1)
+    n_ranks = MESH_RANKS[0] * MESH_RANKS[1]
+    aside = dict.fromkeys(K.launch_counts(), 0)
+
+    @contextlib.contextmanager
+    def not_the_path():
+        before = K.launch_counts()
+        try:
+            yield
+        finally:
+            for name, n in K.launch_counts().items():
+                aside[name] += n - before[name]
+
+    def max_pairs_of(svc, rigs):
+        rc = R.RenderConfig.for_fleet(rigs, tile=base.tile, list_len=base.list_len)
+        return pow2_at_least(max(
+            pair_total(SV._masked_queue(tree.gaussians, svc.client_cut(c)), r, rc)
+            for c, r in zip(svc.active_ids, rigs)))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    d = Path(tempfile.mkdtemp(prefix="nebula_mesh_"))
+    procs = []
+    report = {}
+    try:
+        # (b)'s ranks start first: they load the tree and build their
+        # services while this process runs (a), then wait for the go
+        with not_the_path():
+            twin_b = mesh_service(SV, tree, cfg, focal, None, MESH_CAPACITY)
+        t0 = time.perf_counter()
+        torch.save(tree, d / "tree.pt")
+        torch.save(twin_b.codec, d / "codec.pt")
+        np.save(d / "walks.npy", walks)
+        (d / "setup.json").write_text(json.dumps(dict(
+            cfg=dataclasses.asdict(cfg), focal=focal, w=w, extent=list(extent), width=width,
+            height=height, list_len=base.list_len, device=str(dev))))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        for r in range(n_ranks):
+            with open(d / f"rank_{r}.log", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+                     "--mesh-dir", str(d)], stdout=out, stderr=subprocess.STDOUT))
+
+        def ranks_wait(paths, what):
+            t_start = time.perf_counter()
+            while not all(p.exists() for p in paths):
+                for r, pr in enumerate(procs):
+                    if pr.poll() not in (None, 0):
+                        tail = (d / f"rank_{r}.log").read_text()[-3000:]
+                        raise AssertionError(f"rank {r} exited {pr.returncode} before "
+                                             f"{what}:\n{tail}")
+                if time.perf_counter() - t_start > MESH_WAIT_S:
+                    raise TimeoutError(f"ranks not at {what} after {MESH_WAIT_S} s")
+                time.sleep(0.05)
+            return (time.perf_counter() - t_start) * 1e3
+
+        ready_ms = ranks_wait([d / f"ready_{r}" for r in range(n_ranks)], "ready")
+        log(f"[mesh] {n_ranks} gloo ranks ready on {card} ({ready_ms:.0f} ms after the "
+            f"parent wrote the tree in {write_ms:.0f} ms)")
+
+        # (a) a 1x1 mesh in this process (NCCL, world size 1) -----------------
+        init_fleet_group(str(d / "store_a"), 0, 1, "nccl", device=dev)
+        try:
+            mesh = make_fleet_mesh(1, 1, device=dev)
+            meshed = mesh_service(SV, tree, cfg, focal, mesh, RAGGED_START)
+            with not_the_path():
+                twin = mesh_service(SV, tree, cfg, focal, None, RAGGED_START)
+            twin.codec = meshed.codec
+            rows, t_walk = [], [0]
+
+            def both(op, *args):
+                out = getattr(meshed, op)(*args)
+                with not_the_path():
+                    if getattr(twin, op)(*args) != out:
+                        raise AssertionError(f"(a) {op}{args}: meshed and meshless disagree")
+                return out
+
+            def sync(what):
+                t = t_walk[0]
+                t_walk[0] += 1
+                cams = {c: walks[c][t * w] for c in meshed.active_ids}
+                sm, ms_m = timed(lambda: meshed.sync(cams))
+                with not_the_path():
+                    st, ms_t = timed(lambda: twin.sync(cams))
+                same_service(torch, meshed, twin, f"(a) {what}", sm, st)
+                rows.append(dict(what=what, capacity=meshed.capacity, live=meshed.n_clients,
+                                 meshed_ms=ms_m, meshless_ms=ms_t))
+                return sm
+
+            for _ in range(2):
+                sync("start")
+            for c in range(RAGGED_START, RAGGED_START + 4):
+                both("admit", walks[c][t_walk[0] * w], 48.0 if c % 2 == 0 else 84.0, True,
+                     RAGGED_TIERS[c % 3])
+            if meshed.capacity != 16:
+                raise AssertionError(f"(a) capacity {meshed.capacity} after the admits")
+            for _ in range(2):
+                sync("capacity 16")
+            for c in (2, 5, 9):
+                both("evict", c)
+            sync("after the evicts")
+            batch = meshed.last_delta
+            took = batch.ref_mask.sum(1).cpu().numpy()
+            rng = np.random.default_rng(MESH_SEED)
+            victim = int(rng.choice([c for c in meshed.active_ids
+                                     if took[meshed._slot_of(c)] > 0]))
+            rp = batch.row_page.cpu().numpy()
+            vmask = batch.ref_mask[meshed._slot_of(victim)].cpu().numpy()
+            page = int(rng.choice(np.unique(rp[vmask & (rp >= 0)])))
+            lost = both("nack", victim, [page])
+            if lost <= 0:
+                raise AssertionError(f"(a) the NACK of page {page} re-queued nothing")
+            sync("after the NACK")
+            scheds = [SCH.DeadlineScheduler(svc, default_deadline_ms=42.0, tick_budget_ms=3.0,
+                                            clock=ScriptedClock()) for svc in (meshed, twin)]
+            for sch in scheds:
+                sch.cost.alpha, sch.cost.beta = 0.5, 0.25
+            partial = 0
+            for k in range(MESH_TICKS):
+                t = t_walk[0] + k
+                for c in meshed.active_ids:
+                    if rng.random() < 0.7:
+                        for sch in scheds:
+                            sch.observe_motion(c, walks[c][t * w])
+                picks = [sch.select() for sch in scheds]
+                if picks[0] != picks[1]:
+                    raise AssertionError(f"(a) tick {k}: the schedulers select {picks}")
+                sm, ms_m = timed(scheds[0].tick)
+                with not_the_path():
+                    st = scheds[1].tick()
+                if (sm is None) != (st is None):
+                    raise AssertionError(f"(a) tick {k}: one scheduler idled")
+                if sm is not None:
+                    same_service(torch, meshed, twin, f"(a) tick {k}", sm, st)
+                    partial += int(len(picks[0]) < meshed.n_clients)
+                rows.append(dict(what=f"tick {k}", selected=len(picks[0]),
+                                 live=meshed.n_clients, meshed_ms=ms_m))
+            t_walk[0] += MESH_TICKS
+            if partial < 1:
+                raise AssertionError("(a) no tick was a partial sync")
+            both("evict", 10)
+            if both("maybe_shrink") != 8:
+                raise AssertionError("(a) the shrink did not come to 8 slots")
+            sync("after the shrink")
+            meshed.resize_mesh(None)
+            sync("moved off the mesh")
+            meshed.resize_mesh(mesh)
+            sync("moved back onto the mesh")
+            rigs = mesh_rigs(C, meshed, extent, focal, width, height, dev)
+            with not_the_path():
+                max_pairs = max_pairs_of(meshed, rigs)
+            (fl, fr, fst), render_ms = timed(lambda: meshed.render_fallback(
+                rigs, list_len=base.list_len, max_pairs=max_pairs, path="pooled"))
+            with not_the_path():
+                tl, tr, tst = twin.render_fallback(rigs, list_len=base.list_len,
+                                                   max_pairs=max_pairs, path="pooled")
+                torch.cuda.synchronize()
+            if not (torch.equal(fl, tl) and torch.equal(fr, tr)) or not all(
+                    torch.equal(getattr(fst, f.name), getattr(tst, f.name))
+                    for f in dataclasses.fields(fst)):
+                raise AssertionError("(a) the meshed pooled render differs from the meshless")
+            if bool((fl.flatten(1).amax(1) <= 0).all()):
+                raise AssertionError("(a) every frame is blank")
+            del fl, fr, fst, tl, tr, tst
+            snap_a = str(d / "snap_a")
+            _p, snap_ms = timed(lambda: meshed.snapshot(snap_a))
+            if CK.read_extras(snap_a, 0)["mesh"] != [["clients", 1], ["slabs", 1]]:
+                raise AssertionError("(a) the snapshot does not record the 1x1 mesh")
+            with not_the_path():
+                back = REC.restore_service(tree, snap_a, mesh=None)
+                back.codec = twin.codec
+                same_service(torch, back, twin, "(a) the meshed snapshot restored meshless",
+                             delta=False)
+                cams = {c: walks[c][t_walk[0] * w] for c in twin.active_ids}
+                same_service(torch, back, twin, "(a) one sync after the restore",
+                             back.sync(cams), twin.sync(cams))
+            del back
+            warm_m = [r["meshed_ms"] for r in rows if r["what"] == "capacity 16"][-1]
+            warm_t = [r["meshless_ms"] for r in rows if r["what"] == "capacity 16"][-1]
+            report["in_process"] = dict(rows=rows, render_ms=render_ms, snapshot_ms=snap_ms,
+                                        nack=dict(client=victim, page=page, rows=lost),
+                                        partial_ticks=partial, warm_sync_ms=dict(
+                                            meshed=warm_m, meshless=warm_t))
+            del meshed, twin, scheds
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the vmapped scheduler (K1 on each rank) on the mesh and off it
+            vm = mesh_service(SV, tree, cfg, focal, mesh, RAGGED_START, mode="vmapped")
+            with not_the_path():
+                vt = mesh_service(SV, tree, cfg, focal, None, RAGGED_START, mode="vmapped")
+            vt.codec = vm.codec
+            vmapped_ms = []
+            for k in range(MESH_VMAPPED_SYNCS):
+                cams = {c: walks[c][k * w] for c in vm.active_ids}
+                sm, ms_v = timed(lambda: vm.sync(cams))
+                with not_the_path():
+                    st = vt.sync(cams)
+                same_service(torch, vm, vt, f"(a) vmapped sync {k}", sm, st)
+                vmapped_ms.append(ms_v)
+            del vm, vt, sm, st
+            report["in_process"]["vmapped_sync_ms"] = vmapped_ms
+            log(f"[mesh] (a) 1x1 NCCL mesh on {card}: {len([r for r in rows if 'capacity' in r])} "
+                f"syncs and {MESH_TICKS} ticks ({partial} partial) equal to the meshless "
+                f"service bit for bit, a NACK of page {page} ({lost} rows), a shrink to 8 "
+                f"slots, resize_mesh(None) and back, the pooled render ({render_ms:.1f} ms) "
+                f"and the snapshot restored meshless, each sync's payload equal too; "
+                f"{MESH_VMAPPED_SYNCS} vmapped syncs equal ({[round(x, 2) for x in vmapped_ms]} "
+                f"ms meshed); warm sync at capacity 16: meshed {warm_m:.2f} ms, meshless "
+                f"{warm_t:.2f} ms")
+        finally:
+            destroy_fleet_group()
+
+        # (b) four gloo ranks sharing the card on a 2x2 mesh -------------------
+        # the meshless reference first, its render's memory returned to the
+        # card before the ranks start
+        with not_the_path():
+            rows_b, ms_b, deltas_b, last_b = mesh_script(torch, twin_b, walks, w)
+            rigs = mesh_rigs(C, twin_b, extent, focal, width, height, dev)
+            max_pairs = max_pairs_of(twin_b, rigs)
+            tl, tr, _tst = twin_b.render_fallback(rigs, list_len=base.list_len,
+                                                  max_pairs=max_pairs, path="pooled")
+            twin_digests = frame_digests(torch, tl, tr, 0)
+            del tl, tr, _tst, rigs
+            twin_totals = SH.fleet_totals(last_b)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[mesh] (b) the card before the ranks' script: {free / 2**30:.1f} of "
+            f"{total / 2**30:.1f} GiB free; this process holds "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        (d / "go.json.tmp").write_text(json.dumps({"max_pairs": max_pairs}))
+        os.rename(d / "go.json.tmp", d / "go.json")
+        t_ranks = time.perf_counter()
+        for r, pr in enumerate(procs):
+            try:
+                rc = pr.wait(timeout=MESH_WAIT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {r} outlived {MESH_WAIT_S} s") from None
+            if rc != 0:
+                tail = (d / f"rank_{r}.log").read_text()[-3000:]
+                raise AssertionError(f"rank {r} exited {rc}:\n{tail}")
+        ranks_ms = (time.perf_counter() - t_ranks) * 1e3
+        ranks = [json.loads((d / f"rank_{r}.json").read_text()) for r in range(n_ranks)]
+        got = torch.load(d / "results.pt", weights_only=False)
+        for k, (a, b) in enumerate(zip(got["rows"], rows_b, strict=True)):
+            for f in dataclasses.fields(b):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise AssertionError(f"(b) sync {k}: the 2x2 mesh's {f.name} differs "
+                                         f"from the meshless service's")
+        for k, (a, b) in enumerate(zip(got["deltas"], deltas_b, strict=True)):
+            if a != b:
+                bad = sorted(c for c in set(a) | set(b) if a.get(c) != b.get(c))
+                raise AssertionError(f"(b) sync {k}: the 2x2 mesh's decoded Δ slices of "
+                                     f"clients {bad} differ from the meshless service's")
+        for f in dataclasses.fields(twin_totals):
+            x, y = getattr(got["totals"], f.name), getattr(twin_totals, f.name).cpu()
+            ok = (torch.allclose(x, y, rtol=1e-6, atol=0.0) if y.is_floating_point()
+                  else torch.equal(x, y))
+            if x.dtype != y.dtype or not ok:
+                raise AssertionError(f"(b) fleet_totals {f.name}: {x} vs {y}")
+        for rk in ranks:
+            for slot, digest in rk["digests"].items():
+                if twin_digests[slot] != digest:
+                    raise AssertionError(f"(b) rank {rk['rank']}: slot {slot}'s frames "
+                                         f"differ from the meshless render")
+            require_launched(f"mesh rank {rk['rank']}", rk["counts"],
+                             ("lod_pair_sweep", "vq_assign", "rasterize_slabs",
+                              "preprocess", "stereo_merge"))
+            if sorted(rk["checked"]) != ["K5", "K6"]:
+                raise AssertionError(f"(b) rank {rk['rank']} checked {rk['checked']}")
+        with not_the_path():
+            back = REC.restore_service(tree, str(d / "snap"), mesh=None)
+            back.codec = twin_b.codec
+            same_service(torch, back, twin_b, "(b) the 2x2 snapshot restored meshless",
+                         delta=False)
+        if CK.read_extras(str(d / "snap"), 0)["mesh"] != [["clients", 2], ["slabs", 2]]:
+            raise AssertionError("(b) the snapshot does not record the 2x2 mesh")
+        del back, twin_b
+        whole = None
+        for rk in ranks:
+            log(f"[mesh] (b) rank {rk['rank']} {tuple(rk['coords'])} on {card}: syncs "
+                f"{[round(x, 2) for x in rk['sync_ms']]} ms, of which collectives "
+                f"{[round(x, 2) for x in rk['collective_ms']]} ms "
+                f"({rk['collective_calls']} calls); snapshot {rk['snapshot_ms']:.1f} ms; "
+                f"pooled render {rk['render_ms']:.1f} ms; resident (tree, state, tables) "
+                f"{rk['resident_bytes']} bytes, allocated {rk['allocated_bytes']} bytes; "
+                f"K6 and K5 == plain at this rank's largest launches {rk['checked']}; "
+                f"launches {json.dumps(rk['counts'])}")
+        with not_the_path():
+            ref = mesh_service(SV, tree, cfg, focal, None, MESH_CAPACITY)
+            whole = SH.shard_resident_bytes(None, ref.tree, ref.state, ref.tables)
+            del ref
+        log(f"[mesh] (b) 2x2 gloo mesh, {n_ranks} ranks time-sharing {card}: "
+            f"{MESH_SYNCS} syncs (an admit, an evict) and the pooled render equal to the "
+            f"meshless service bit for bit (stats, every live client's decoded Δ slice "
+            f"after every sync and frames by sha256 per slot, the snapshot restored "
+            f"meshless), fleet_totals within rtol 1e-6; meshless syncs "
+            f"{[round(x, 2) for x in ms_b]} ms; each rank's resident bytes (tree, state, "
+            f"tables) {[rk['resident_bytes'] for rk in ranks]} against {whole} meshless; "
+            f"the ranks finished {ranks_ms:.0f} ms after the parent's own work")
+        report["ranks"] = ranks
+        report["meshless_b"] = dict(sync_ms=ms_b, resident_bytes=whole)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    counts = {name: n - aside[name] for name, n in K.launch_counts().items()}
+    for rk in report["ranks"]:
+        for name, n in rk["counts"].items():
+            counts[name] += n
+    require_launched("mesh", counts, ("lod_slab_sweep", "lod_pair_sweep", "vq_assign",
+                                      "rasterize_slabs", "preprocess", "stereo_merge"))
+    report["aside"] = aside
+    report["counts"] = counts
+    return report
+
+
 def lm_serving(torch, dev) -> dict:
     """Phase 9: the dense LM serving path at full width and depth, then its
     float32 checks. Returns the phase's report, with the launch counts of
@@ -1397,7 +2064,12 @@ def main() -> int:
     ap.add_argument("--clients", type=int, default=8, help="fleet clients")
     ap.add_argument("--blocks", type=int, default=24)
     ap.add_argument("--out", type=str, default=None, help="also write the report here")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help="run as rank R of phase 13's four-rank mesh (the parent starts it)")
+    ap.add_argument("--mesh-dir", type=str, default=None, help="phase 13's shared directory")
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args.mesh_rank, args.mesh_dir)
 
     import numpy as np
     import torch
@@ -2201,6 +2873,15 @@ def main() -> int:
     report["phases"]["recovery_s"] = time.perf_counter() - t_rec
     log(f"[recovery] phase 12 took {report['phases']['recovery_s']:.1f} s")
 
+    # 13. the serving mesh, on phase 7's scene, before the LM phases free it -------
+    t_mesh = time.perf_counter()
+    meshed = fleet_mesh(torch, dev, tree, city.extent, base, focal, width, height,
+                        pair_total, ragged["cut_budget"], card)
+    counts_mesh = meshed.pop("counts")
+    report["mesh"] = meshed
+    report["phases"]["mesh_s"] = time.perf_counter() - t_mesh
+    log(f"[mesh] phase 13 took {report['phases']['mesh_s']:.1f} s")
+
     # free the city before the LM phases
     del tree, leaves, cuts, sync_cuts, rigs, walks, fleet_rigs, q0, sk, left, ranks
     del origins, counts, k_out, p_out, sweep_args, rpe, top_expand, il, ir, ll, rl
@@ -2238,7 +2919,7 @@ def main() -> int:
     for name, k in kernels.items():
         by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
                    "ragged": counts_ragged[name], "recovery": counts_recovery[name],
-                   "lm": counts_lm[name]}
+                   "mesh": counts_mesh[name], "lm": counts_lm[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

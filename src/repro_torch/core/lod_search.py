@@ -34,6 +34,7 @@ from repro_torch import pytree
 from repro_torch.core.lod_tree import LodTree
 from repro_torch.kernels.lod_cut import (lod_slab_sweep, pair_sweep_plain, slab_dist,
                                          slab_sweep_plain)
+from repro_torch.sharding.fleet import shard_slab_tables
 
 _EPS_DIST = 1e-6
 
@@ -107,10 +108,14 @@ class SlabTables:
     valid: torch.Tensor     # (Ns, S) bool
 
     @staticmethod
-    def from_tree(tree: LodTree) -> "SlabTables":
-        return SlabTables(mu=tree.slab_mu(), size=tree.slab_size(),
-                          parent=tree.slab_parent, level=tree.slab_level,
-                          is_leaf=tree.slab_is_leaf, valid=tree.slab_valid)
+    def from_tree(tree: LodTree, mesh=None) -> "SlabTables":
+        """`mesh` (a serving mesh, `repro_torch.sharding.fleet`) keeps this
+        rank's block of every table on its leading Ns axis over `slabs`;
+        an indivisible Ns, or no mesh, keeps them whole."""
+        tables = SlabTables(mu=tree.slab_mu(), size=tree.slab_size(),
+                            parent=tree.slab_parent, level=tree.slab_level,
+                            is_leaf=tree.slab_is_leaf, valid=tree.slab_valid)
+        return shard_slab_tables(mesh, tables)
 
 
 # ---------------------------------------------------------------------------

@@ -135,7 +135,7 @@ def batched_cloud_sync(states: ManagerState, cut_masks: torch.Tensor,
 
 def batched_wire_bytes(plan: SyncPlan, bytes_per_gaussian: float, *,
                        shared_payload: bool = False, active=None, delivered=None,
-                       client_pages=None) -> torch.Tensor:
+                       client_pages=None, share=None) -> torch.Tensor:
     """(B,) float32 downlink bytes of each client for a batched SyncPlan.
 
     shared_payload=False — the unicast format: each client receives its own
@@ -149,7 +149,9 @@ def batched_wire_bytes(plan: SyncPlan, bytes_per_gaussian: float, *,
     `client_pages` (B,) adds PAGE_HEADER_BYTES per priority page pulled.
 
     `active` (B,) bool: an inactive slot is charged nothing, header
-    included, and is left out of the requester split.
+    included, and is left out of the requester split. `share` is the (N,)
+    int32 requester count of each row over the whole fleet, where the B
+    rows here are one shard of it (default: their own column sums).
 
     The float32 operations and the row sums' order are the reference's on
     its CPU backend (`numerics.xla_row_sum`), so the bytes are the same
@@ -162,7 +164,8 @@ def batched_wire_bytes(plan: SyncPlan, bytes_per_gaussian: float, *,
     if not shared_payload:
         out = plan.n_delta.to(torch.float32) * bytes_per_gaussian + base
     else:
-        share = delta.sum(0).to(torch.int32)
+        if share is None:
+            share = delta.sum(0).to(torch.int32)
         one = torch.ones((), dtype=torch.float32, device=delta.device)
         inv = one / torch.clamp_min(share, 1).to(torch.float32)
         frac = xla_row_sum(torch.where(delta, inv[None, :], torch.zeros_like(one)))

@@ -20,6 +20,11 @@ Two paths, the same math:
 Rigs are batched like the reference's pytrees (`stack_rigs`): the static
 fields (resolution, near/far, baseline) must agree; pose and focal are
 leaves with a leading client axis.
+
+Under a serving mesh each client shard renders its own slots (the queues
+and rigs it passes are its block) and holds their frames; the pooled K2
+launch over one shard's tiles gives the pixels of the fleet-wide pool,
+since tiles are independent.
 """
 
 from __future__ import annotations

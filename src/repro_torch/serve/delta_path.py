@@ -13,6 +13,13 @@ behind come back in `deferred`, for the service to fold into the next
 sync's union. `page_checksums` and `lost_row_mask` are the host-side wire
 framing of the NACK path: a page whose checksum fails on the client is
 named back, and its rows return to the client's debt.
+
+Under a serving mesh (`repro_torch.sharding.fleet`) the masks are one
+client shard's rows. The union and its requester counts are an all-reduce
+over `clients` (so the union comes back the same on every shard), a
+client's first-requester test takes the counts of the shards before it,
+and the union's rows split over `slabs` for the encode (the payload stays
+split until a decode gathers it). Each client's ref rows stay on its shard.
 """
 
 from __future__ import annotations
@@ -22,10 +29,12 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import compression as comp
 from repro_torch.core import lod_search as ls
 from repro_torch.core.gaussians import Gaussians
+from repro_torch.sharding import fleet as shd
 
 _PRIO_PAD = 2**31 - 1  # non-members sort after every real row
 
@@ -47,6 +56,8 @@ class DeltaBatch:
     pages:      () int32 — priority pages in the stream
     row_page:   (U,) int32 — the priority page of each wire-order row (-1 pad)
     overflow:   () bool — some row was deferred somewhere in the fleet
+    payload_shards: the union rows `payload` is split into over the mesh's
+                `slabs` axis (this rank holds one block; 1: all of them)
     """
 
     union_gids: torch.Tensor
@@ -61,6 +72,7 @@ class DeltaBatch:
     pages: torch.Tensor
     row_page: torch.Tensor
     overflow: torch.Tensor
+    payload_shards: int = 1
 
     @property
     def n_clients(self) -> int:
@@ -73,14 +85,16 @@ def _union_mask(delta_masks: torch.Tensor):
 
 
 def _union_refs(wanted: torch.Tensor, union: torch.Tensor, priority: torch.Tensor,
-                allowance: torch.Tensor, width: int, page_size: int):
+                allowance: torch.Tensor, width: int, page_size: int, req=None):
     """Priority-ordered page selection of one sync's union: the rows ranked
     by (priority asc, requester count desc, gid asc), the top `width` ranks
     shipped in ascending-gid wire order, each client's ingest capped by its
-    allowance in priority order, and the page accounting."""
+    allowance in priority order, and the page accounting. `req` is the
+    fleet's (N,) int32 requester counts where `wanted` is one shard of it."""
     b, n = wanted.shape
     dev = wanted.device
-    req = wanted.sum(0).to(torch.int32)
+    if req is None:
+        req = wanted.sum(0).to(torch.int32)
     k1 = torch.where(union, priority.to(torch.int32),
                      torch.full((n,), _PRIO_PAD, dtype=torch.int32, device=dev))
     # lexicographic order by stable sorts from the last key to the first;
@@ -119,7 +133,7 @@ def _union_refs(wanted: torch.Tensor, union: torch.Tensor, priority: torch.Tenso
 def build_delta_batch(gaussians: Gaussians, codec: comp.Codec,
                       delta_masks: torch.Tensor, budget: int, active=None, *,
                       pending=None, priority=None, allowance=None,
-                      page_size=None) -> DeltaBatch:
+                      page_size=None, mesh=None, n_shards: int = 1) -> DeltaBatch:
     """Encode one sync's fleet Δcut once, paged under the budget.
 
     delta_masks: (B, N) bool — the batched `SyncPlan.delta_data`.
@@ -132,15 +146,27 @@ def build_delta_batch(gaussians: Gaussians, codec: comp.Codec,
     spanning the stream). active: (B,) bool — an inactive slot adds no rows.
 
     The stream width is the pow2 bucket of the true union size, one scalar
-    read on the host, so the encode tracks the sync's unique Gaussians."""
+    read on the host, so the encode tracks the sync's unique Gaussians.
+
+    `mesh` with `n_shards` > 1: the masks are this rank's block of
+    `n_shards` client shards, and the union's counts are all-reduced over
+    `clients`. With a `slabs` axis that divides the stream width, this rank
+    encodes its block of the union's rows (`payload_shards`)."""
     if active is not None:
         delta_masks = delta_masks & active[:, None]
         if pending is not None:
             pending = pending & active[:, None]
     wanted = delta_masks if pending is None else delta_masks | pending
-    union, n_union = _union_mask(wanted)
-    width = ls.pow2_bucket(int(n_union), budget)
     b, n = wanted.shape
+    req = None
+    if n_shards > 1:
+        counts = wanted.sum(0).to(shd.count_dtype(b * n_shards))
+        req = shd.all_reduce(mesh, "clients", counts).to(torch.int32)
+        union = req > 0
+        n_union = union.sum().to(torch.int32)
+    else:
+        union, n_union = _union_mask(wanted)
+    width = ls.pow2_bucket(int(n_union), budget)
     dev = wanted.device
     if priority is None:
         priority = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -148,13 +174,24 @@ def build_delta_batch(gaussians: Gaussians, codec: comp.Codec,
              else torch.as_tensor(allowance, dtype=torch.int32, device=dev))
     psize = width if page_size is None else max(1, min(int(page_size), width))
     (gids, ref, delivered, deferred, client_overflow, client_pages, pages, n_shipped,
-     row_page) = _union_refs(wanted, union, priority, allow, width, psize)
-    payload = comp.encode_rows(codec, gaussians, gids)
+     row_page) = _union_refs(wanted, union, priority, allow, width, psize, req=req)
+    split = shd.slab_shards(mesh, width)
+    lo, hi = shd.block(mesh, "slabs", split, width)
+    payload = comp.encode_rows(codec, gaussians, gids[lo:hi])
+    overflow = client_overflow.any()
+    if n_shards > 1:
+        overflow = shd.all_reduce(mesh, "clients", overflow, op=dist.ReduceOp.MAX)
     return DeltaBatch(union_gids=gids, n_union=n_union, n_shipped=n_shipped,
                       payload=payload, ref_mask=ref, delivered=delivered,
                       deferred=deferred, client_overflow=client_overflow,
                       client_pages=client_pages, pages=pages, row_page=row_page,
-                      overflow=client_overflow.any())
+                      overflow=overflow, payload_shards=split)
+
+
+def replicate_payload(mesh, batch: DeltaBatch) -> comp.EncodedGaussians:
+    """The whole encoded union from the `slabs` blocks of a split payload
+    (an all-gather over `slabs`; the payload itself when it is whole)."""
+    return shd.replicate_fleet(mesh, batch.payload, batch.payload_shards, axis="slabs")
 
 
 def decode_client(codec: comp.Codec, batch: DeltaBatch, sh_k: int,
@@ -221,8 +258,16 @@ def lost_row_mask(batch: DeltaBatch, client: int, lost_pages) -> np.ndarray:
     return out
 
 
-def first_owner_counts(delta_masks: torch.Tensor) -> torch.Tensor:
+def first_owner_counts(delta_masks: torch.Tensor, mesh=None,
+                       n_shards: int = 1) -> torch.Tensor:
     """(B,) int32 — per client, its Δ rows for which it is the fleet's first
-    requester (lowest slot). Sums to the sync's unique Gaussians."""
-    first = delta_masks & (torch.cumsum(delta_masks.to(torch.int32), dim=0) == 1)
+    requester (lowest slot). Sums to the sync's unique Gaussians. With
+    `n_shards` > 1 the masks are this rank's client shard, and the counts of
+    the shards before it come from an all-gather over `clients`."""
+    counts = torch.cumsum(delta_masks.to(torch.int32), dim=0)
+    if n_shards > 1:
+        cols = delta_masks.sum(0).to(shd.count_dtype(delta_masks.shape[0]))
+        every = shd.all_gather_blocks(mesh, "clients", [cols])[0]
+        counts = counts + every[:mesh.index("clients")].to(torch.int32).sum(0)
+    first = delta_masks & (counts == 1)
     return first.sum(1).to(torch.int32)

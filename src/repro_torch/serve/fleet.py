@@ -11,7 +11,9 @@ staleness pool, the Δ-union, the wire accounting and the pooled raster, and
 `freeze_inactive` keeps their state bitwise at its reset value. Capacity
 grows to the next pow2 bucket when an admit finds no free slot
 (`pad_slots`) and shrinks to the smallest bucket that holds the live
-clients (`take_slots`). The mesh-sharded layout is not ported.
+clients (`take_slots`). Under a serving mesh these act on the whole
+fleet: `LodService` gathers its client blocks, grows or shrinks, and cuts
+the blocks anew (`repro_torch.sharding.fleet`).
 """
 
 from __future__ import annotations

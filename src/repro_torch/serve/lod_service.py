@@ -27,7 +27,16 @@ sync paths sit the closed-loop per-client bitrate controller
 page's rows return as debt) and partial-fleet syncs (`participate`: the
 deadline scheduler's primitive, `repro_torch.serve.scheduler`), and
 `snapshot` / `restore` (`repro_torch.serve.recovery`, in the reference's
-format). Only the serving mesh is not ported yet.
+format).
+
+The service runs on a clients×slabs serving mesh (`LodService(mesh=)`,
+`repro_torch.sharding.fleet`), one process a rank: each rank holds its
+client shard's slots and its block of the slab tables, the pooled
+staleness pool is per client shard (one all-gather of the shards' pool
+sizes picks the common bucket), the Δ-union's counts reduce over
+`clients` and the union's rows split over `slabs` for the encode. The
+results are the meshless service's bits; `resize_mesh` moves a live
+service between meshes.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.lod_cut import lod_pair_sweep
 from repro_torch.serve import delta_path as dp
 from repro_torch.serve import fleet as flt
+from repro_torch.sharding import fleet as shd
 
 
 class AdmissionDenied(RuntimeError):
@@ -169,6 +179,14 @@ def service_nack_rows(state: ServiceState, slot: int, lost_rows) -> ServiceState
     return dataclasses.replace(state, pending=pending)
 
 
+def service_note_admit(state: ServiceState, client_id: int) -> ServiceState:
+    """An admit into a slot another client shard holds, seen from this one:
+    only the replicated id counter moves."""
+    nid = state.fleet.next_id
+    return dataclasses.replace(state, fleet=dataclasses.replace(
+        state.fleet, next_id=torch.maximum(nid, torch.full_like(nid, int(client_id) + 1))))
+
+
 def service_evict_slot(state: ServiceState, slot: int) -> ServiceState:
     """Evict the client in `slot`: the slot is freed and reset at once, so
     its next tenant finds it as fresh as a never-used one."""
@@ -218,7 +236,7 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                  bytes_per_g: float, codec: Optional[comp.Codec] = None,
                  dedup: bool = False, delta_budget: Optional[int] = None,
                  priority=None, allowance=None, page_size: Optional[int] = None,
-                 participate=None
+                 participate=None, mesh=None, n_shards: int = 1
                  ) -> Tuple[ServiceState, ServiceStats, Optional[dp.DeltaBatch]]:
     """Shared tail of both sync paths: the batched management-table update,
     the per-client render queues, the Δcut payload and the accounting.
@@ -241,7 +259,12 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     slot left out is treated like an inactive one (no table update, no
     union rows, 0 bytes, no tick), except that it keeps what it had: its
     render queue, its pending debt and (in the callers) its temporal state
-    survive bitwise. None is the lockstep sync."""
+    survive bitwise. None is the lockstep sync.
+
+    Under a mesh (`n_shards` client shards) the state is this rank's block:
+    everything here is slot-parallel except the Δ-union, the requester
+    split of the shared rows and the first-requester counts, which reduce
+    over `clients`."""
     dev = masks.device
     eff = _effective_slots(state, participate)
     masks = masks & eff[:, None]
@@ -262,10 +285,16 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
             priority = tree.node_levels()
         batch = dp.build_delta_batch(tree.gaussians, codec, plan.delta_data, delta_budget,
                                      active=eff, pending=state.pending, priority=priority,
-                                     allowance=allowance, page_size=page_size)
+                                     allowance=allowance, page_size=page_size, mesh=mesh,
+                                     n_shards=n_shards)
+        share = None
+        if n_shards > 1:
+            cols = (batch.delivered & eff[:, None]).sum(0)
+            share = shd.all_reduce(mesh, "clients", cols.to(
+                shd.count_dtype(counts.shape[0] * n_shards))).to(torch.int32)
         sync_bytes = mgr.batched_wire_bytes(plan, bytes_per_g, shared_payload=True,
                                             active=eff, delivered=batch.delivered,
-                                            client_pages=batch.client_pages)
+                                            client_pages=batch.client_pages, share=share)
         saved = unicast - sync_bytes
         delta_overflow = batch.client_overflow
         delta_shipped = batch.delivered.sum(1).to(torch.int32)
@@ -292,7 +321,7 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     stats = ServiceStats(
         cut_size=counts,
         delta_size=plan.n_delta,
-        unique_delta=dp.first_owner_counts(plan.delta_data),
+        unique_delta=dp.first_owner_counts(plan.delta_data, mesh, n_shards),
         sync_bytes=sync_bytes,
         dedup_bytes_saved=saved,
         nodes_touched=torch.where(eff, nodes_touched.to(torch.int32), zeros_i),
@@ -400,13 +429,17 @@ def service_sync_vmapped(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                          codec: Optional[comp.Codec] = None, dedup: bool = False,
                          delta_budget: Optional[int] = None, priority=None,
                          allowance=None, page_size: Optional[int] = None,
-                         participate=None
+                         participate=None, mesh=None, n_shards: int = 1
                          ) -> Tuple[ServiceState, ServiceStats, Optional[dp.DeltaBatch]]:
     """One LoD sync for every client, each slot's full temporal search in
     turn (K1 per slot on the card): the exactness reference of the pooled
     scheduler. Inactive slots, and active ones that sit out a partial sync
     (`participate`), get their temporal state back afterwards, so the state
-    equals the pooled scheduler's bit for bit."""
+    equals the pooled scheduler's bit for bit.
+
+    Under a mesh each rank searches its own client shard's slots (every
+    per-slot argument is its block) over the whole tree, which every rank
+    holds; the `slabs` ranks of one client shard repeat that work."""
     cams = torch.as_tensor(cam_positions, dtype=torch.float32, device=tree.device)
     tau_b = _fleet_taus(cfg, cams.shape[0], taus, tree.device)
     eff = _effective_slots(state, participate)
@@ -417,14 +450,21 @@ def service_sync_vmapped(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                         cut.resweep.sum(1), bytes_per_g, codec=codec, dedup=dedup,
                         delta_budget=delta_budget, priority=priority,
                         allowance=allowance, page_size=page_size,
-                        participate=participate)
+                        participate=participate, mesh=mesh, n_shards=n_shards)
 
 
 def _apply_pooled_updates(slab_cut, root_expand, rho, cam0, sel_b, sel_s, f_cut,
-                          f_rexp, f_rho, cam_sel):
+                          f_rexp, f_rho, cam_sel, guard: bool = False):
     """Scatter pooled sweep results into (copies of) the batched temporal
-    state. Repeat-padded pairs write identical values."""
+    state. Repeat-padded pairs write identical values.
+
+    `guard` (a client shard with no stale pair, whose bucket is padded with
+    its first slot at slab 0): every lane rewrites that pair's current
+    values, so the shard's scatter changes nothing."""
     at = (sel_b, sel_s)
+    if guard:
+        f_cut, f_rexp, f_rho, cam_sel = (slab_cut[at], root_expand[at], rho[at],
+                                         cam0[at])
     return (slab_cut.index_put(at, f_cut), root_expand.index_put(at, f_rexp),
             rho.index_put(at, f_rho), cam0.index_put(at, cam_sel))
 
@@ -440,13 +480,30 @@ def _compact_stale_pairs(stale: torch.Tensor, bucket: int):
 
 
 def _pooled_pair_sweep(tables: ls.SlabTables, rpe, cams, taus, sel_b, sel_s,
-                       focal: float, *, max_depth: int):
+                       focal: float, *, max_depth: int, mesh=None, slab_blocks: int = 1):
     """Gather the pooled pairs' slab attributes from the resident tables and
-    sweep them in one K6 launch (its plain version on CPU tensors)."""
-    return lod_pair_sweep(tables.mu[sel_s], tables.size[sel_s], tables.parent[sel_s],
-                          tables.level[sel_s], tables.is_leaf[sel_s],
-                          tables.valid[sel_s], rpe[sel_b, sel_s], cams[sel_b],
-                          focal, taus[sel_b], max_depth=max_depth)
+    sweep them in one K6 launch (its plain version on CPU tensors).
+
+    With the tables in `slab_blocks` blocks over the mesh's `slabs` axis,
+    the ranks of that axis share one client block and so hold the same
+    pairs. Each sweeps every pair on the rows of its own block (a pair whose
+    slab another rank owns takes some row of this block, and its result is
+    dropped), an all-gather over `slabs` brings every rank's results, and
+    each pair keeps those of the rank that owns its slab: a select, so the
+    bits are the whole tables'. K6's results are 1.5 KB a pair against the
+    39 KB of its inputs, so they are what travels."""
+    cols = (tables.mu, tables.size, tables.parent, tables.level, tables.is_leaf,
+            tables.valid)
+    if slab_blocks <= 1:
+        return lod_pair_sweep(*(c[sel_s] for c in cols), rpe[sel_b, sel_s], cams[sel_b],
+                              focal, taus[sel_b], max_depth=max_depth)
+    per = tables.mu.shape[0]
+    mine = (sel_s - mesh.index("slabs") * per).clamp(0, per - 1)
+    out = lod_pair_sweep(*(c[mine] for c in cols), rpe[sel_b, sel_s], cams[sel_b], focal,
+                         taus[sel_b], max_depth=max_depth)
+    lane = torch.arange(sel_s.shape[0], device=sel_s.device)
+    owner = sel_s // per
+    return tuple(e[owner, lane] for e in shd.all_gather_blocks(mesh, "slabs", list(out)))
 
 
 def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
@@ -454,7 +511,8 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                         codec: Optional[comp.Codec] = None, dedup: bool = False,
                         delta_budget: Optional[int] = None, priority=None,
                         allowance=None, page_size: Optional[int] = None,
-                        participate=None, tables: Optional[ls.SlabTables] = None
+                        participate=None, tables: Optional[ls.SlabTables] = None,
+                        mesh=None, n_shards: int = 1
                         ) -> Tuple[ServiceState, ServiceStats, Optional[dp.DeltaBatch]]:
     """One LoD sync for every client with cross-client slab pooling.
 
@@ -466,26 +524,47 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     else. Inactive slots report no staleness, so they never enter the pool;
     on a partial sync (`participate`) neither do the slots that sit out, and
     their temporal state, render queue, debt and counter survive bitwise.
-    `tables` are the resident slab tables (`SlabTables.from_tree`)."""
+    `tables` are the resident slab tables (`SlabTables.from_tree`).
+
+    Under a mesh (`n_shards` client shards; every per-slot argument is this
+    rank's block) the pool is per client shard: the shards' pool sizes are
+    all-gathered over `clients` (the one host read), so every shard picks
+    the same pow2 bucket of its own pairs; a shard with none pads its
+    bucket with a guarded no-op pair. The slab rows come from the `slabs`
+    blocks of the tables."""
     m = tree.meta
     cams = torch.as_tensor(cam_positions, dtype=torch.float32, device=tree.device)
     tau_b = _fleet_taus(cfg, cams.shape[0], taus, tree.device)
     eff = _effective_slots(state, participate)
     if tables is None:
-        tables = ls.SlabTables.from_tree(tree)
+        tables = ls.SlabTables.from_tree(tree, mesh=mesh)
     top_cut, rpe, stale = ls.batched_top_and_staleness(tree, state.temporal, cams,
                                                        focal, tau_b, eff)
-    n_stale = int(stale.sum())
+    if n_shards > 1:
+        shard_counts = shd.all_gather_blocks(
+            mesh, "clients", [stale.sum().to(torch.int32)])[0].cpu().numpy()
+        n_stale = int(shard_counts.sum())
+    else:
+        n_stale = int(stale.sum())
     tp = state.temporal
     slab_cut, root_expand, rho, cam0 = tp.slab_cut0, tp.root_expand0, tp.rho, tp.cam0
     if n_stale > 0:
-        bucket = ls.pow2_bucket(n_stale, stale.numel())
-        sel_b, sel_s = _compact_stale_pairs(stale, bucket)
-        f_cut, f_rexp, f_rho = _pooled_pair_sweep(tables, rpe, cams, tau_b, sel_b, sel_s,
-                                                  focal, max_depth=m.slab_max_depth)
+        empty = False
+        if n_shards > 1:
+            bucket = ls.pow2_bucket(int(shard_counts.max()), stale.numel())
+            empty = int(shard_counts[mesh.index("clients")]) == 0
+        else:
+            bucket = ls.pow2_bucket(n_stale, stale.numel())
+        if empty:
+            sel_b = sel_s = torch.zeros((bucket,), dtype=torch.int64, device=stale.device)
+        else:
+            sel_b, sel_s = _compact_stale_pairs(stale, bucket)
+        f_cut, f_rexp, f_rho = _pooled_pair_sweep(
+            tables, rpe, cams, tau_b, sel_b, sel_s, focal, max_depth=m.slab_max_depth,
+            mesh=mesh, slab_blocks=m.Ns // tables.mu.shape[0])
         slab_cut, root_expand, rho, cam0 = _apply_pooled_updates(
             slab_cut, root_expand, rho, cam0, sel_b, sel_s, f_cut, f_rexp, f_rho,
-            cams[sel_b])
+            cams[sel_b], guard=empty)
     # the scatter never touches a slot outside `eff`; freeze the other two
     # leaves the same way, so an inactive slot stays at its reset value and
     # a slot that sat out keeps its own
@@ -501,7 +580,7 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
                         nodes_touched, stale.sum(1), bytes_per_g, codec=codec,
                         dedup=dedup, delta_budget=delta_budget, priority=priority,
                         allowance=allowance, page_size=page_size,
-                        participate=participate)
+                        participate=participate, mesh=mesh, n_shards=n_shards)
 
 
 # ---------------------------------------------------------------------------
@@ -565,14 +644,24 @@ class LodService:
     scheduler's primitive).
 
     The tree moves to `device` (the card when None; where there is no card
-    that raises, unless the caller asks for the CPU)."""
+    that raises, unless the caller asks for the CPU).
+
+    `mesh` (a `repro_torch.sharding.fleet.FleetMesh`, else the ambient
+    `use_fleet_mesh` one) runs the service on the clients×slabs serving
+    mesh, one process a rank, every rank calling the same methods with the
+    same arguments: `state`, the stats `sync` returns, the fallback frames
+    and the Δ payload's per-slot rows are this rank's client block
+    (`gather_slots` brings the whole fleet), the slab tables its `slabs`
+    block. The results are the meshless service's bits. `resize_mesh` moves
+    the live service onto another mesh, or off it."""
 
     def __init__(self, tree: LodTree, cfg: SessionConfig, n_clients: int, focal: float,
                  mode: str = "pooled", taus=None, dedup: bool = True,
                  delta_budget: Optional[int] = None, capacity: Optional[int] = None,
                  max_clients: Optional[int] = None,
                  max_state_bytes: Optional[float] = None, bandwidth=None,
-                 page_size: Optional[int] = None, device: DeviceLike = None):
+                 page_size: Optional[int] = None, device: DeviceLike = None,
+                 mesh=None):
         if mode not in ("pooled", "vmapped"):
             raise ValueError(f"unknown scheduler mode: {mode!r}")
         if n_clients < 0:
@@ -580,6 +669,7 @@ class LodService:
         self.device = resolve_device(device)
         self.tree = tree if tree.device == self.device else tree.to(self.device)
         self.cfg = cfg
+        self.mesh = shd.resolve_mesh(mesh)
         self.max_clients = None if max_clients is None else int(max_clients)
         self.max_state_bytes = None if max_state_bytes is None else float(max_state_bytes)
         self.capacity = max(int(n_clients), 1) if capacity is None else int(capacity)
@@ -639,8 +729,10 @@ class LodService:
                 targets = [_bandwidth_bytes(bandwidth)] * n_clients
             for slot, target in enumerate(targets):
                 self._set_bandwidth_slot(slot, target)
-        self.tables = ls.SlabTables.from_tree(self.tree) if mode == "pooled" else None
-        self.state = service_init(self.tree, cfg, n_clients, capacity=self.capacity)
+        self.tables = (ls.SlabTables.from_tree(self.tree, mesh=self.mesh)
+                       if mode == "pooled" else None)
+        self.state = shd.shard_service_state(
+            self.mesh, service_init(self.tree, cfg, n_clients, capacity=self.capacity))
         self.last_delta: Optional[dp.DeltaBatch] = None
         # which client each row of last_delta is for
         self._delta_ids = np.full(self.capacity, -1, np.int64)
@@ -663,6 +755,104 @@ class LodService:
         if slots.size == 0:
             raise KeyError(f"no live client with id {client_id}")
         return int(slots[0])
+
+    # -- the serving mesh -------------------------------------------------------
+
+    @property
+    def client_shards(self) -> int:
+        """Client shards the slot axis is split into (1: every rank holds
+        every slot)."""
+        return shd.client_shards(self.mesh, self.capacity)
+
+    def slot_block(self) -> Tuple[int, int]:
+        """[lo, hi) of the slots this rank holds."""
+        return shd.block(self.mesh, "clients", self.client_shards, self.capacity)
+
+    @property
+    def _slab_blocks(self) -> int:
+        """Blocks the slab tables are in over `slabs` (1: whole)."""
+        return self.tree.meta.Ns // self.tables.mu.shape[0]
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        lo, hi = self.slot_block()
+        return slot - lo if lo <= slot < hi else None
+
+    def gather_slots(self, tree):
+        """The whole fleet's rows of a tree held as this rank's client block
+        (the state, `sync`'s stats, fallback frames): an all-gather over
+        `clients`; the tree itself without client shards."""
+        return shd.replicate_fleet(self.mesh, tree, self.client_shards)
+
+    _DELTA_ROWS = ("ref_mask", "delivered", "deferred", "client_overflow",
+                   "client_pages")
+
+    def _unblock(self):
+        """(state, last stats, the latest payload's per-slot rows) of the
+        whole fleet, gathered under the current mesh and capacity."""
+        ld = self.last_delta
+        rows = None if ld is None else tuple(getattr(ld, f) for f in self._DELTA_ROWS)
+        return self.gather_slots((self.state, self._last_stats, rows))
+
+    def _block(self, state, stats, rows) -> None:
+        """Keep this rank's block, under the current mesh and capacity, of
+        the whole fleet's state, last stats and payload rows (rows padded
+        to the capacity with zero rows: a payload older than a growth has
+        none for the new slots, which no client reads)."""
+        mesh = self.mesh
+        self.state = shd.shard_service_state(mesh, state)
+        self._last_stats = shd.shard_service_state(mesh, stats)
+        if rows is not None:
+            if mesh is not None:
+                rows = tuple(torch.cat([a, a.new_zeros((self.capacity - a.shape[0],)
+                                                       + tuple(a.shape[1:]))])
+                             for a in rows)
+            self.last_delta = dataclasses.replace(
+                self.last_delta, **dict(zip(self._DELTA_ROWS,
+                                            shd.shard_service_state(mesh, rows))))
+
+    def placements(self):
+        """The placement record of the service's trees under its mesh: for
+        `state`, the slab `tables` and `last_delta`, a tree of specs (tuples
+        of mesh axes, one entry a dimension, as the reference's
+        `PartitionSpec`s), None for an absent tree. None without a mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        out = {"state": shd.fleet_shardings(
+            mesh, shd.global_shapes(self.state, self.client_shards)), "tables": None,
+            "last_delta": None}
+        if self.tables is not None:
+            out["tables"] = shd.slab_shardings(
+                mesh, shd.global_shapes(self.tables, self._slab_blocks))
+        ld = self.last_delta
+        if ld is not None:
+            rows = tuple(getattr(ld, f) for f in self._DELTA_ROWS)
+            per_slot = shd.fleet_shardings(mesh, shd.global_shapes(rows, self.client_shards))
+            payload = pytree.tree_map(
+                lambda x: shd.fleet_pspec(mesh, ("union",) + (None,) * (x.dim() - 1),
+                                          (x.shape[0] * ld.payload_shards,) + x.shape[1:]),
+                ld.payload)
+            whole = pytree.tree_map(lambda x: (None,) * x.dim(), ld)
+            out["last_delta"] = dataclasses.replace(
+                whole, payload=payload, **dict(zip(self._DELTA_ROWS, per_slot)))
+        return out
+
+    def resize_mesh(self, mesh) -> None:
+        """Move the live service onto another serving mesh (bigger, smaller,
+        or None for the meshless layout) without dropping a client: every
+        rank gathers the whole state and the latest payload under the old
+        mesh and keeps its block under the new one; the slab tables are
+        views of the tree every rank holds, blocked anew. Every rank of the
+        old mesh's world calls it. The results stay bitwise."""
+        whole = self._unblock()
+        if self.tables is not None:
+            self.tables = ls.SlabTables.from_tree(self.tree, mesh=mesh)
+        if self.last_delta is not None:
+            self.last_delta = dataclasses.replace(
+                self.last_delta, payload=dp.replicate_payload(self.mesh, self.last_delta),
+                payload_shards=1)
+        self.mesh = mesh
+        self._block(*whole)
 
     def client_tau(self, client_id: int) -> float:
         """One live client's base LoD threshold (the controller's τ scale
@@ -696,11 +886,12 @@ class LodService:
 
     def _slot_state_bytes(self) -> float:
         """Device bytes of the service state a slot: every slot-axis leaf of
-        `ServiceState` (the fleet's bookkeeping included) over the capacity;
-        the unit of the admission byte budget."""
+        `ServiceState` (the fleet's bookkeeping included) over the slots it
+        holds; the unit of the admission byte budget (a client block's is the
+        whole fleet's)."""
         total = sum(x.numel() * x.element_size() for x in pytree.leaves(self.state)
                     if x.dim() >= 1)
-        return float(total) / self.capacity
+        return float(total) / self.state.capacity
 
     def _admission_denial(self) -> Optional[str]:
         """Why the next admit must be refused (None: it may go ahead),
@@ -741,7 +932,9 @@ class LodService:
         slot = int(free[0])
         client_id = self._next_id
         self._next_id += 1
-        self.state = service_admit_slot(self.state, slot, client_id)
+        local = self._local_slot(slot)
+        self.state = (service_note_admit(self.state, client_id) if local is None
+                      else service_admit_slot(self.state, local, client_id))
         self._active[slot] = True
         self._client_ids[slot] = client_id
         self._slot_cams[slot] = (np.zeros(3, np.float32) if cam is None
@@ -757,7 +950,9 @@ class LodService:
         """Evict a live client: its slot is freed and reset at once. Its
         pending debt and its controller state go with it."""
         slot = self._slot_of(client_id)
-        self.state = service_evict_slot(self.state, slot)
+        local = self._local_slot(slot)
+        if local is not None:
+            self.state = service_evict_slot(self.state, local)
         self._active[slot] = False
         self._client_ids[slot] = -1
         self._slot_cams[slot] = 0.0
@@ -770,8 +965,10 @@ class LodService:
 
     def _grow(self, new_capacity: int) -> None:
         """Pad every slot-axis array, host mirrors included, to
-        `new_capacity`."""
-        self.state = service_grow(self.tree, self.cfg, self.state, new_capacity)
+        `new_capacity` (under a mesh the blocks are cut anew: growing 8 → 16
+        slots on 2 client shards moves slots 4–7 to shard 0)."""
+        state, stats, rows = self._unblock()
+        state = service_grow(self.tree, self.cfg, state, new_capacity)
         pad = new_capacity - self.capacity
         self._active = np.concatenate([self._active, np.zeros(pad, bool)])
         self._client_ids = np.concatenate([self._client_ids, np.full(pad, -1, np.int64)])
@@ -784,16 +981,16 @@ class LodService:
         self._allowance = np.concatenate([self._allowance, np.full(pad, -1, np.int64)])
         self._tau_scale = np.concatenate([self._tau_scale, np.ones(pad, np.float32)])
         self._stats_fresh = np.concatenate([self._stats_fresh, np.zeros(pad, bool)])
-        if self._last_stats is not None:
+        if stats is not None:
             # zero rows for the new slots: uncontrolled until admitted, and a
             # zero measurement is never read for them
-            self._last_stats = pytree.tree_map(
+            stats = pytree.tree_map(
                 lambda a: torch.cat([a, a.new_zeros((new_capacity - a.shape[0],)
-                                                    + tuple(a.shape[1:]))]),
-                self._last_stats)
+                                                    + tuple(a.shape[1:]))]), stats)
         self.capacity = new_capacity
         if self._delta_budget_arg is None:
             self.delta_budget = min(self.tree.n_pad, self.cfg.cut_budget * self.capacity)
+        self._block(state, stats, rows)
 
     def maybe_shrink(self) -> Optional[int]:
         """If the live clients fit a smaller pow2 bucket, move them to the
@@ -809,7 +1006,8 @@ class LodService:
         live = np.flatnonzero(self._active)
         free = np.flatnonzero(~self._active)
         perm = np.concatenate([live, free])[:target].astype(np.int64)
-        self.state = service_shrink(self.state, perm)
+        state, stats, rows = self._unblock()
+        state = service_shrink(state, perm)
         self._active = self._active[perm]
         self._client_ids = self._client_ids[perm]
         self._slot_cams = self._slot_cams[perm]
@@ -826,15 +1024,8 @@ class LodService:
             return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)), a[idx],
                                torch.zeros((), dtype=a.dtype, device=a.device))
 
-        if self._last_stats is not None:
-            self._last_stats = pytree.tree_map(remap_rows, self._last_stats)
-        if self.last_delta is not None:
-            ld = self.last_delta
-            self.last_delta = dataclasses.replace(
-                ld, ref_mask=remap_rows(ld.ref_mask), delivered=remap_rows(ld.delivered),
-                deferred=remap_rows(ld.deferred),
-                client_overflow=remap_rows(ld.client_overflow),
-                client_pages=remap_rows(ld.client_pages))
+        self._block(state, pytree.tree_map(remap_rows, stats),
+                    None if rows is None else tuple(map(remap_rows, rows)))
         self._delta_ids = self._delta_ids[perm]
         self._bw_target = self._bw_target[perm]
         self._allowance = self._allowance[perm]
@@ -856,13 +1047,16 @@ class LodService:
 
     @classmethod
     def restore(cls, tree: LodTree, directory: str, step: Optional[int] = None,
-                device: DeviceLike = None) -> "LodService":
+                device: DeviceLike = None, mesh=None) -> "LodService":
         """Rebuild a service from a snapshot of either package against the
         same shared city tree (fingerprint-checked), its tensors on `device`
-        (the card when None). A torn, corrupt or mismatched snapshot raises
+        (the card when None), onto the serving `mesh` (None: meshless;
+        reshard-on-load, whatever mesh the snapshot was taken under). A
+        torn, corrupt or mismatched snapshot raises
         `repro_torch.serve.recovery.RecoveryError`."""
         from repro_torch.serve import recovery
-        return recovery.restore_service(tree, directory, step=step, device=device)
+        return recovery.restore_service(tree, directory, step=step, device=device,
+                                        mesh=mesh)
 
     # -- sync -----------------------------------------------------------------
 
@@ -911,7 +1105,8 @@ class LodService:
         allowance, taus_eff = None, self.taus
         if self.dedup and np.isfinite(self._bw_target).any():
             if self._last_stats is not None:
-                measured = self._last_stats.sync_bytes.cpu().numpy().astype(np.float64)
+                measured = self.gather_slots(
+                    self._last_stats.sync_bytes).cpu().numpy().astype(np.float64)
                 new_allow, new_tau = rate_control_step(
                     self._bw_target, measured, self._allowance, self._tau_scale,
                     page_size=self.page_size, max_rows=self.delta_budget)
@@ -924,17 +1119,23 @@ class LodService:
             base = (self.taus if self.taus is not None
                     else np.full(self.capacity, self.cfg.tau, np.float32))
             taus_eff = (base * self._tau_scale).astype(np.float32)
-        kw = dict(taus=taus_eff, codec=self.codec, dedup=self.dedup,
-                  delta_budget=self.delta_budget, priority=self._priority,
-                  allowance=allowance, page_size=self.page_size, participate=part_mask)
+        # every per-slot argument is this rank's block of the slots
+        lo, hi = self.slot_block()
+        local_part = None if part_mask is None else shd.shard_participation(self.mesh,
+                                                                             part_mask)
+        kw = dict(taus=None if taus_eff is None else taus_eff[lo:hi], codec=self.codec,
+                  dedup=self.dedup, delta_budget=self.delta_budget, priority=self._priority,
+                  allowance=None if allowance is None else allowance[lo:hi],
+                  page_size=self.page_size, participate=local_part, mesh=self.mesh,
+                  n_shards=self.client_shards)
+        cams = self._slot_cams[lo:hi]
         if self.mode == "pooled":
             self.state, stats, batch = service_sync_pooled(
-                self.tree, self.cfg, self.state, self._slot_cams, self.focal,
-                self.bytes_per_g, tables=self.tables, **kw)
+                self.tree, self.cfg, self.state, cams, self.focal, self.bytes_per_g,
+                tables=self.tables, **kw)
         else:
             self.state, stats, batch = service_sync_vmapped(
-                self.tree, self.cfg, self.state, self._slot_cams, self.focal,
-                self.bytes_per_g, **kw)
+                self.tree, self.cfg, self.state, cams, self.focal, self.bytes_per_g, **kw)
         if batch is not None:
             self.last_delta = batch
             self._delta_ids = self._client_ids.copy()
@@ -943,7 +1144,7 @@ class LodService:
         if part_mask is None or self._last_stats is None:
             self._last_stats = stats
         else:
-            pm = torch.as_tensor(part_mask, device=self.device)
+            pm = torch.as_tensor(local_part, device=self.device)
             self._last_stats = pytree.tree_map(
                 lambda n, o: torch.where(pm.reshape((-1,) + (1,) * (n.dim() - 1)), n, o),
                 stats, self._last_stats)
@@ -953,8 +1154,9 @@ class LodService:
 
     def client_cut(self, client_id: int) -> torch.Tensor:
         """(cut_budget,) int32 render-queue ids of one live client (-1
-        padded)."""
-        return self.state.cut_gids[self._slot_of(client_id)]
+        padded); under a mesh, from its client shard to every rank."""
+        return shd.gather_row(self.mesh, self.state.cut_gids, self._slot_of(client_id),
+                              self.client_shards)
 
     def _payload_slot(self, client_id: int, what: str) -> int:
         """The slot of a client that has a slice in the latest payload."""
@@ -966,14 +1168,23 @@ class LodService:
                              f"— {what}")
         return slot
 
+    def _client_payload(self, client_id: int, what: str) -> dp.DeltaBatch:
+        """The latest payload with one client's ref row alone (row 0), the
+        row and the union's rows gathered from their shards."""
+        slot = self._payload_slot(client_id, what)
+        ld = self.last_delta
+        row = shd.gather_row(self.mesh, ld.ref_mask, slot, self.client_shards)
+        return dataclasses.replace(ld, ref_mask=row[None],
+                                   payload=dp.replicate_payload(self.mesh, ld),
+                                   payload_shards=1)
+
     def client_delta(self, client_id: int):
         """One client's slice of the latest encode-once payload, decoded:
         (ids (U,) int32, -1 where the union row is not its; decoded rows).
         A client admitted (or a slot recycled) after that sync has no slice:
         that raises."""
-        slot = self._payload_slot(client_id, "sync first")
-        return dp.decode_client(self.codec, self.last_delta,
-                                self.tree.gaussians.sh.shape[1], slot)
+        return dp.decode_client(self.codec, self._client_payload(client_id, "sync first"),
+                                self.tree.gaussians.sh.shape[1], 0)
 
     def delta_checksums(self) -> np.ndarray:
         """(pages,) uint32 checksums of the latest sync's pages (the page
@@ -986,14 +1197,14 @@ class LodService:
         """The ascending gids client `client_id` ingested from the named pages
         of the latest sync's stream: what those pages' loss costs it. Reads
         nothing but the payload; `nack` applies it."""
-        slot = self._payload_slot(client_id, "nothing to NACK")
-        n_pages = int(self.last_delta.pages)
+        batch = self._client_payload(client_id, "nothing to NACK")
+        n_pages = int(batch.pages)
         pages = sorted(set(int(p) for p in lost_pages))
         bad = [p for p in pages if not 0 <= p < n_pages]
         if bad:
             raise ValueError(f"NACK names pages {bad} outside the latest stream's "
                              f"{n_pages} pages")
-        return np.flatnonzero(dp.lost_row_mask(self.last_delta, slot, pages))
+        return np.flatnonzero(dp.lost_row_mask(batch, 0, pages))
 
     def nack_rows(self, client_id: int, gids) -> int:
         """Re-queue the given Gaussians as one live client's pending debt:
@@ -1005,7 +1216,9 @@ class LodService:
             raise ValueError(f"NACK gids outside [0, {self.tree.n_pad})")
         mask = np.zeros((self.tree.n_pad,), bool)
         mask[g] = True
-        self.state = service_nack_rows(self.state, slot, mask)
+        local = self._local_slot(slot)
+        if local is not None:
+            self.state = service_nack_rows(self.state, local, mask)
         return int(mask.sum())
 
     def nack(self, client_id: int, lost_pages) -> int:
@@ -1037,9 +1250,12 @@ class LodService:
                         max_pairs: int = 1 << 16, path: str = "vmap"):
         """Fleet render of every live client's queue → (img_l, img_r, stats)
         with a leading slot axis (free slots render black). `rigs` is a list
-        of n_clients StereoRigs (one resolution and baseline; slot order)."""
+        of n_clients StereoRigs (one resolution and baseline; slot order).
+        Under a mesh each client shard renders its own slots (its `slabs`
+        ranks repeat the work) and returns their frames."""
         rigs = self._slot_aligned_rigs(rigs)
         rcfg = rnd.RenderConfig.for_fleet(rigs, tile=tile, list_len=list_len,
                                           max_pairs=max_pairs)
-        return service_render_step(self.tree, self.state, rnd.stack_rigs(rigs), rcfg,
-                                   path=path)
+        lo, hi = self.slot_block()
+        return service_render_step(self.tree, self.state, rnd.stack_rigs(rigs[lo:hi]),
+                                   rcfg, path=path)

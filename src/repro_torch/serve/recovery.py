@@ -29,15 +29,22 @@ corrupt manifest, a torn or corrupt journal, a mismatched tree) ends in a
 restore from an earlier consistent point or a typed `RecoveryError`, never
 in a silently diverged fleet.
 
+Under a serving mesh (`repro_torch.sharding.fleet`) every rank makes the
+same calls: a snapshot gathers every client block, rank 0 writes the files
+(those of the meshless service byte for byte, apart from the manifest's
+`"mesh"`, which holds the mesh's signature) while the others wait for it
+and raise if it failed, and only rank 0 appends to the journal. `restore_service` and
+`recover` take a target `mesh=` beside `device=`: every rank reads the
+whole snapshot and keeps its block (reshard-on-load), whatever mesh, or
+none, the snapshot was taken under; the saved signature is reported
+(`RecoveryManager.saved_mesh`).
+
 What the port has no counterpart for: the reference records its sweep
-implementation, its Pallas `interpret` flag and its serving mesh. The port
-has one pooled sweep (K6; the reference's two sweeps give the same bits)
-and no mesh yet, so it writes the reference's meshless defaults
-(`"sweep_impl": "xla"`, `"interpret": true`, `"mesh": null`), which restore
-there on any host, and reads any of them; a saved mesh signature is kept
-for reporting only (`RecoveryManager.saved_mesh`). `device=` takes the
-place of the reference's target `mesh=`: restored tensors go to the card
-unless the caller asks for the CPU.
+implementation and its Pallas `interpret` flag. The port has one pooled
+sweep (K6; the reference's two sweeps give the same bits), so it writes
+the reference's defaults (`"sweep_impl": "xla"`, `"interpret": true`),
+which restore there on any host, and reads any of them. Restored tensors
+go to the card unless the caller asks for the CPU.
 
 Journal records hold Python ints, floats, strings and None only: the CRC
 covers their canonical JSON, which must be the same bytes in both
@@ -57,6 +64,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core.lod_tree import LodTree
@@ -64,6 +72,7 @@ from repro_torch.core.pipeline import SessionConfig
 from repro_torch.device import DeviceLike
 from repro_torch.serve import fleet as flt
 from repro_torch.serve.lod_service import AdmissionDenied, LodService, ServiceStats
+from repro_torch.sharding import fleet as shd
 
 SNAPSHOT_FORMAT = "nebula-fleet-snapshot/1"
 JOURNAL_NAME = "journal.jsonl"
@@ -100,6 +109,32 @@ def tree_fingerprint(tree: LodTree) -> Dict[str, Any]:
     }
 
 
+def _writes(mesh) -> bool:
+    """Whether this rank writes the shared files: rank 0 of a mesh, or the
+    meshless service's one process."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _on_writer(mesh, fn):
+    """Run `fn` on the writing rank and return what it returns. Under a mesh
+    the other ranks wait for it and learn how it went: when it raised, it
+    raises the same error on the writer and a `RecoveryError` naming it on
+    every other rank, so no rank carries on as if it had worked."""
+    out, err = None, None
+    if _writes(mesh):
+        try:
+            out = fn()
+        except Exception as e:  # re-raised below, on this rank and the others
+            err = e
+    if mesh is not None:
+        failed = shd.broadcast_object(None if err is None else f"{type(err).__name__}: {err}")
+        if err is None and failed is not None:
+            raise RecoveryError(f"rank 0 failed: {failed}")
+    if err is not None:
+        raise err
+    return out
+
+
 def _host_mirrors(service: LodService) -> Dict[str, np.ndarray]:
     """The service's host control-plane state as a flat dict of arrays (the
     `host` half of the snapshot). `taus` is stored dense (cfg.tau where
@@ -109,7 +144,8 @@ def _host_mirrors(service: LodService) -> Dict[str, np.ndarray]:
     taus = (np.asarray(service.taus, np.float32) if service.taus is not None
             else np.full((cap,), service.cfg.tau, np.float32))
     if service._last_stats is not None:
-        last_bytes = service._last_stats.sync_bytes.detach().cpu().numpy().astype(np.float32)
+        last_bytes = service.gather_slots(
+            service._last_stats.sync_bytes).detach().cpu().numpy().astype(np.float32)
     else:
         last_bytes = np.zeros((cap,), np.float32)
     return {
@@ -155,7 +191,10 @@ def snapshot_service(service: LodService, directory: str, step: int = 0, *,
     snapshot) ride in the manifest extras, with `scheduler_state`
     (`DeadlineScheduler.state_dict()`) if given. The Δ payload is a
     per-sync artifact and is not saved; its tenancy vector is, so a
-    restored service refuses stale decode requests."""
+    restored service refuses stale decode requests.
+
+    Under a mesh every rank calls it: the client blocks are gathered, rank 0
+    writes, and the others wait for it and raise if it failed."""
     extras = {
         "format": SNAPSHOT_FORMAT,
         "capacity": int(service.capacity),
@@ -177,12 +216,14 @@ def snapshot_service(service: LodService, directory: str, step: int = 0, *,
             "max_state_bytes": service.max_state_bytes,
         },
         "tree": tree_fingerprint(service.tree),
-        "mesh": None,
+        "mesh": shd.mesh_signature(service.mesh),
     }
     if scheduler_state is not None:
         extras["scheduler"] = scheduler_state
-    tree = {"state": service.state, "host": _host_mirrors(service)}
-    return ckpt.save(directory, int(step), tree, extras)
+    tree = {"state": service.gather_slots(service.state), "host": _host_mirrors(service)}
+    # the other ranks go on once the files are there, and raise if the save failed
+    path = _on_writer(service.mesh, lambda: ckpt.save(directory, int(step), tree, extras))
+    return os.path.join(directory, f"step_{int(step):08d}") if path is None else path
 
 
 def _zero_stats(capacity: int, sync_bytes: np.ndarray, device) -> ServiceStats:
@@ -212,21 +253,22 @@ def _read_extras(directory: str, step: int) -> Dict[str, Any]:
 
 
 def restore_service(tree: LodTree, directory: str, step: Optional[int] = None,
-                    device: DeviceLike = None) -> LodService:
+                    device: DeviceLike = None, mesh=None) -> LodService:
     """Rebuild a `LodService` from a snapshot of either package, its tensors
-    on `device` (the card when None).
+    on `device` (the card when None), onto the serving `mesh` (None: the
+    meshless service; every rank of a mesh calls it and keeps its block).
 
     `tree` must be the same shared city tree the snapshot was taken against
     (fingerprint-checked). `step=None` restores the newest complete
     snapshot. Raises `RecoveryError` for anything that cannot restore
     faithfully: missing or torn snapshots, truncated leaf files, corrupt
     manifests, a mismatched tree, or snapshot halves that disagree."""
-    svc, _ = _restore_with_extras(tree, directory, step, device)
+    svc, _ = _restore_with_extras(tree, directory, step, device, mesh)
     return svc
 
 
 def _restore_with_extras(tree: LodTree, directory: str, step: Optional[int],
-                         device: DeviceLike) -> Tuple[LodService, Dict[str, Any]]:
+                         device: DeviceLike, mesh=None) -> Tuple[LodService, Dict[str, Any]]:
     if step is None:
         step = ckpt.latest_step(directory)
         if step is None:
@@ -247,19 +289,22 @@ def _restore_with_extras(tree: LodTree, directory: str, step: Optional[int],
             tree, cfg, 0, focal=srv["focal"], mode=srv["mode"], dedup=srv["dedup"],
             delta_budget=srv["delta_budget_arg"], capacity=capacity,
             max_clients=srv["max_clients"], max_state_bytes=srv["max_state_bytes"],
-            page_size=srv["page_size"], device=device)
+            page_size=srv["page_size"], device=device, mesh=mesh)
     except (KeyError, TypeError, ValueError) as e:
         raise RecoveryError(f"snapshot step {step} has an unusable config: {e}") from e
-    like = {"state": svc.state, "host": _host_like(capacity)}
+    # the whole state is read on every rank (its global shapes), then each
+    # keeps its block
+    like = {"state": shd.global_shapes(svc.state, svc.client_shards),
+            "host": _host_like(capacity)}
     try:
-        restored = ckpt.restore(directory, int(step), like)
+        restored = ckpt.restore(directory, int(step), like, device=svc.device)
     except (OSError, ValueError, KeyError, EOFError, ckpt.CheckpointDtypeError) as e:
         raise RecoveryError(f"snapshot step {step} unrestorable: {e}") from e
-    svc.state = restored["state"]
+    whole = restored["state"]
     host = restored["host"]
     # the device FleetState and the host mirror were saved from one
     # consistent service: restored, they must still agree
-    dev_active, dev_ids, dev_next = flt.fleet_mirror(svc.state.fleet)
+    dev_active, dev_ids, dev_next = flt.fleet_mirror(whole.fleet)
     if (not np.array_equal(dev_active, host["active"])
             or not np.array_equal(dev_ids, host["client_ids"].astype(np.int64))
             or dev_next != int(extras["next_id"])):
@@ -275,9 +320,9 @@ def _restore_with_extras(tree: LodTree, directory: str, step: Optional[int],
     svc._stats_fresh = host["stats_fresh"].copy()
     svc._next_id = int(extras["next_id"])
     svc.taus = host["taus"].copy() if extras["has_taus"] else None
-    svc._last_stats = (_zero_stats(capacity, host["last_sync_bytes"], svc.device)
-                       if extras["has_last_stats"] else None)
     svc.last_delta = None  # a per-sync artifact; tenancy refuses stale reads
+    svc._block(whole, _zero_stats(capacity, host["last_sync_bytes"], svc.device)
+               if extras["has_last_stats"] else None, None)
     return svc, extras
 
 
@@ -300,18 +345,21 @@ class SyncJournal:
     fields. An append flushes and fsyncs before it returns, so a record the
     caller saw appended survives the process."""
 
-    def __init__(self, path: str, seq: int = 0):
+    def __init__(self, path: str, seq: int = 0, writer: bool = True):
         self.path = path
         self.seq = int(seq)
+        # the ranks of a mesh count records alike, rank 0 alone writes them
+        self.writer = bool(writer)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def append(self, rec: Dict[str, Any]) -> int:
         rec = dict(rec, seq=self.seq)
         rec["crc"] = _record_crc(rec)
-        with open(self.path, "a", encoding="utf-8") as f:
-            f.write(json.dumps(rec, sort_keys=True) + "\n")
-            f.flush()
-            os.fsync(f.fileno())
+        if self.writer:
+            with open(self.path, "a", encoding="utf-8") as f:
+                f.write(json.dumps(rec, sort_keys=True) + "\n")
+                f.flush()
+                os.fsync(f.fileno())
         self.seq += 1
         return self.seq - 1
 
@@ -446,7 +494,8 @@ class RecoveryManager:
         self.keep = int(keep)
         os.makedirs(self.snapshot_dir, exist_ok=True)
         self.journal = SyncJournal(os.path.join(directory, JOURNAL_NAME),
-                                   seq=0 if _resume_seq is None else _resume_seq)
+                                   seq=0 if _resume_seq is None else _resume_seq,
+                                   writer=_writes(service.mesh))
         self._since_snapshot = 0
         self.scheduler_state: Optional[Dict[str, Any]] = None
         self.saved_mesh = None
@@ -466,6 +515,8 @@ class RecoveryManager:
         self._gc()
 
     def _gc(self) -> None:
+        if not _writes(self.service.mesh):
+            return
         for s in ckpt.valid_steps(self.snapshot_dir)[self.keep:]:
             shutil.rmtree(os.path.join(self.snapshot_dir, f"step_{s:08d}"),
                           ignore_errors=True)
@@ -548,9 +599,11 @@ class RecoveryManager:
 
 
 def recover(tree: LodTree, directory: str, every: int = 8, keep: int = 3,
-            device: DeviceLike = None) -> Tuple[RecoveryManager, int]:
+            device: DeviceLike = None, mesh=None) -> Tuple[RecoveryManager, int]:
     """Crash recovery: restore the newest intact snapshot under `directory`
-    onto `device` (the card when None) and re-execute the journal's tail.
+    onto `device` (the card when None) and the serving `mesh` (None:
+    meshless; every rank of a mesh calls it, rank 0 repairs the directory
+    first), and re-execute the journal's tail.
 
     Walks complete snapshots newest first: one that turns out torn,
     truncated or corrupt falls back to the one before it (a longer tail,
@@ -562,15 +615,23 @@ def recover(tree: LodTree, directory: str, every: int = 8, keep: int = 3,
     snapshot was taken under) and the number of records re-executed.
     Raises `RecoveryError` when no snapshot can be restored."""
     snap_dir = os.path.join(directory, SNAPSHOT_DIRNAME)
-    if os.path.isdir(snap_dir):
-        for name in os.listdir(snap_dir):
-            if name.endswith(".tmp"):
-                shutil.rmtree(os.path.join(snap_dir, name), ignore_errors=True)
-    records = SyncJournal.read(os.path.join(directory, JOURNAL_NAME), repair=True)
+    journal = os.path.join(directory, JOURNAL_NAME)
+    def repair():
+        if os.path.isdir(snap_dir):
+            for name in os.listdir(snap_dir):
+                if name.endswith(".tmp"):
+                    shutil.rmtree(os.path.join(snap_dir, name), ignore_errors=True)
+        return SyncJournal.read(journal, repair=True)
+
+    # the other ranks read the directory once rank 0 has repaired it, and
+    # raise if the repair failed
+    records = _on_writer(mesh, repair)
+    if not _writes(mesh):
+        records = SyncJournal.read(journal, repair=False)
     failures: List[str] = []
     for step in ckpt.valid_steps(snap_dir):
         try:
-            svc, extras = _restore_with_extras(tree, snap_dir, step, device)
+            svc, extras = _restore_with_extras(tree, snap_dir, step, device, mesh)
         except RecoveryError as e:
             failures.append(str(e))
             continue

@@ -33,6 +33,11 @@ denied (`AdmissionDenied`) when the cost model says the fleet cannot hold
 the newcomer's deadline: its own cold sync over its deadline, or the
 fleet's utilization Σ predicted_cost / deadline over 1. `state_dict()` is
 JSON-able.
+
+On a serving mesh of several ranks every rank ticks; rank 0's selection
+and times are broadcast, so each rank syncs the same clients and its cost
+model takes the same samples (the clients' own motion clocks stay each
+rank's).
 """
 
 from __future__ import annotations
@@ -44,9 +49,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import lod_search as ls
 from repro_torch.serve.lod_service import AdmissionDenied, LodService, ServiceStats
+from repro_torch.sharding import fleet as shd
 
 DEFAULT_DEADLINE_MS = 33.0  # ~30 Hz pose-to-update budget
 
@@ -256,8 +263,10 @@ class DeadlineScheduler:
                 cams[svc._slot_of(cid)] = c.pending_cam
         taus = (svc.taus if svc.taus is not None
                 else np.full(svc.capacity, svc.cfg.tau, np.float32))
-        counts = ls.predicted_stale_counts(svc.tree, svc.state.temporal, cams, svc.focal,
-                                           taus, svc.state.fleet.active).cpu().numpy()
+        lo, hi = svc.slot_block()
+        counts = svc.gather_slots(ls.predicted_stale_counts(
+            svc.tree, svc.state.temporal, cams[lo:hi], svc.focal, taus[lo:hi],
+            svc.state.fleet.active)).cpu().numpy()
         return {cid: int(counts[svc._slot_of(cid)])
                 for cid in self._clients}
 
@@ -298,7 +307,12 @@ class DeadlineScheduler:
         or None when no client had unserved motion (nothing to do — an
         idle fleet costs nothing)."""
         svc = self.service
+        # under a mesh of several ranks, rank 0's clock decides for all:
+        # its selection and its times, so every rank's control plane agrees
+        shared = svc.mesh is not None and dist.get_world_size() > 1
         selected = self.select(now)
+        if shared:
+            selected = shd.broadcast_object(selected)
         if not selected:
             return None
         cams = {cid: self._clients[cid].pending_cam for cid in selected}
@@ -307,7 +321,9 @@ class DeadlineScheduler:
         if stats.sync_bytes.is_cuda:
             torch.cuda.synchronize(stats.sync_bytes.device)
         t_done = self._clock()
-        resweeps = stats.resweeps.cpu().numpy()
+        if shared:
+            t0, t_done = shd.broadcast_object((t0, t_done))
+        resweeps = svc.gather_slots(stats.resweeps).cpu().numpy()
         self.cost.observe(float(resweeps.sum()), (t_done - t0) * 1e3)
         mtp_col = np.zeros(svc.capacity, np.float32)
         miss_col = np.zeros(svc.capacity, bool)
@@ -326,8 +342,9 @@ class DeadlineScheduler:
             c.oldest_motion_at = None
             c.pending_cam = None
         dev = stats.mtp_ms.device
-        return dataclasses.replace(stats, mtp_ms=torch.from_numpy(mtp_col).to(dev),
-                                   deadline_miss=torch.from_numpy(miss_col).to(dev))
+        lo, hi = svc.slot_block()
+        return dataclasses.replace(stats, mtp_ms=torch.from_numpy(mtp_col[lo:hi]).to(dev),
+                                   deadline_miss=torch.from_numpy(miss_col[lo:hi]).to(dev))
 
     # -- accounting -----------------------------------------------------------
 

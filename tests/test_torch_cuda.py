@@ -697,3 +697,47 @@ def test_dense_prefill_launches_k7_and_matches_the_cpu(dev):
     lc, cache_c = dense.decode_step(cpu_model, cache_c, {"token": t})
     assert flash_attention.flash_attention.launches == before + cfg.n_layers
     assert torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4) and cache["pos"] == 71
+
+
+def test_meshed_service_on_card_matches_meshless(scene, tmp_path):
+    """A service on a 1×1 serving mesh (NCCL, a world of this one process)
+    against the meshless one on the card: a growth, an evict, a live
+    `resize_mesh` off the mesh and back, and the pooled render, bit for
+    bit."""
+    from repro_torch.launch.mesh import destroy_fleet_group, init_fleet_group, make_fleet_mesh
+    tree, rig = scene
+    cfg = P.SessionConfig(tau=16.0, cut_budget=4096)
+    base = rig.left.pos.cpu().numpy()
+    init_fleet_group(str(tmp_path / "store"), 0, 1, "nccl")
+    try:
+        mesh = make_fleet_mesh(1, 1)
+        plain = LodService(tree, cfg, 2, focal=400.0, mode="pooled")
+        meshed = LodService(tree, cfg, 2, focal=400.0, mode="pooled", mesh=mesh)
+        meshed.codec = plain.codec
+        K.reset_launch_counts()
+        for k, op in enumerate(("sync", "admit", "sync", "evict", "off", "sync", "on", "sync")):
+            for svc in (plain, meshed):
+                if op == "admit":
+                    svc.admit(base + [0.8, 0.0, 0.0])
+                elif op == "evict":
+                    svc.evict(0)
+                elif op in ("off", "on"):
+                    if svc is meshed:
+                        svc.resize_mesh(None if op == "off" else mesh)
+            if op == "sync":
+                cams = {c: base + [0.3 * c + 0.1 * k, 0.0, 0.0] for c in plain.active_ids}
+                a, b = plain.sync(cams), meshed.sync(cams)
+                for f in dataclasses.fields(a):
+                    assert torch.equal(getattr(a, f.name), getattr(b, f.name)), (k, f.name)
+            for (key, x), (_k, y) in zip(pytree.flatten_with_paths(plain.state),
+                                         pytree.flatten_with_paths(meshed.state)):
+                assert torch.equal(x, y), (k, key)
+        assert K.launch_counts()["lod_pair_sweep"] >= 2 and meshed.capacity == 4
+        rigs = [C.StereoRig(left=rig.left.translated(
+            torch.tensor([0.4 * c, 0.0, 0.0], device=rig.left.pos.device)))
+            for c in plain.active_ids]
+        pl, pr, _ = plain.render_fallback(rigs, list_len=64, max_pairs=1 << 18, path="pooled")
+        ml, mr, _ = meshed.render_fallback(rigs, list_len=64, max_pairs=1 << 18, path="pooled")
+        assert torch.equal(pl, ml) and torch.equal(pr, mr)
+    finally:
+        destroy_fleet_group()
