@@ -49,9 +49,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (the JAX serving path's rounding: q and p kept in float32);
  10. hold K7 against its plain version at phase 9's prefill shape (bf16 and
      float32), a gemma3-4b local layer (head dim 320, window 1024; bf16 and
-     float32) and a non-causal one, each shape taken from its config, and
-     time each beside its bound and `scaled_dot_product_attention` (K7's
-     share of its bound, and its time over the library call's);
+     float32), a non-causal one, and phase 14's new call patterns (the
+     granite-moe and qwen3-moe prefills, 16/8 and 64/4 heads of 64; a
+     seamless encoder layer, non-causal 16/16 heads of 64 over 512 frames,
+     and its causal decoder self-attention over 2048; zamba2's shared block,
+     32/32 heads of 80, which the bf16 kernel pads to 128, also timed at
+     head dim 128 to show what the padding costs), each shape taken from its
+     config, and time each beside its bound and
+     `scaled_dot_product_attention` (K7's share of its bound, and its time
+     over the library call's);
  11. (run after phase 8, on phase 7's scene, before the LM phases free it)
      the ragged fleet, with the counters set to 0 first: a pooled service of
      8 clients at capacity 8 (max_clients 16, bandwidth tiers phone /
@@ -121,12 +127,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
      syncs and the collectives' share, and each rank's resident bytes
      against the meshless service's, each with the card's name and power
      limit. A rank that exits non-zero fails the phase.
+ 14. (run after phase 10) serve every other LM family through
+     `model_zoo.get_model`, one config at a time, each freed before the
+     next: granite-moe-1b-a400m (24 layers), qwen3-moe-235b-a22b (4 of its
+     94 layers: 470 GB in bf16 whole), seamless-m4t-medium (12 encoder + 12
+     decoder layers, 512 stub audio frames of 1280), paligemma-3b (18
+     layers, 256 stub image embeddings of 1152 in front), zamba2-2.7b (54
+     Mamba2 blocks, the shared block applied 9 times) and xlstm-350m (24
+     blocks), at full width in bf16 from seeded weights: with the counters
+     set to 0, prefill 4 requests of 2048 tokens and take 16 greedy decode
+     steps; require that K7 launched exactly as often as the family's
+     self-attention over the whole sequence runs (24, 4, 24, 0, 9, 0), all
+     in the prefill; time the prefill and the steps (xlstm's sLSTM time
+     loops apart), read the peak memory, profile one more prefill where K7
+     runs (its share of the device time) and one more decode step (the
+     device's idle share). Then, in float32 at full width and cut depth
+     (MoE 4 layers at capacity factor 8; enc-dec 2 + 2; paligemma 4;
+     zamba2 one group of 6; xlstm one 6-block group), hold (a) where K7
+     runs, the prefill logits against the same model with K7's plain
+     version substituted (MoE: the routing differences between the two
+     runs are counted and printed), and (b) decode step t's logits against
+     a prefill over the prompt and the t tokens decoded, each within
+     `FAMILY_REL_TOL` of the largest |logit|.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
 kernel's time is printed by events and by device time (profiler).
-The last three lines are the kernel report (JSON), the card's name and power
-limit, and {"ok": true, "device": ...}.
+The kernel report's `launches_by_path` has an entry a path (session, fleet,
+ragged, recovery, mesh, lm, families). The last three lines are the kernel
+report (JSON), the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -159,6 +188,17 @@ LM_STEPS = 32                # greedy decode steps
 LM_CHECK_LAYERS = 4          # depth of the float32 checks of phase 9
 LM_REL_TOL = 1e-4            # of the largest |logit|
 WINDOW_ARCH = "gemma3-4b"    # phase 10's sliding-window case, head dim 320
+# phase 14: (config, layers kept at full width: None = all of them)
+FAMILY_ARCHS = (("granite-moe-1b-a400m", None), ("qwen3-moe-235b-a22b", 4),
+                ("seamless-m4t-medium", None), ("paligemma-3b", None),
+                ("zamba2-2.7b", None), ("xlstm-350m", None))
+FAMILY_STEPS = 16            # phase 14: greedy decode steps
+FAMILY_REL_TOL = 1e-4        # phase 14's checks (a) and (b), of the largest |logit|
+# phase 14's float32 checks: depth cut a family, at full width
+FAMILY_CHECK_CUT = {"moe": dict(n_layers=4, capacity_factor=8.0),
+                    "encdec": dict(n_enc_layers=2, n_layers=2),
+                    "vlm": dict(n_layers=4), "hybrid": dict(n_layers=6),
+                    "xlstm": dict(n_layers=6)}
 K4_TILES = 4096              # phase 3's extra K4 cases: this many of the session's tiles
 K2_STOP_EPS = (1e-3, 2e-2)   # phase 3: eps_t at which the session's tiles stop early
 # phase 3: α overrides (the second and third: no stop; the third: every α < 0)
@@ -1991,11 +2031,27 @@ def k7_case_list() -> list:
     lm, wa = get_arch(LM_ARCH), get_arch(WINDOW_ARCH)
     prefill = (LM_BATCH, lm.n_heads, lm.n_kv_heads, LM_PROMPT, lm.hd)
     local = (1, wa.n_heads, wa.n_kv_heads, LM_PROMPT, wa.hd)
+    # phase 14's call patterns: the two MoE prefills (GQA groups 2 and 16), an
+    # enc-dec's encoder layer over the stub frames and its causal decoder
+    # self-attention, Zamba2's shared block (head dim 80)
+    gm, qm, enc, zb = (get_arch(n) for n in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
+                                             "seamless-m4t-medium", "zamba2-2.7b"))
+    frames = LM_PROMPT // enc.audio_downsample
     return [(f"{lm.name} prefill", *prefill, lm.dtype, True, lm.sliding_window),
             (f"{lm.name} prefill f32", *prefill, "float32", True, lm.sliding_window),
             (f"{wa.name} local layer", *local, wa.dtype, True, wa.sliding_window),
             (f"{wa.name} local layer f32", *local, "float32", True, wa.sliding_window),
-            (f"{lm.name} non-causal", *prefill, lm.dtype, False, 0)]
+            (f"{lm.name} non-causal", *prefill, lm.dtype, False, 0),
+            (f"{gm.name} prefill", LM_BATCH, gm.n_heads, gm.n_kv_heads, LM_PROMPT, gm.hd,
+             gm.dtype, True, 0),
+            (f"{qm.name} prefill", LM_BATCH, qm.n_heads, qm.n_kv_heads, LM_PROMPT, qm.hd,
+             qm.dtype, True, 0),
+            (f"{enc.name} encoder", LM_BATCH, enc.n_heads, enc.n_kv_heads, frames, enc.hd,
+             enc.dtype, False, 0),
+            (f"{enc.name} decoder", LM_BATCH, enc.n_heads, enc.n_kv_heads, LM_PROMPT, enc.hd,
+             enc.dtype, True, 0),
+            (f"{zb.name} shared block", LM_BATCH, zb.n_heads, zb.n_kv_heads, LM_PROMPT, zb.hd,
+             zb.dtype, True, 0)]
 
 
 def k7_cases(torch, dev) -> list:
@@ -2047,6 +2103,17 @@ def k7_cases(torch, dev) -> list:
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["vs_library"] = row["ms"] / row["library_ms"]
+        d_pad = FA.padded_head_dim(d) if dtype == torch.bfloat16 else d
+        if d_pad != d:   # what the padding costs: the same call at the padded head dim
+            qp, kp, vp = (torch.randn((b, length, n, d_pad), generator=gen, device=dev)
+                          .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+            row["padded_head_dim"] = d_pad
+            row["ms_at_padded_head_dim"] = cuda_ms(
+                torch, lambda: FA.flash_attention(qp, kp, vp, **kw), REPS)
+            row["bound_ms_at_padded_head_dim"] = row["bound_ms"] * d_pad / d
+            log(f"[K7] {name} at head dim {d_pad}: {row['ms_at_padded_head_dim']:.4f} ms "
+                f"against {row['ms']:.4f} ms at {d}")
+            del qp, kp, vp
         log(f"[K7] {name} {row['shape']} {row['dtype']} causal={causal} window={window}: "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, sdpa {row['library_ms']:.4f} "
             f"ms (K7 / sdpa {row['vs_library']:.3f}), bound {row['bound_ms']:.4f} ms "
@@ -2055,6 +2122,197 @@ def k7_cases(torch, dev) -> list:
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return rows
+
+
+def stub_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
+    """The family's stub frontend inputs for a prompt of s tokens: seeded
+    image embeddings (paligemma) or audio frames (seamless)."""
+    from repro_torch.models import model_zoo
+    if cfg.family == "vlm":
+        return {"img_embed": torch.randn((b, cfg.n_img_tokens, model_zoo.VISION_FEAT),
+                                         generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((b, max(s // cfg.audio_downsample, 1),
+                                       model_zoo.AUDIO_FEAT), generator=gen, device=dev)}
+    return {}
+
+
+def lm_families(torch, dev, card: str) -> dict:
+    """Phase 14: every other LM family at full width, one config at a time,
+    then its float32 checks. Returns the phase's report, with the launch
+    counts of the configs' main runs, summed, under "counts"."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import xlstm as XL
+
+    def plain_k7(q, k, v, *, causal, window):
+        return FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    def recorded_routes(log_):
+        real = MOE.route
+
+        def route(x, p, k):
+            r = real(x, p, k)
+            log_.append(r[2])
+            return r
+        return mock.patch.object(MOE, "route", route)
+
+    b, s0, steps = LM_BATCH, LM_PROMPT, FAMILY_STEPS
+    rows, path_counts = [], {name: 0 for name in K.launch_counts()}
+    for name, layers in FAMILY_ARCHS:
+        t_cfg = time.perf_counter()
+        cfg = get_arch(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        bundle = model_zoo.get_model(cfg)
+        model = bundle.init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        gen = torch.Generator(device=dev).manual_seed(3)
+        tokens = torch.randint(0, cfg.vocab, (b, s0), generator=gen, device=dev)
+        batch = {"tokens": tokens, **stub_inputs(torch, cfg, b, s0, gen, dev)}
+        n_img = cfg.n_img_tokens
+        max_len = n_img + s0 + steps + 1           # room for the profiled step
+        log(f"[families] {cfg.name} ({cfg.family}): {cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}, d "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+            f"{cfg.vocab}, {cfg.dtype}; {n_params} parameters from seed 0")
+        warm = {"tokens": tokens[:, :128], **stub_inputs(torch, cfg, b, 128, gen, dev)}
+        bundle.decode_step(model, bundle.prefill(model, warm, max_len=n_img + 130)[1],
+                           {"token": tokens[:, 0]})          # first-call set-up, not timed
+
+        def greedy(logits):
+            return logits[:, :cfg.vocab].argmax(-1)
+
+        # the main path: counters at 0, one prefill, `steps` greedy decode steps
+        timer = StageTimer(torch)
+        slstm = (mock.patch.object(XL, "slstm_scan", timer.wrap("slstm", XL.slstm_scan))
+                 if cfg.family == "xlstm" else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        with slstm:
+            t0 = time.perf_counter()
+            logits, cache = bundle.prefill(model, batch, max_len=max_len)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        k7_prefill = K.launch_counts()["flash_attention"]
+        toks, step_ms = [greedy(logits)], []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            logits, cache = bundle.decode_step(model, cache, {"token": toks[-1]})
+            toks.append(greedy(logits))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for key, n in counts.items():
+            path_counts[key] += n
+        want = model_zoo.k7_prefill_launches(cfg)
+        log(f"[families] {cfg.name} kernels {json.dumps(counts)}")
+        if k7_prefill != want or counts["flash_attention"] != want:
+            raise AssertionError(f"{cfg.name}: K7 launched {k7_prefill} times in the prefill "
+                                 f"and {counts['flash_attention']} in all, not {want} (in the "
+                                 f"prefill only)")
+        if (tuple(logits.shape) != (b, cfg.vocab_padded) or not torch.isfinite(logits).all()
+                or cache["pos"] != n_img + s0 + steps):
+            raise AssertionError(f"{cfg.name}: decode logits {tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}, pos {cache['pos']}")
+        step_med = statistics.median(step_ms)
+        row = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+                   enc_layers=cfg.n_enc_layers, dtype=cfg.dtype, params=n_params, batch=b,
+                   prompt=s0, prefix=n_img, steps=steps, prefill_ms=prefill_ms,
+                   prefill_tokens_per_s=b * s0 / prefill_ms * 1e3, decode_step_ms=step_ms,
+                   decode_step_ms_median=step_med, decode_tokens_per_s=b / step_med * 1e3,
+                   peak_bytes=peak, k7_launches=k7_prefill, counts=counts, card=card)
+        if cfg.family == "xlstm":
+            row["slstm_ms"] = timer.take("slstm")
+            log(f"[families] {cfg.name}: the sLSTM time loops ({s0} steps, "
+                f"{XL.block_kinds(cfg).count('s')} blocks) take {row['slstm_ms']:.2f} ms of "
+                f"the prefill")
+        log(f"[families] {cfg.name}: prefill {b}x{s0}"
+            f"{f' (+{n_img} image tokens)' if n_img else ''}: {prefill_ms:.2f} ms "
+            f"({row['prefill_tokens_per_s']:.0f} tokens/s); decode step median {step_med:.2f} "
+            f"ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}); peak memory "
+            f"{peak / 2**30:.2f} GiB; K7 {k7_prefill} launches | {card}")
+
+        row["k7_share"] = None
+        if want:     # K7's share of the prefill's device time
+            prof = profiled(torch, f"{cfg.name}: one more prefill",
+                            lambda: bundle.prefill(model, batch, max_len=max_len))
+            k7_ms = sum(t for key, t in prof["by_name"].items()
+                        if "flash_attention_wgmma" in key or "flash_attention_kernel" in key)
+            row["profile"] = dict(wall_ms=prof["wall_ms"],
+                                  device_busy_ms=prof["device_busy_ms"], k7_ms=k7_ms,
+                                  top=prof["top"])
+            if prof["device_busy_ms"] > 0:
+                row["k7_share"] = k7_ms / prof["device_busy_ms"]
+                log(f"[families] {cfg.name}: K7 takes {k7_ms:.2f} ms of the prefill's "
+                    f"{prof['device_busy_ms']:.2f} ms device time: share "
+                    f"{row['k7_share']:.3f}")
+            del prof
+        dprof = profiled(torch, f"{cfg.name}: one more decode step at batch {b}",
+                         lambda: bundle.decode_step(model, cache, {"token": toks[-1]}))
+        row["decode_profile"] = dict(wall_ms=dprof["wall_ms"],
+                                     device_busy_ms=dprof["device_busy_ms"], top=dprof["top"])
+        row["decode_idle_share"] = (1 - dprof["device_busy_ms"] / dprof["wall_ms"]
+                                    if dprof["device_busy_ms"] > 0 else None)
+        del model, cache, logits, dprof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # float32 checks at full width and cut depth
+        cfg32 = dataclasses.replace(get_arch(name), dtype="float32",
+                                    **FAMILY_CHECK_CUT[cfg.family])
+        b32 = model_zoo.get_model(cfg32)
+        m32 = b32.init(seed=0, device=dev)
+        routes_a, routes_b = [], []
+        rec = cfg32.family == "moe"
+        with recorded_routes(routes_a) if rec else contextlib.nullcontext():
+            la, ca = b32.prefill(m32, batch, max_len=max_len)
+        if model_zoo.k7_prefill_launches(cfg32):
+            with mock.patch.object(MA, "flash_attention", plain_k7), \
+                    recorded_routes(routes_b) if rec else contextlib.nullcontext():
+                lb, _ = b32.prefill(m32, batch, max_len=max_len)
+            row["check_a_rel_err"] = rel_err(la, lb)
+            if rec:
+                row["check_a_routing_diffs"] = sum(int((ra != rb).any(-1).sum())
+                                                   for ra, rb in zip(routes_a, routes_b))
+            log(f"[families check a] {cfg32.name}, float32, {cfg32.n_layers} layers: prefill "
+                f"logits with K7 vs its plain version: max |diff| / max |logit| = "
+                f"{row['check_a_rel_err']:.3g}"
+                + (f"; tokens routed differently (over the layers) "
+                   f"{row['check_a_routing_diffs']}" if rec else ""))
+            if not row["check_a_rel_err"] <= FAMILY_REL_TOL:
+                raise AssertionError(f"{cfg32.name} check (a): {row['check_a_rel_err']:.3g} "
+                                     f"> {FAMILY_REL_TOL}")
+            del lb
+        dec_logits, dtoks = [], [greedy(la)]
+        for _ in range(steps):
+            la, ca = b32.decode_step(m32, ca, {"token": dtoks[-1]})
+            dec_logits.append(la)
+            dtoks.append(greedy(la))
+        err_b = {}
+        for t in sorted({1, max(1, steps // 2), steps}):
+            full = torch.cat([tokens, torch.stack(dtoks[:t], 1)], 1)
+            lf, _ = b32.prefill(m32, {**batch, "tokens": full})
+            err_b[t] = rel_err(dec_logits[t - 1], lf)
+            log(f"[families check b] {cfg32.name}: decode step {t} logits vs a prefill over "
+                f"the prompt + {t} decoded tokens: {err_b[t]:.3g}")
+        row["check_b_rel_err"] = err_b
+        if not max(err_b.values()) <= FAMILY_REL_TOL:
+            raise AssertionError(f"{cfg32.name} check (b): {err_b} > {FAMILY_REL_TOL}")
+        del m32, ca, la, dec_logits, routes_a, routes_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_cfg
+        log(f"[families] {cfg.name} took {row['seconds']:.1f} s")
+        rows.append(row)
+    return {"configs": rows, "counts": path_counts}
 
 
 def main() -> int:
@@ -2905,6 +3163,15 @@ def main() -> int:
     report["phases"]["k7_cases_s"] = time.perf_counter() - t_k7
     log(f"[lm] phase 9 took {t_k7 - t_lm:.1f} s, phase 10 "
         f"{report['phases']['k7_cases_s']:.1f} s")
+
+    # 14. every other LM family ---------------------------------------------------
+    t_fam = time.perf_counter()
+    families = lm_families(torch, dev, card)
+    counts_families = families.pop("counts")
+    report["families"] = families
+    report["phases"]["families_s"] = time.perf_counter() - t_fam
+    log(f"[families] phase 14 took {report['phases']['families_s']:.1f} s")
+
     main_case = k7[0]            # phase 9's prefill shape, by construction
     kernels["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2919,7 +3186,8 @@ def main() -> int:
     for name, k in kernels.items():
         by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
                    "ragged": counts_ragged[name], "recovery": counts_recovery[name],
-                   "mesh": counts_mesh[name], "lm": counts_lm[name]}
+                   "mesh": counts_mesh[name], "lm": counts_lm[name],
+                   "families": counts_families[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

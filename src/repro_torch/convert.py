@@ -5,7 +5,8 @@ The JAX package's objects cross into the port this way: a caller flattens
 them to numpy (the parity tests do so in `tests/_torch_parity.py`), and the
 functions here rebuild them as tensors, so the port never imports JAX.
 Every array keeps its dtype; float arrays must already be float32, except
-the LM weights of `dense_params_from_jax`, which take the config's dtype.
+the LM weights of `params_from_jax`, which take the dtype of the port's
+parameter (the config's, or float32 where the JAX init keeps float32).
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from repro_torch.core.lod_tree import LodTree, TreeMeta
 from repro_torch.core.projection import Splats
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import model_zoo, xlstm, zamba
 from repro_torch.models.dense import DenseLM, layer_pattern
-from repro_torch.models.layers import dtype_of
 
 Arrays = Mapping[str, np.ndarray]
 
@@ -108,44 +109,73 @@ def tile_lists_from_arrays(arrays: Arrays, meta: Mapping,
                      tiles_x=int(meta["tiles_x"]), tiles_y=int(meta["tiles_y"]))
 
 
-# the parameters of one dense layer, as '/'-joined paths of the JAX tree
-_DENSE_LAYER_PARAMS = ("attn_norm", "mlp_norm", "attn/wq", "attn/wk", "attn/wv",
-                       "attn/wo", "attn/bq", "attn/bk", "attn/bv", "mlp/w_gate",
-                       "mlp/w_up", "mlp/w_down")
+def _pattern_keys(pat, n_groups: int, rem) -> List[Tuple[str, Optional[int]]]:
+    keys: List[Tuple[str, Optional[int]]] = [
+        (f"groups/sub{si}", g) for g in range(n_groups) for si in range(len(pat))]
+    return keys + [(f"rem{ri}", None) for ri in range(len(rem))]
 
 
 def dense_layer_keys(cfg: ModelConfig) -> List[Tuple[str, Optional[int]]]:
     """Where each `DenseLM` layer sits in the JAX parameter and cache trees,
     in layer order: ("groups/sub{si}", g) for layer g·len(pat)+si (index g
     of the stacked leading axis), then ("rem{ri}", None)."""
-    pat, n_groups, rem = layer_pattern(cfg)
-    keys: List[Tuple[str, Optional[int]]] = [
-        (f"groups/sub{si}", g) for g in range(n_groups) for si in range(len(pat))]
-    return keys + [(f"rem{ri}", None) for ri in range(len(rem))]
+    return _pattern_keys(*layer_pattern(cfg))
+
+
+def xlstm_block_keys(cfg: ModelConfig) -> List[Tuple[str, Optional[int]]]:
+    """As `dense_layer_keys`, for the xlstm family's blocks (`_pattern`)."""
+    return _pattern_keys(*xlstm._pattern(cfg))
+
+
+def jax_param_key(cfg: ModelConfig, name: str) -> Tuple[str, Optional[int]]:
+    """The JAX `init` tree's '/'-joined key holding the port's parameter
+    `name` (a `state_dict` key), and its index on the stacked leading axis
+    (None where the JAX leaf is not stacked)."""
+    parts = name.split(".")
+    head, rest = parts[0], parts[2:]
+    fam = cfg.family
+    if head == "layers" and fam in ("dense", "vlm"):
+        prefix, g = dense_layer_keys(cfg)[int(parts[1])]
+        return "/".join([prefix] + rest), g
+    if head == "layers" and fam == "moe":       # the routed MLP sits at the layer's top
+        return "/".join(["layers"] + (rest[1:] if rest[0] == "mlp" else rest)), int(parts[1])
+    if head in ("enc_layers", "dec_layers"):
+        return "/".join([head] + rest), int(parts[1])
+    if head == "blocks" and fam == "hybrid":
+        i, k = int(parts[1]), zamba.group_size(cfg)
+        return "/".join([f"groups/m{i % k}"] + rest), i // k
+    if head == "blocks" and fam == "xlstm":
+        prefix, g = xlstm_block_keys(cfg)[int(parts[1])]
+        return "/".join([prefix] + rest), g
+    return "/".join(parts), None
+
+
+def params_from_jax(arrays: Arrays, cfg: ModelConfig, device: DeviceLike = None):
+    """The family's model (`model_zoo.get_model(cfg).init`) holding the JAX
+    `init` tree of any family. arrays: that tree flattened to numpy with
+    '/'-joined keys ("embed", "groups/sub0/attn/wq", "layers/router",
+    "shared/fuse", ...). Every array is used, and every parameter filled
+    (`jax_param_key` maps one onto the other). bfloat16 arrays reach numpy
+    as `ml_dtypes.bfloat16`, which torch does not take; they cross through
+    float32, which is exact, and take the port parameter's dtype."""
+    device = resolve_device(device)
+    model = model_zoo.get_model(cfg).init(seed=0, device=device)
+    state, used = {}, set()
+    for name, t in model.state_dict().items():
+        key, g = jax_param_key(cfg, name)
+        a = np.asarray(arrays[key])
+        used.add(key)
+        a = np.array(a if g is None else a[g], dtype=np.float32)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{name} ← {key}[{g}]: shape {a.shape}, want {tuple(t.shape)}")
+        state[name] = torch.from_numpy(a).to(device=device, dtype=t.dtype)
+    if set(arrays) != used:
+        raise ValueError(f"JAX parameters with no place in the port: {sorted(set(arrays) - used)}")
+    model.load_state_dict(state, strict=True)
+    return model
 
 
 def dense_params_from_jax(arrays: Arrays, cfg: ModelConfig,
                           device: DeviceLike = None) -> DenseLM:
-    """A `DenseLM` holding the JAX `dense.init` tree. arrays: that tree
-    flattened to numpy with '/'-joined keys ("embed", "final_norm",
-    "groups/sub0/attn/wq", "rem1/mlp/w_up", ...). bfloat16 arrays reach
-    numpy as `ml_dtypes.bfloat16`, which torch does not take; they cross
-    through float32, which is exact, and are cast to the config's dtype."""
-    device = resolve_device(device)
-    dtype = dtype_of(cfg.dtype)
-
-    def param(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device,
-                                                                   dtype=dtype)
-
-    state = {k: param(arrays[k]) for k in ("embed", "unembed", "final_norm")}
-    for i, (prefix, g) in enumerate(dense_layer_keys(cfg)):
-        for name in _DENSE_LAYER_PARAMS:
-            key = f"{prefix}/{name}"
-            if key in arrays:
-                a = np.asarray(arrays[key])
-                state[f"layers.{i}.{name.replace('/', '.')}"] = param(
-                    a if g is None else a[g])
-    model = DenseLM(cfg, seed=0, device=device)
-    model.load_state_dict(state, strict=True)
-    return model
+    """A `DenseLM` holding the JAX `dense.init` tree (`params_from_jax`)."""
+    return params_from_jax(arrays, cfg, device)

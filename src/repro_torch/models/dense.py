@@ -1,33 +1,38 @@
 """Dense decoder-only transformer family: the serving path.
 
-Covers qwen2.5 (QKV bias), mistral-large, stablelm (partial rotary) and
-gemma3 (5:1 local:global sliding-window pattern). The prefix-LM branch of
-the `vlm` family (paligemma's image prefix) and `loss` come with later
-slices.
+Covers qwen2.5 (QKV bias), mistral-large, stablelm (partial rotary),
+gemma3 (5:1 local:global sliding-window pattern) and, with an image-prefix
+projector and the prefix-LM mask, paligemma (the `vlm` family: the SigLIP
+frontend is a stub, so a request brings (B, n_img_tokens, 1152) patch
+embeddings as `img_embed`). `loss` comes with the training slice.
 
 `DenseLM` holds the layers in order. The JAX package stacks them as
 pattern groups (`groups/sub{si}` with a leading n_groups axis) plus
 remainder layers (`rem{ri}`) so that XLA can scan them; layer g·len(pat)+si
 comes first, then the remainder, and `layer_windows` gives each layer's
 window in that order. Eager PyTorch needs no scan, so the port keeps a flat
-list (`convert.dense_params_from_jax` unstacks a JAX tree into it).
+list (`convert.params_from_jax` unstacks a JAX tree into it). The MoE
+family is this model with a routed MLP in each block (`models/moe.py`).
 
 Caches: one {"k", "v"} per layer in the same order, each (B, S_cache, Hkv,
 Dh) with RoPE applied. Global layers cache `max_len` positions (padded at
 prefill); sliding-window layers keep a ring of `window` slots, position p
 in slot p % window (softmax is permutation-invariant, so ring order is
-harmless). `pos` is the number of positions consumed, a Python int.
-`decode_step` writes the new token's k/v into the cache in place (the JAX
-package returns new arrays), which saves a copy of every cache per step.
+harmless). `pos` is the number of positions consumed, a Python int; for
+paligemma it counts the image tokens too. `decode_step` writes the new
+token's k/v into the cache in place (the JAX package returns new arrays),
+which saves a copy of every cache per step.
 
 Prefill's self-attention launches kernel K7 on the card (`models.attention`);
 decode attends the cache with the plain chunked softmax, as the JAX package
-leaves that pattern to XLA.
+leaves that pattern to XLA. So does paligemma's prefill: the prefix-LM mask
+is not K7's function (nor the Pallas kernel's), so the vlm family launches
+no kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +45,8 @@ from repro_torch.models.layers import (MLP, Attention, apply_rope, dense_init, d
                                        embed_init, param, qkv, rmsnorm)
 
 Cache = Dict[str, object]
+
+VISION_FEAT = 1152   # SigLIP width (paligemma's stub frontend)
 
 
 # -- layer pattern -------------------------------------------------------------
@@ -73,15 +80,16 @@ def layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
 
 
 class DenseBlock(nn.Module):
-    """One pre-norm decoder layer: attention and SwiGLU MLP."""
+    """One pre-norm decoder layer: attention and an MLP, by default SwiGLU
+    (the MoE family passes its routed one)."""
 
     def __init__(self, cfg: ModelConfig, window: int, dtype: torch.dtype, device,
-                 gen: torch.Generator):
+                 gen: torch.Generator, mlp: Optional[nn.Module] = None):
         super().__init__()
         self.cfg = cfg
         self.window = window
         self.attn = Attention(cfg, dtype, device, gen)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gen)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gen) if mlp is None else mlp
         self.attn_norm = param(torch.ones((cfg.d_model,), dtype=dtype, device=device))
         self.mlp_norm = param(torch.ones((cfg.d_model,), dtype=dtype, device=device))
 
@@ -98,25 +106,33 @@ class DenseBlock(nn.Module):
         h = rmsnorm(x, self.mlp_norm, self.cfg.norm_eps)
         return x + self.mlp(h)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, kv_chunk: int = 1024):
-        """→ (x, k, v): the layer's output and its roped k and v."""
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, kv_chunk: int = 1024,
+                prefix_len: Optional[int] = None, causal: bool = True):
+        """→ (x, k, v): the layer's output and its roped k and v.
+        `prefix_len`: columns below it are visible to every row (prefix-LM);
+        `causal=False` is the enc-dec encoder's bidirectional layer."""
         h = rmsnorm(x, self.attn_norm, self.cfg.norm_eps)
         q, k, v = self.qkv_rope(h, positions)
-        o = attention(q, k, v, causal=True, window=self.window, kv_chunk=kv_chunk)
+        o = attention(q, k, v, causal=causal, window=self.window, prefix_len=prefix_len,
+                      kv_chunk=kv_chunk)
         return self.finish(x, o), k, v
 
 
 class DenseLM(nn.Module):
     """The dense family's parameters (the counterpart of the JAX `init`):
     embed (Vp, d) and unembed (d, Vp) over the padded vocabulary, the
-    final norm, and `cfg.n_layers` `DenseBlock`s in layer order. Weights
-    are drawn from a `torch.Generator` seeded with `seed`, on `device`
-    (the card unless the caller asks for the CPU), in `cfg.dtype`."""
+    final norm, `cfg.n_layers` blocks in layer order (`make_block`) and,
+    for paligemma, the image projector img_proj (1152, d). Weights are
+    drawn from a `torch.Generator` seeded with `seed`, on `device` (the
+    card unless the caller asks for the CPU), in `cfg.dtype`."""
+
+    FAMILIES = ("dense", "vlm")
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"DenseLM serves the dense family, not {cfg.family!r}")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(f"{type(self).__name__} serves the {self.FAMILIES} families, "
+                             f"not {cfg.family!r}")
         device = resolve_device(device)
         dtype = dtype_of(cfg.dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -125,22 +141,45 @@ class DenseLM(nn.Module):
         self.embed = param(embed_init(gen, (vp, cfg.d_model), dtype, device))
         self.unembed = param(dense_init(gen, (cfg.d_model, vp), dtype, device))
         self.final_norm = param(torch.ones((cfg.d_model,), dtype=dtype, device=device))
-        self.layers = nn.ModuleList(DenseBlock(cfg, w, dtype, device, gen)
+        self.layers = nn.ModuleList(self.make_block(cfg, w, dtype, device, gen)
                                     for w in layer_windows(cfg))
+        self.img_proj = (param(dense_init(gen, (VISION_FEAT, cfg.d_model), dtype, device))
+                         if cfg.n_img_tokens else None)
+
+    def make_block(self, cfg: ModelConfig, window: int, dtype: torch.dtype, device,
+                   gen: torch.Generator) -> nn.Module:
+        return DenseBlock(cfg, window, dtype, device, gen)
 
     def forward(self, tokens: torch.Tensor, kv_chunk: int = 1024) -> torch.Tensor:
         return forward(self, tokens, kv_chunk=kv_chunk)
 
 
+def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> DenseLM:
+    return DenseLM(cfg, seed=seed, device=device)
+
+
 # -- forward --------------------------------------------------------------------
 
 
-def forward(model: DenseLM, tokens: torch.Tensor, *, kv_chunk: int = 1024) -> torch.Tensor:
-    """tokens (B, S) → final hidden states (B, S, D)."""
+def embed_inputs(model: DenseLM, tokens: torch.Tensor,
+                 img_embed: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[int]]:
+    """The token embeddings, with paligemma's projected image embeddings
+    in front → (x (B, [N_img +] S, D), prefix_len: N_img or None)."""
     x = F.embedding(tokens, model.embed)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if not model.cfg.n_img_tokens or img_embed is None:
+        return x, None
+    img = img_embed.to(x.dtype) @ model.img_proj
+    return torch.cat([img, x], dim=1), model.cfg.n_img_tokens
+
+
+def forward(model: DenseLM, tokens: torch.Tensor, *,
+            img_embed: Optional[torch.Tensor] = None, kv_chunk: int = 1024) -> torch.Tensor:
+    """tokens (B, S) → final hidden states (B, [N_img +] S, D)."""
+    x, prefix_len = embed_inputs(model, tokens, img_embed)
+    positions = torch.arange(x.shape[1], device=tokens.device)
     for blk in model.layers:
-        x, _k, _v = blk(x, positions, kv_chunk)
+        x, _k, _v = blk(x, positions, kv_chunk, prefix_len)
     return rmsnorm(x, model.final_norm, model.cfg.norm_eps)
 
 
@@ -181,15 +220,16 @@ def prefill(model: DenseLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1
     """Full-sequence forward that also fills the caches. Global-attention
     caches are padded to `max_len` (≥ S + decode budget); sliding-window
     layers keep a `window`-sized ring regardless. → (logits (B, Vp) float32
-    at the last position, cache)."""
+    at the last position, cache). With paligemma's `img_embed` the image
+    tokens come first and count in S."""
     cfg = model.cfg
     tokens = batch["tokens"]
-    s = tokens.shape[1]
-    x = F.embedding(tokens, model.embed)
+    x, prefix_len = embed_inputs(model, tokens, batch.get("img_embed"))
+    s = x.shape[1]
     positions = torch.arange(s, device=tokens.device)
     layers: List[Dict[str, torch.Tensor]] = []
     for blk in model.layers:
-        x, k, v = blk(x, positions, kv_chunk)
+        x, k, v = blk(x, positions, kv_chunk, prefix_len)
         layers.append({"k": _cache_entry(k, blk.window, s, max_len),
                        "v": _cache_entry(v, blk.window, s, max_len)})
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)

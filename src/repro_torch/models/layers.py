@@ -116,9 +116,11 @@ class MLP(nn.Module):
 class Attention(nn.Module):
     """The attention projections: wq (d, H·Dh), wk and wv (d, Hkv·Dh), wo
     (H·Dh, d), and with `cfg.qkv_bias` the biases bq, bk, bv (zeros at
-    init, as in the JAX package)."""
+    init, as in the JAX package). Cross-attention (`cross=True`, the
+    enc-dec decoder's) has no biases."""
 
-    def __init__(self, cfg, dtype: torch.dtype, device, gen: torch.Generator):
+    def __init__(self, cfg, dtype: torch.dtype, device, gen: torch.Generator,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         h, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -129,7 +131,7 @@ class Attention(nn.Module):
         self.bq: Optional[nn.Parameter] = None
         self.bk: Optional[nn.Parameter] = None
         self.bv: Optional[nn.Parameter] = None
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = param(torch.zeros((h * hd,), dtype=dtype, device=device))
             self.bk = param(torch.zeros((hkv * hd,), dtype=dtype, device=device))
             self.bv = param(torch.zeros((hkv * hd,), dtype=dtype, device=device))

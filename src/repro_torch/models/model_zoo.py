@@ -1,10 +1,14 @@
 """Uniform model interface: family dispatch.
 
 `get_model(cfg)` returns a `ModelBundle` whose functions close over the
-config, as the JAX package's does; `init` builds the module from a seed on
-a device instead of returning a parameter tree. Only the dense family is
-ported. The dry-run stand-ins (`input_specs`, `batch_logical_axes`,
-`abstract_params`) come with `launch/*`.
+config, as the JAX package's does; `init` builds the family's module from a
+seed on a device instead of returning a parameter tree. Every family of
+`configs/` serves: dense and vlm (`models/dense.py`), moe, encdec, xlstm
+and hybrid (Zamba2). The frontends are stubs, as in the JAX package: a
+paligemma prefill takes `img_embed` (B, n_img_tokens, VISION_FEAT), a
+seamless one `frames` (B, S // audio_downsample, AUDIO_FEAT). `loss` comes
+with the training slice; the dry-run stand-ins (`input_specs`,
+`batch_logical_axes`, `abstract_params`) with `launch/*`.
 """
 
 from __future__ import annotations
@@ -12,17 +16,33 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.models import dense
+from repro_torch.models import dense, encdec, moe, xlstm, zamba
 from repro_torch.models.config import ModelConfig
 
-# family → the ROADMAP.md entry (Open items §1, item 11) that ports it
-NOT_PORTED = {
-    "vlm": "the vlm prefix-LM branch of models/dense.py",
-    "moe": "models/moe.py",
-    "encdec": "models/encdec.py",
-    "xlstm": "models/xlstm.py",
-    "hybrid": "models/zamba.py with models/mamba2.py",
-}
+VISION_FEAT = dense.VISION_FEAT
+AUDIO_FEAT = encdec.AUDIO_FEAT
+
+
+def family_module(cfg: ModelConfig):
+    return {
+        "dense": dense, "vlm": dense,
+        "moe": moe,
+        "encdec": encdec,
+        "xlstm": xlstm,
+        "hybrid": zamba,
+    }[cfg.family]
+
+
+def k7_prefill_launches(cfg: ModelConfig) -> int:
+    """K7 launches of one prefill on the card. `models.attention` sends K7
+    every self-attention over the whole sequence: each dense and MoE layer,
+    the enc-dec's encoder and decoder self-attention, Zamba2's shared block
+    once a group. Paligemma's prefix mask (the plain softmax, as in JAX) and
+    the recurrent xLSTM launch none; decode launches none."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers,
+            "encdec": cfg.n_enc_layers + cfg.n_layers, "vlm": 0,
+            "hybrid": cfg.n_layers // (cfg.attn_every or cfg.n_layers),
+            "xlstm": 0}[cfg.family]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,15 +55,11 @@ class ModelBundle:
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family != "dense":
-        what = NOT_PORTED.get(cfg.family, f"family {cfg.family!r}")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; see ROADMAP.md, "
-            f"Open items §1, item 11 ({what})")
+    fam = family_module(cfg)
     return ModelBundle(
         cfg=cfg,
-        init=lambda seed=0, device=None: dense.DenseLM(cfg, seed=seed, device=device),
-        prefill=lambda m, b, max_len=0: dense.prefill(m, b, max_len=max_len),
-        decode_step=lambda m, c, b: dense.decode_step(m, c, b),
-        make_cache=lambda batch, seq, device=None: dense.make_cache(cfg, batch, seq, device),
+        init=lambda seed=0, device=None: fam.init(cfg, seed=seed, device=device),
+        prefill=lambda m, b, max_len=0: fam.prefill(m, b, max_len=max_len),
+        decode_step=lambda m, c, b: fam.decode_step(m, c, b),
+        make_cache=lambda batch, seq, device=None: fam.make_cache(cfg, batch, seq, device),
     )

@@ -128,6 +128,29 @@ def to_torch_dense(params, cfg):
     return convert.dense_params_from_jax(flatten_tree(params), cfg, CPU)
 
 
+def randomize_constants(tree, rng):
+    """A JAX parameter tree with seeded values in the leaves its `init`
+    leaves constant: norm scales (1 + 0.2·N), QKV biases (0.5·N), and
+    Mamba2's A_log, dt_bias (0.5·N) and D (1 + 0.2·N)."""
+    import jax.numpy as jnp
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = randomize_constants(val, rng)
+        elif key in ("bq", "bk", "bv", "A_log", "dt_bias"):
+            out[key] = jnp.asarray(0.5 * rng.normal(size=val.shape), val.dtype)
+        elif key.endswith("norm") or key == "D":
+            out[key] = jnp.asarray(1.0 + 0.2 * rng.normal(size=val.shape), val.dtype)
+        else:
+            out[key] = val
+    return out
+
+
+def to_torch_model(params, cfg):
+    """Any family's JAX `init` tree as the port's model on the CPU."""
+    return convert.params_from_jax(flatten_tree(params), cfg, CPU)
+
+
 def dense_cache_layers(cache, cfg) -> list:
     """The JAX dense cache's per-layer {'k', 'v'} numpy arrays in layer order
     (the port's `cache['layers']` order)."""
@@ -137,6 +160,59 @@ def dense_cache_layers(cache, cfg) -> list:
         kv = {n: flat[f"{prefix}/{n}"] for n in ("k", "v")}
         out.append({n: a if g is None else a[g] for n, a in kv.items()})
     return out
+
+
+def port_cache_from_jax(cache, cfg) -> dict:
+    """A JAX serving cache of any family as numpy arrays in the port's
+    layout (`models/*.make_cache`): per-layer entries unstacked from the
+    JAX leading axes into lists in layer order, `pos` an int."""
+    flat = flatten_tree(cache)
+    out = {"pos": int(flat.pop("pos"))}
+    fam = cfg.family
+
+    def at(prefix, g, names):
+        return {n: flat[f"{prefix}/{n}"] if g is None else flat[f"{prefix}/{n}"][g]
+                for n in names}
+
+    if fam in ("dense", "vlm"):
+        out["layers"] = [at(p_, g, ("k", "v")) for p_, g in convert.dense_layer_keys(cfg)]
+    elif fam in ("moe", "encdec"):
+        names = ("k", "v") if fam == "moe" else ("k", "v", "ck", "cv")
+        out["layers"] = [{n: flat[n][i] for n in names} for i in range(cfg.n_layers)]
+    elif fam == "hybrid":
+        k = cfg.attn_every or cfg.n_layers
+        out["mamba"] = [at(f"mamba/m{i % k}", i // k, ("ssd", "conv"))
+                        for i in range(cfg.n_layers)]
+        out["attn"] = [{"k": flat["attn_k"][g], "v": flat["attn_v"][g]}
+                       for g in range(cfg.n_layers // k)]
+    elif fam == "xlstm":
+        out["layers"] = []
+        for prefix, g in convert.xlstm_block_keys(cfg):
+            names = sorted(n.rsplit("/", 1)[1] for n in flat if n.startswith(prefix + "/"))
+            out["layers"].append(at(prefix, g, names))
+    return out
+
+
+def assert_cache_close(ours, theirs: dict, rtol: float, atol: float, ctx: str = "",
+                       of_largest: bool = False) -> None:
+    """The port's cache against `port_cache_from_jax`'s: the same structure,
+    `pos` equal, every leaf of the same shape and within tolerance; with
+    `of_largest`, within `atol` times the leaf's largest |value| instead."""
+    if isinstance(theirs, dict):
+        assert isinstance(ours, dict) and sorted(ours) == sorted(theirs), (ctx, sorted(ours))
+        for key in theirs:
+            assert_cache_close(ours[key], theirs[key], rtol, atol, f"{ctx}/{key}", of_largest)
+    elif isinstance(theirs, list):
+        assert isinstance(ours, list) and len(ours) == len(theirs), ctx
+        for i, (a, b) in enumerate(zip(ours, theirs)):
+            assert_cache_close(a, b, rtol, atol, f"{ctx}[{i}]", of_largest)
+    elif isinstance(theirs, int):
+        assert ours == theirs, (ctx, ours, theirs)
+    else:
+        assert tuple(ours.shape) == theirs.shape, (ctx, tuple(ours.shape), theirs.shape)
+        if of_largest:
+            rtol, atol = 0.0, atol * float(np.abs(theirs).max())
+        assert_close(ours, theirs, rtol, atol, ctx)
 
 
 def state_arrays(obj, prefix: str = "") -> dict:

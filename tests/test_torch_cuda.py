@@ -29,7 +29,7 @@ from repro_torch.core.stereo import build_merge_sources
 from repro_torch.configs import get_arch
 from repro_torch.kernels import (flash_attention, lod_cut, preprocess, rasterize,
                                  stereo_shift, vq_assign)
-from repro_torch.models import dense
+from repro_torch.models import dense, model_zoo
 from repro_torch.models.config import reduced
 from repro_torch.serve.lod_service import LodService
 
@@ -697,6 +697,53 @@ def test_dense_prefill_launches_k7_and_matches_the_cpu(dev):
     lc, cache_c = dense.decode_step(cpu_model, cache_c, {"token": t})
     assert flash_attention.flash_attention.launches == before + cfg.n_layers
     assert torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4) and cache["pos"] == 71
+
+
+FAMILIES = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "seamless-m4t-medium",
+            "paligemma-3b", "zamba2-2.7b", "xlstm-350m"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_prefill_launches_k7_on_card(dev, name):
+    """A bf16 prefill of every new family at `reduced` size (xlstm at 7
+    layers, so that it has an sLSTM block) launches K7 the expected number
+    of times and decode none; logits finite, `pos` as on the CPU."""
+    cfg = reduced(get_arch(name), dtype="bfloat16",
+                  **(dict(n_layers=7) if name == "xlstm-350m" else {}))
+    bundle = model_zoo.get_model(cfg)
+    model = bundle.init(seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev)}
+    if cfg.family == "vlm":
+        batch["img_embed"] = torch.randn((2, cfg.n_img_tokens, model_zoo.VISION_FEAT),
+                                         generator=g, device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 16, model_zoo.AUDIO_FEAT), generator=g, device=dev)
+    want, before = model_zoo.k7_prefill_launches(cfg), flash_attention.flash_attention.launches
+    logits, cache = bundle.prefill(model, batch, max_len=cfg.n_img_tokens + 66)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches - before == want
+    logits, cache = bundle.decode_step(model, cache, {"token": logits[:, :cfg.vocab].argmax(-1)})
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches - before == want
+    assert torch.isfinite(logits).all() and cache["pos"] == cfg.n_img_tokens + 65
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_at_zamba2_shared_block_shape(dev, dtype):
+    """K7 at zamba2-2.7b's shared attention (32/32 heads of 80, which the
+    bf16 kernel pads to 128; 2048 positions, causal) against its plain
+    version, through the model's (B, S, H, D) views."""
+    cfg = get_arch("zamba2-2.7b")
+    g = torch.Generator(device=dev).manual_seed(80)
+    q, k, v = (torch.randn((1, 2048, n, cfg.hd), generator=g, device=dev).to(dtype)
+               .transpose(1, 2) for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    out = flash_attention.flash_attention(q, k, v, causal=True)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol), \
+        float((out.float() - ref.float()).abs().max())
 
 
 def test_meshed_service_on_card_matches_meshless(scene, tmp_path):

@@ -167,11 +167,27 @@ def test_model_size_is_the_analytic_count():
     assert abs(std - cfg.d_ff ** -0.5) < 0.1 * cfg.d_ff ** -0.5
 
 
-@pytest.mark.parametrize("name", sorted(n for n, c in JAX_ARCHS.items()
-                                        if c.family != "dense"))
-def test_get_model_raises_for_other_families(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model_zoo.get_model(get_arch(name))
+@pytest.mark.parametrize("name", sorted(JAX_ARCHS))
+def test_get_model_serves_every_family_on_the_cpu(name):
+    """Every config's bundle at `reduced` size: a prefill (with the family's
+    stub inputs) and a greedy decode step, finite logits over the padded
+    vocabulary, `pos` counting the image tokens where there are some."""
+    cfg = reduced(get_arch(name))
+    bundle = model_zoo.get_model(cfg)
+    model = bundle.init(seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))}
+    if cfg.family == "vlm":
+        batch["img_embed"] = torch.randn((2, cfg.n_img_tokens, model_zoo.VISION_FEAT))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 12 // cfg.audio_downsample, model_zoo.AUDIO_FEAT))
+    n0 = cfg.n_img_tokens + 12
+    logits, cache = bundle.prefill(model, batch, max_len=n0 + 1)
+    logits2, cache = bundle.decode_step(model, cache,
+                                        {"token": logits[:, :cfg.vocab].argmax(-1)})
+    assert tuple(logits2.shape) == (2, cfg.vocab_padded) and logits2.dtype == torch.float32
+    assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+    assert cache["pos"] == n0 + 1
 
 
 def test_get_model_bundle_serves_on_the_cpu():

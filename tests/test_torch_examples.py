@@ -1,7 +1,8 @@
-"""The port's entry points run end to end on the CPU (`--device cpu`), two
-syncs each on their default 4×4-block city."""
+"""The port's entry points run end to end on the CPU (`--device cpu`): the
+sessions two syncs each on their default 4×4-block city, the quickstart on
+its 3×3-block one."""
 
-from repro_torch.examples import multi_client_session, vr_session
+from repro_torch.examples import multi_client_session, quickstart, vr_session
 
 
 def test_vr_session_runs(capsys):
@@ -16,3 +17,10 @@ def test_multi_client_session_runs(capsys):
     out = capsys.readouterr().out
     assert "sync   1:" in out and "encode-once delta path" in out
     assert "fallback render: 2 stereo frames 96x64" in out
+
+
+def test_quickstart_runs(capsys):
+    assert quickstart.main(["--device", "cpu"]) is True
+    out = capsys.readouterr().out
+    assert "bit-accurate vs independent per-eye renders: True" in out
+    assert "stereo pair of shape (108, 384, 3)" in out
