@@ -54,8 +54,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      seamless encoder layer, non-causal 16/16 heads of 64 over 512 frames,
      and its causal decoder self-attention over 2048; zamba2's shared block,
      32/32 heads of 80, which the bf16 kernel pads to 128, also timed at
-     head dim 128 to show what the padding costs), each shape taken from its
-     config, and time each beside its bound and
+     head dim 128 to show what the padding costs) and phase 15 (a)'s
+     training forward (1 x 16/2 heads of 128 over 4096, causal), each shape
+     taken from its config, and time each beside its bound and
      `scaled_dot_product_attention` (K7's share of its bound, and its time
      over the library call's);
  11. (run after phase 8, on phase 7's scene, before the LM phases free it)
@@ -149,12 +150,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      runs are counted and printed), and (b) decode step t's logits against
      a prefill over the prompt and the t tokens decoded, each within
      `FAMILY_REL_TOL` of the largest |logit|.
+ 15. (run after phase 14) train on the card: (a) qwen2.5-3b as published
+     (36 layers, bf16, remat, seeded weights, float32 AdamW moments)
+     through `train.train_step.make_train_step` on `SyntheticTokens`
+     batches of 1 x 4096 tokens (train_4k's length; its global batch of
+     256 cut to 1 for one card): one warm-up step, in which every
+     parameter's gradient must be finite and non-zero, then, with the
+     counters set to 0, 5 timed steps; require finite losses, the last
+     below the first, and K7 launched 72 times a step (36 forwards and 36
+     remat recomputes; its backward is the plain version's gradient);
+     report the step's median ms, tokens/s, model FLOPs and MFU against
+     989 TFLOP/s, peak memory, the device's idle share (1 - the kernels'
+     device time in one profiled step over the median unprofiled step) and
+     the plain attention backward's share of that device time, estimated as
+     one call of it, profiled alone on random inputs at the layers' shape,
+     times the step's 36 calls. (Phase 10 holds K7 against its plain version
+     at this training shape.) (b) In float32 at full width and 4
+     layers, the loss and every parameter's gradient with K7 against the
+     model with `attention_plain` substituted, within 1e-4 of each leaf's
+     largest |grad|. (c) Every family at `reduced` float32 size
+     (qwen2.5-3b, granite-moe, seamless, paligemma, zamba2, xlstm at 7
+     blocks) takes 20 steps through the `Trainer` (zamba2 with int8
+     gradients), with a checkpoint every 10 steps and a fault injected at
+     step 15; require one restart, the run's end, finite and falling
+     losses, every gradient non-zero, and K7 launched
+     `model_zoo.k7_train_launches` times a step run.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
 kernel's time is printed by events and by device time (profiler).
 The kernel report's `launches_by_path` has an entry a path (session, fleet,
-ragged, recovery, mesh, lm, families). The last three lines are the kernel
+ragged, recovery, mesh, lm, families, train). The last three lines are the kernel
 report (JSON), the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
@@ -165,6 +191,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2033,9 +2060,11 @@ def k7_case_list() -> list:
     local = (1, wa.n_heads, wa.n_kv_heads, LM_PROMPT, wa.hd)
     # phase 14's call patterns: the two MoE prefills (GQA groups 2 and 16), an
     # enc-dec's encoder layer over the stub frames and its causal decoder
-    # self-attention, Zamba2's shared block (head dim 80)
+    # self-attention, Zamba2's shared block (head dim 80); phase 15 (a)'s
+    # training forward (batch 1, twice phase 9's length)
     gm, qm, enc, zb = (get_arch(n) for n in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
                                              "seamless-m4t-medium", "zamba2-2.7b"))
+    tr = get_arch(TRAIN_ARCH)
     frames = LM_PROMPT // enc.audio_downsample
     return [(f"{lm.name} prefill", *prefill, lm.dtype, True, lm.sliding_window),
             (f"{lm.name} prefill f32", *prefill, "float32", True, lm.sliding_window),
@@ -2051,7 +2080,9 @@ def k7_case_list() -> list:
             (f"{enc.name} decoder", LM_BATCH, enc.n_heads, enc.n_kv_heads, LM_PROMPT, enc.hd,
              enc.dtype, True, 0),
             (f"{zb.name} shared block", LM_BATCH, zb.n_heads, zb.n_kv_heads, LM_PROMPT, zb.hd,
-             zb.dtype, True, 0)]
+             zb.dtype, True, 0),
+            (f"{tr.name} train", TRAIN_BATCH, tr.n_heads, tr.n_kv_heads, TRAIN_SEQ, tr.hd,
+             tr.dtype, True, tr.sliding_window)]
 
 
 def k7_cases(torch, dev) -> list:
@@ -2128,13 +2159,8 @@ def stub_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
     """The family's stub frontend inputs for a prompt of s tokens: seeded
     image embeddings (paligemma) or audio frames (seamless)."""
     from repro_torch.models import model_zoo
-    if cfg.family == "vlm":
-        return {"img_embed": torch.randn((b, cfg.n_img_tokens, model_zoo.VISION_FEAT),
-                                         generator=gen, device=dev)}
-    if cfg.family == "encdec":
-        return {"frames": torch.randn((b, max(s // cfg.audio_downsample, 1),
-                                       model_zoo.AUDIO_FEAT), generator=gen, device=dev)}
-    return {}
+    return {name: torch.randn((b,) + shape, generator=gen, device=dev)
+            for name, shape in model_zoo.stub_shapes(cfg, s).items()}
 
 
 def lm_families(torch, dev, card: str) -> dict:
@@ -2313,6 +2339,286 @@ def lm_families(torch, dev, card: str) -> dict:
         log(f"[families] {cfg.name} took {row['seconds']:.1f} s")
         rows.append(row)
     return {"configs": rows, "counts": path_counts}
+
+
+TRAIN_ARCH = "qwen2.5-3b"    # phase 15 (a): as published, bf16, remat on
+TRAIN_SEQ = 4096             # (a): tokens a step (train_4k's length) ...
+TRAIN_BATCH = 1              # ... at batch 1 (train_4k's global batch is 256)
+TRAIN_STEPS = 5              # (a): timed steps, after one warm-up step
+TRAIN_LR = 3e-4              # (a): AdamW's peak rate, no warmup
+TRAIN_CHECK_LAYERS = 4       # (b): float32 depth at full width
+TRAIN_REL_TOL = 1e-4         # (b): of each leaf's largest |grad|
+# (c): every family at reduced float32 size through the Trainer
+TRAIN_FAMILIES = (("qwen2.5-3b", {}), ("granite-moe-1b-a400m", {}),
+                  ("seamless-m4t-medium", {}), ("paligemma-3b", {}), ("zamba2-2.7b", {}),
+                  ("xlstm-350m", dict(n_layers=7)))
+TRAINER_COMPRESSED = "zamba2-2.7b"   # (c): the config that trains with int8 gradients
+TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAULT = 20, 10, 15
+TRAINER_BATCH, TRAINER_SEQ = 4, 128
+
+
+def model_flops(cfg, n_params: int, embed_params: int, b: int, s: int) -> float:
+    """Model FLOPs of one train step (PaLM's count, no remat recompute):
+    6 per token per parameter outside the embedding table (the unembed
+    counts), plus 12·layers·heads·head_dim·S per token for the attention
+    scores and their product with V (the causal half not subtracted)."""
+    return b * s * (6.0 * (n_params - embed_params)
+                    + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * s)
+
+
+@contextlib.contextmanager
+def grad_check(torch, n_params: int, out: list):
+    """Record, for each `torch.autograd.grad` call inside that returns
+    `n_params` gradients (the train step's; K7's backward returns three),
+    whether each is finite and non-zero: one flag a parameter."""
+    real = torch.autograd.grad
+
+    def grad(*a, **kw):
+        gs = real(*a, **kw)
+        if len(gs) == n_params:
+            out.append(torch.stack([torch.isfinite(g).all() & (g != 0).any()
+                                    for g in gs]).cpu())
+        return gs
+
+    with mock.patch.object(torch.autograd, "grad", grad):
+        yield
+
+
+def lm_train(torch, dev, card: str) -> dict:
+    """Phase 15: training on the card. (a) qwen2.5-3b as published through
+    `make_train_step`; (b) float32 gradients at full width, K7 against
+    `attention_plain`; (c) every family at reduced size through the
+    `Trainer`, one injected fault each. Returns the phase's report, with the
+    launch counts of (a)'s timed steps and (c)'s runs under "counts"."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import DataConfig, SyntheticTokens
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model_zoo
+    from repro_torch.models.config import reduced
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    out, path_counts = {}, {name: 0 for name in K.launch_counts()}
+
+    # (a) full width ---------------------------------------------------------------
+    cfg = get_arch(TRAIN_ARCH)
+    bundle = model_zoo.get_model(cfg)
+    t0 = time.perf_counter()
+    model = bundle.init(seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = model_flops(cfg, n_params, model.embed.numel(), TRAIN_BATCH, TRAIN_SEQ)
+    want = model_zoo.k7_train_launches(cfg)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, remat {cfg.remat}; {n_params} parameters from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; "
+        f"model FLOPs a step {flops:.4g}")
+    source = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    step = make_train_step(bundle, opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=0,
+                                                       total_steps=1000))
+    state = opt.init(dict(model.named_parameters()))
+    losses, step_ms, per_step, flags = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_tensors = len(list(model.parameters()))
+    with grad_check(torch, n_tensors, flags):   # the warm-up step: every gradient checked
+        model, state, _e, met = step(model, state, None, source.batch(0))
+        losses.append(float(met["loss"]))
+    log(f"[train] warm-up step (every gradient checked) done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = [n for (n, _p), ok in zip(model.named_parameters(), flags[0]) if not ok]
+    if bad:
+        raise AssertionError(f"{cfg.name}: {len(bad)} parameters got a zero or non-finite "
+                             f"gradient, e.g. {bad[:5]}")
+    K.reset_launch_counts()
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = source.batch(i)
+        before = FA.flash_attention.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, state, _e, met = step(model, state, None, batch)
+        losses.append(float(met["loss"]))      # waits for the card
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        per_step.append(FA.flash_attention.launches - before)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for key, n in counts.items():
+        path_counts[key] += n
+    med = statistics.median(step_ms)
+    log(f"[train] losses {[round(x, 4) for x in losses]}; K7 launches a step {per_step}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses} not finite or not falling")
+    if per_step != [want] * TRAIN_STEPS:
+        raise AssertionError(f"K7 launched {per_step} times a step, not {want}")
+    out["full"] = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
+                       params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                       step_ms=step_ms, step_ms_median=med,
+                       tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+                       model_flops=flops, mfu=flops / (med * 1e-3) / BF16_OPS_PER_S,
+                       peak_bytes=peak, k7_launches_per_step=per_step, card=card)
+    log(f"[train] step median {med:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
+        f"{out['full']['tokens_per_s']:.0f} tokens/s; MFU {out['full']['mfu']:.4f} of "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; peak memory {peak / 2**30:.2f} GiB | {card}")
+
+    # one profiled step (kernels only: a step launches about 10^5 of them, and
+    # the host ops' events would take the profiler minutes to sort): its
+    # kernels' device time over the unprofiled median step is the device's
+    # busy share; then one call of the plain attention backward at the
+    # layers' shape, profiled alone, times the step's calls
+    from torch.profiler import ProfilerActivity, profile
+    t1 = time.perf_counter()
+    batch = source.batch(TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t2 = time.perf_counter()
+        step(model, state, None, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t2) * 1e3
+    kernels = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
+               if ev.self_device_time_total > 0}
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qkv = [torch.randn((TRAIN_BATCH, TRAIN_SEQ, n, cfg.hd), generator=gen, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2).requires_grad_()
+           for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    grad_out = torch.randn(qkv[0].shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def plain_backward():        # what FlashAttentionFn.backward runs
+        o = FA.flash_attention_plain(*qkv, causal=True, window=0)
+        return torch.autograd.grad(o, qkv, grad_out)
+
+    plain_backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bprof:
+        plain_backward()
+        torch.cuda.synchronize()
+    one_bwd = sum(ev.self_device_time_total for ev in bprof.key_averages()) / 1e3
+    n_bwd = model_zoo.k7_prefill_launches(cfg)
+    full = out["full"]
+    full["profile"] = dict(wall_ms=wall, device_busy_ms=busy, top=top,
+                           attention_backward_ms_a_call=one_bwd,
+                           attention_backward_calls=n_bwd, seconds=time.perf_counter() - t1)
+    full["idle_share"] = 1 - busy / med if busy > 0 else None
+    full["attention_backward_share"] = n_bwd * one_bwd / busy if busy > 0 else None
+    log(f"[train] profiled step: device busy {busy:.2f} ms (wall {wall:.2f} ms with the "
+        f"profiler on); idle share of the unprofiled median step "
+        f"{fmt_share(full['idle_share'])}; the plain attention backward "
+        f"{one_bwd:.2f} device ms a call, {n_bwd} calls a step: share of device time "
+        f"{fmt_share(full['attention_backward_share'])}; profiling took "
+        f"{full['profile']['seconds']:.1f} s")
+    for name, t in top:
+        log(f"[profile]   {t:9.3f} ms  {name[:90]}")
+    del model, state, met, prof, bprof, qkv, grad_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["full"]["seconds"] = time.perf_counter() - t0
+    log(f"[train] (a) took {out['full']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+
+    # (b) float32 at full width, TRAIN_CHECK_LAYERS layers: K7 vs attention_plain --
+    def serving_plain(q, k, v, *, causal, window):
+        t = (lambda x: x.transpose(1, 2))
+        return t(MA.attention_plain(t(q), t(k), t(v), causal=causal, window=window))
+
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS, dtype="float32")
+    b32 = model_zoo.get_model(cfg32)
+    m32 = b32.init(seed=0, device=dev)
+    batch = {k: v.to(dev) for k, v in source.batch(0).items()}
+    names, params = zip(*m32.named_parameters())
+    runs = []
+    for sub in (contextlib.nullcontext(), mock.patch.object(MA, "flash_attention",
+                                                            serving_plain)):
+        with sub:
+            loss = b32.loss(m32, batch)
+            runs.append((loss.detach(), torch.autograd.grad(loss, params)))
+    loss_gap = abs(float(runs[0][0]) - float(runs[1][0])) / abs(float(runs[1][0]))
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, runs[0][1], runs[1][1])}
+    worst = max(errs, key=errs.get)
+    out["check"] = dict(layers=TRAIN_CHECK_LAYERS, seq=TRAIN_SEQ, loss_rel_gap=loss_gap,
+                        grad_rel_err_max=errs[worst], worst=worst)
+    log(f"[train check] float32, {TRAIN_CHECK_LAYERS} layers, {TRAIN_SEQ} tokens: loss with K7 "
+        f"vs attention_plain {loss_gap:.3g}; gradients max |diff| / max |grad| {errs[worst]:.3g}"
+        f" ({worst})")
+    if not (loss_gap <= TRAIN_REL_TOL and errs[worst] <= TRAIN_REL_TOL):
+        raise AssertionError(f"phase 15 (b): {loss_gap:.3g} / {errs[worst]:.3g} > "
+                             f"{TRAIN_REL_TOL}")
+    del m32, runs, params, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["check"]["seconds"] = time.perf_counter() - t0
+    log(f"[train] (b) took {out['check']['seconds']:.1f} s")
+
+    # (c) every family at reduced float32 size through the Trainer ----------------
+    rows = []
+    for name, over in TRAIN_FAMILIES:
+        rcfg = reduced(get_arch(name), **over)
+        rb = model_zoo.get_model(rcfg)
+        boom = {"armed": True}
+
+        def hook(i):
+            if i == TRAINER_FAULT and boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected node failure")
+
+        workdir = tempfile.mkdtemp(prefix="nebula_train_")
+        flags = []
+        try:
+            trainer = Trainer(
+                rb, opt.OptimizerConfig(lr=3e-3, warmup_steps=5, total_steps=TRAINER_STEPS),
+                TrainerConfig(total_steps=TRAINER_STEPS, checkpoint_every=TRAINER_EVERY,
+                              checkpoint_dir=workdir,
+                              compress_grads=name == TRAINER_COMPRESSED),
+                DataConfig(vocab=rcfg.vocab, seq_len=TRAINER_SEQ, global_batch=TRAINER_BATCH),
+                step_hook=hook, device=dev)
+            K.reset_launch_counts()
+            t1 = time.perf_counter()
+            n_tensors = len(list(rb.init(seed=0, device="cpu").parameters()))
+            with grad_check(torch, n_tensors, flags):
+                res = trainer.run(resume=False)
+            seconds = time.perf_counter() - t1
+            counts = K.launch_counts()
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for key, n in counts.items():
+            path_counts[key] += n
+        hist = res["history"]
+        first = statistics.mean(h["loss"] for h in hist[:5])
+        last = statistics.mean(h["loss"] for h in hist[-5:])
+        k7_want = model_zoo.k7_train_launches(rcfg) * len(hist)
+        all_grads = bool(torch.stack([f.all() for f in flags]).all())
+        row = dict(arch=rcfg.name, family=rcfg.family, layers=rcfg.n_layers,
+                   compress_grads=name == TRAINER_COMPRESSED, steps_run=len(hist),
+                   restarts=res["restarts"], final_step=res["final_step"],
+                   loss_first5=first, loss_last5=last,
+                   step_ms_median=statistics.median(h["time"] for h in hist[3:]) * 1e3,
+                   k7_launches=counts["flash_attention"], k7_want=k7_want,
+                   every_grad_nonzero=all_grads, seconds=seconds)
+        rows.append(row)
+        log(f"[train] Trainer {rcfg.name} ({rcfg.family}{', int8 grads' if row['compress_grads'] else ''}): "
+            f"{len(hist)} steps, restarts {res['restarts']}, loss {first:.4f} -> {last:.4f}, "
+            f"step median {row['step_ms_median']:.1f} ms, K7 {counts['flash_attention']} "
+            f"(want {k7_want}), {seconds:.1f} s")
+        if not (res["restarts"] == 1 and res["final_step"] == TRAINER_STEPS
+                and all(math.isfinite(h["loss"]) for h in hist) and last < first
+                and all_grads and counts["flash_attention"] == k7_want):
+            raise AssertionError(f"phase 15 (c) {rcfg.name}: {row}")
+        del trainer, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["trainer"] = rows
+    out["counts"] = path_counts
+    return out
+
+
+def fmt_share(x) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
 
 
 def main() -> int:
@@ -3172,6 +3478,14 @@ def main() -> int:
     report["phases"]["families_s"] = time.perf_counter() - t_fam
     log(f"[families] phase 14 took {report['phases']['families_s']:.1f} s")
 
+    # 15. training ---------------------------------------------------------------
+    t_train = time.perf_counter()
+    trained = lm_train(torch, dev, card)
+    counts_train = trained.pop("counts")
+    report["train"] = trained
+    report["phases"]["train_s"] = time.perf_counter() - t_train
+    log(f"[train] phase 15 took {report['phases']['train_s']:.1f} s")
+
     main_case = k7[0]            # phase 9's prefill shape, by construction
     kernels["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3187,7 +3501,7 @@ def main() -> int:
         by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
                    "ragged": counts_ragged[name], "recovery": counts_recovery[name],
                    "mesh": counts_mesh[name], "lm": counts_lm[name],
-                   "families": counts_families[name]}
+                   "families": counts_families[name], "train": counts_train[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

@@ -7,11 +7,17 @@ functions here rebuild them as tensors, so the port never imports JAX.
 Every array keeps its dtype; float arrays must already be float32, except
 the LM weights of `params_from_jax`, which take the dtype of the port's
 parameter (the config's, or float32 where the JAX init keeps float32).
+
+The LM's weights also go the other way: `params_to_jax` restacks the
+port's flat layer list into JAX's scanned groups, and `stack_as_jax` /
+`unstack_from_jax` carry anything keyed by parameter name (gradients, the
+optimizer's moments, the compression error) with the same key map, which
+is how the trainer writes JAX's checkpoint layout.
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +31,7 @@ from repro_torch.core.projection import Splats
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import model_zoo, xlstm, zamba
-from repro_torch.models.dense import DenseLM, layer_pattern
+from repro_torch.models.dense import layer_pattern
 
 Arrays = Mapping[str, np.ndarray]
 
@@ -175,7 +181,52 @@ def params_from_jax(arrays: Arrays, cfg: ModelConfig, device: DeviceLike = None)
     return model
 
 
-def dense_params_from_jax(arrays: Arrays, cfg: ModelConfig,
-                          device: DeviceLike = None) -> DenseLM:
-    """A `DenseLM` holding the JAX `dense.init` tree (`params_from_jax`)."""
-    return params_from_jax(arrays, cfg, device)
+def jax_layout(names, cfg: ModelConfig) -> Dict[str, List[Tuple[str, Optional[int]]]]:
+    """JAX key → the port's names that fill it, each with its index on the
+    stacked leading axis (None where the JAX leaf is not stacked), in
+    index order. `names`: the port's parameter names (`state_dict` keys)."""
+    out: Dict[str, List[Tuple[str, Optional[int]]]] = {}
+    for name in names:
+        key, g = jax_param_key(cfg, name)
+        out.setdefault(key, []).append((name, g))
+    for key, parts in out.items():
+        parts.sort(key=lambda ng: -1 if ng[1] is None else ng[1])
+        if [g for _n, g in parts] not in ([None], list(range(len(parts)))):
+            raise ValueError(f"{key}: the port's layers give indices {[g for _n, g in parts]}")
+    return out
+
+
+def stack_as_jax(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Tensors keyed by the port's parameter names (parameters, their
+    gradients or their optimizer moments) → keyed by the JAX `init` tree's
+    '/'-joined keys, the per-layer tensors stacked on a leading axis as
+    JAX's scanned groups hold them. Where a JAX leaf is not stacked, the
+    tensor itself (no copy)."""
+    out = {}
+    for key, parts in jax_layout(named, cfg).items():
+        ts = [named[n] for n, _g in parts]
+        out[key] = ts[0] if parts[0][1] is None else torch.stack(ts)
+    return out
+
+
+def unstack_from_jax(arrays: Mapping[str, object], cfg: ModelConfig,
+                     names) -> Dict[str, object]:
+    """The inverse of `stack_as_jax` for the port's parameter `names`:
+    each name's slice of its JAX leaf (tensors or numpy arrays, as given;
+    a slice is a view)."""
+    out = {}
+    for key, parts in jax_layout(names, cfg).items():
+        a = arrays[key]
+        for name, g in parts:
+            out[name] = a if g is None else a[g]
+    return out
+
+
+def params_to_jax(model, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: the model's parameters as the
+    JAX `init` tree flattened with '/'-joined keys, pattern groups stacked.
+    Arrays keep their dtype, except bfloat16, which numpy has no type for:
+    it crosses as float32 (exact), and `params_from_jax` casts it back."""
+    state = {n: t.detach() for n, t in model.state_dict().items()}
+    return {k: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+            for k, t in stack_as_jax(state, cfg).items()}

@@ -24,6 +24,16 @@ and its q-block and kv-tile rows), `kv_tile_plan` (the kv tiles each q
 block visits, the ones among them that need no mask, and the launch
 order) and `check_tma_layout` (the 16-byte alignment TMA needs; nothing is
 copied to meet it).
+
+Gradients. When grad is on and an input requires it, `flash_attention`
+launches K7 inside a `torch.autograd.Function`: the forward is the kernel,
+the backward re-runs `flash_attention_plain` (the kernel's own function,
+with its rounding points) on the saved q, k and v and differentiates it.
+There is no backward kernel because the reference has none: the JAX
+package trains through its plain `models.attention.attention`, and no
+function under `repro/kernels/` carries a `custom_vjp`, so its backward is
+what XLA derives from plain array code. With no input that requires grad,
+the wrapper launches the kernel directly, as serving does.
 """
 
 from __future__ import annotations
@@ -182,17 +192,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: empty input")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, H, Lq, D), k/v (B, Hkv, Lk, D) → (B, H, Lq, D) in q's type
-    and layout. CPU tensors run the plain version; CUDA tensors launch K7
-    or raise."""
-    dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """One launch of K7 on CUDA tensors (checked here); counts it."""
     _check(q, k, v)
+    dev = q.device
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -214,6 +218,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "nebula_flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K7 forward, `flash_attention_plain`'s gradient backward (the module
+    docstring says why there is no backward kernel). Takes the strided
+    (B, H, L, D) views that `models.attention` hands K7."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            out = flash_attention_plain(*ins, causal=ctx.causal, window=ctx.window)
+            wrt = [t for t, n in zip(ins, needs) if n]
+            got = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(got) if n else None for n in needs), None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, H, Lq, D), k/v (B, Hkv, Lk, D) → (B, H, Lq, D) in q's type
+    and layout. CPU tensors run the plain version; CUDA tensors launch K7
+    or raise, inside `FlashAttentionFn` when grad is on and an input
+    requires it."""
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window))
+    return _launch(q, k, v, causal, window)
 
 
 flash_attention.launches = 0

@@ -4,15 +4,18 @@ Covers qwen2.5 (QKV bias), mistral-large, stablelm (partial rotary),
 gemma3 (5:1 local:global sliding-window pattern) and, with an image-prefix
 projector and the prefix-LM mask, paligemma (the `vlm` family: the SigLIP
 frontend is a stub, so a request brings (B, n_img_tokens, 1152) patch
-embeddings as `img_embed`). `loss` comes with the training slice.
+embeddings as `img_embed`), and the training loss (`loss`).
 
 `DenseLM` holds the layers in order. The JAX package stacks them as
 pattern groups (`groups/sub{si}` with a leading n_groups axis) plus
 remainder layers (`rem{ri}`) so that XLA can scan them; layer g·len(pat)+si
 comes first, then the remainder, and `layer_windows` gives each layer's
 window in that order. Eager PyTorch needs no scan, so the port keeps a flat
-list (`convert.params_from_jax` unstacks a JAX tree into it). The MoE
-family is this model with a routed MLP in each block (`models/moe.py`).
+list (`convert.params_from_jax` unstacks a JAX tree into it). With
+`cfg.remat` and grad on, `forward` recomputes each pattern group in the
+backward, JAX's remat unit; the remainder layers lie outside it, as in
+JAX. The MoE family is this model with a routed MLP in each block
+(`models/moe.py`).
 
 Caches: one {"k", "v"} per layer in the same order, each (B, S_cache, Hkv,
 Dh) with RoPE applied. Global layers cache `max_len` positions (padded at
@@ -41,8 +44,8 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, Attention, apply_rope, dense_init, dtype_of,
-                                       embed_init, param, qkv, rmsnorm)
+from repro_torch.models.layers import (MLP, Attention, apply_rope, chunked_ce, dense_init,
+                                       dtype_of, embed_init, param, qkv, remat, rmsnorm)
 
 Cache = Dict[str, object]
 
@@ -173,14 +176,40 @@ def embed_inputs(model: DenseLM, tokens: torch.Tensor,
     return torch.cat([img, x], dim=1), model.cfg.n_img_tokens
 
 
+def _run_layers(blocks, x: torch.Tensor, positions: torch.Tensor, kv_chunk: int,
+                prefix_len: Optional[int]) -> torch.Tensor:
+    for blk in blocks:
+        x, _k, _v = blk(x, positions, kv_chunk, prefix_len)
+    return x
+
+
 def forward(model: DenseLM, tokens: torch.Tensor, *,
             img_embed: Optional[torch.Tensor] = None, kv_chunk: int = 1024) -> torch.Tensor:
-    """tokens (B, S) → final hidden states (B, [N_img +] S, D)."""
+    """tokens (B, S) → final hidden states (B, [N_img +] S, D). Each
+    pattern group is one remat unit (`layers.remat`)."""
+    cfg = model.cfg
     x, prefix_len = embed_inputs(model, tokens, img_embed)
     positions = torch.arange(x.shape[1], device=tokens.device)
-    for blk in model.layers:
-        x, _k, _v = blk(x, positions, kv_chunk, prefix_len)
-    return rmsnorm(x, model.final_norm, model.cfg.norm_eps)
+    pat, n_groups, _rem = layer_pattern(cfg)
+    n = len(pat)
+    for g in range(n_groups):
+        x = remat(_run_layers, cfg, model.layers[g * n:(g + 1) * n], x, positions,
+                  kv_chunk, prefix_len)
+    x = _run_layers(model.layers[n_groups * n:], x, positions, kv_chunk, prefix_len)
+    return rmsnorm(x, model.final_norm, cfg.norm_eps)
+
+
+def loss(model: DenseLM, batch: Dict[str, torch.Tensor], *,
+         kv_chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch["tokens"] against
+    batch["targets"] (`layers.chunked_ce`). For paligemma the image
+    positions are dropped first, as in JAX (which drops them whether or
+    not the batch brings `img_embed`)."""
+    cfg = model.cfg
+    x = forward(model, batch["tokens"], img_embed=batch.get("img_embed"), kv_chunk=kv_chunk)
+    if cfg.n_img_tokens:
+        x = x[:, cfg.n_img_tokens:]
+    return chunked_ce(x, model.unembed, batch["targets"])
 
 
 # -- serving (cache) ---------------------------------------------------------------

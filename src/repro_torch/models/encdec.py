@@ -1,5 +1,5 @@
-"""Encoder-decoder transformer (seamless-m4t-medium backbone): the serving
-path.
+"""Encoder-decoder transformer (seamless-m4t-medium backbone): serving and
+the training loss.
 
 The speech frontend is a stub, as in the JAX package: a request brings
 precomputed audio-frame embeddings `frames` (B, S_frames, 1280), and a
@@ -20,6 +20,10 @@ which is 1.0 for seamless.
 Caches: one {"k", "v", "ck", "cv"} per decoder layer: the self K/V (B,
 max_len, Hkv, Dh) with RoPE applied, and the cross K/V (B, S_frames, Hkv,
 Dh) without. `pos` is a Python int.
+
+`loss` runs the decoder over the whole sequence; with `cfg.remat` and grad
+on, each encoder and each decoder layer is recomputed in the backward, as
+JAX's scans remat each layer.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.dense import Cache, DenseBlock
-from repro_torch.models.layers import Attention, dense_init, dtype_of, embed_init, param, rmsnorm
+from repro_torch.models.layers import (Attention, chunked_ce, dense_init, dtype_of, embed_init,
+                                       param, remat, rmsnorm)
 
 AUDIO_FEAT = 1280
 
@@ -99,13 +104,45 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> EncDecLM
     return EncDecLM(cfg, seed=seed, device=device)
 
 
+def _enc_layer(blk: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
+               kv_chunk: int) -> torch.Tensor:
+    return blk(x, positions, kv_chunk, causal=False)[0]
+
+
+def _dec_layer(blk: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor,
+               positions: torch.Tensor, kv_chunk: int) -> torch.Tensor:
+    """One decoder layer over the whole sequence (JAX's `_dec_block`)."""
+    h = rmsnorm(x, blk.attn_norm, blk.cfg.norm_eps)
+    q, k, v = blk.qkv_rope(h, positions)
+    o = attention(q, k, v, causal=True, kv_chunk=kv_chunk)
+    kc, vc = blk.cross_kv(enc_out)
+    return blk.self_and_cross(x, o, kc, vc, kv_chunk)
+
+
 def encode(model: EncDecLM, frames: torch.Tensor, *, kv_chunk: int = 1024) -> torch.Tensor:
-    """frames (B, S_frames, 1280) → the encoder's output (B, S_frames, D)."""
+    """frames (B, S_frames, 1280) → the encoder's output (B, S_frames, D).
+    Each layer is one remat unit (`layers.remat`), as in JAX."""
     x = frames.to(model.embed.dtype) @ model.audio_proj
     positions = torch.arange(x.shape[1], device=x.device)
     for blk in model.enc_layers:
-        x, _k, _v = blk(x, positions, kv_chunk, causal=False)
+        x = remat(_enc_layer, model.cfg, blk, x, positions, kv_chunk)
     return rmsnorm(x, model.enc_norm, model.cfg.norm_eps)
+
+
+def loss(model: EncDecLM, batch: Dict[str, torch.Tensor], *,
+         kv_chunk: int = 1024) -> torch.Tensor:
+    """The encoder over batch["frames"], the decoder over batch["tokens"]
+    (each layer a remat unit), then `layers.chunked_ce` against
+    batch["targets"]."""
+    cfg = model.cfg
+    enc_out = encode(model, batch["frames"], kv_chunk=kv_chunk)
+    tokens = batch["tokens"]
+    x = F.embedding(tokens, model.embed)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for blk in model.dec_layers:
+        x = remat(_dec_layer, cfg, blk, x, enc_out, positions, kv_chunk)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return chunked_ce(x, model.unembed, batch["targets"])
 
 
 # -- serving -------------------------------------------------------------------

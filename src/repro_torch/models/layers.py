@@ -1,9 +1,10 @@
 """Shared layer primitives of the LM family: RMSNorm, RoPE, SwiGLU, the QKV
 projection, the initializers, and the attention and MLP parameter sets as
-`nn.Module`s (the serving half of the JAX package's `models/layers.py`).
+`nn.Module`s, and the training loss `chunked_ce` (the JAX package's
+`models/layers.py`).
 
 Weights keep the JAX layout, (in, out), so a projection is `x @ w` and a
-JAX parameter tree converts without a transpose (`convert.dense_params_from_jax`).
+JAX parameter tree converts without a transpose (`convert.params_from_jax`).
 Random weights come from an explicit `torch.Generator` with the JAX
 package's std rules; the numbers differ from `jax.random`'s for the same
 seed, so the parity tests convert the JAX tree instead.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -40,7 +42,9 @@ def embed_init(gen: torch.Generator, shape, dtype: torch.dtype, device) -> torch
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter. Serving builds no graph all the same: every
+    family's `prefill` and `decode_step` runs under `torch.no_grad()`."""
+    return nn.Parameter(t)
 
 
 # -- norms ---------------------------------------------------------------------
@@ -151,3 +155,46 @@ def qkv(x: torch.Tensor, p: Attention, cfg) -> Tuple[torch.Tensor, torch.Tensor,
     b, s = x.shape[:2]
     return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
+
+
+# -- remat and loss -------------------------------------------------------------
+
+
+def remat(fn, cfg, *args):
+    """`fn(*args)`, recomputed in the backward when `cfg.remat` is set and
+    grad is on: the JAX package's `jax.checkpoint(..., nothing_saveable)`
+    around each scanned unit. Each family calls it once a unit, on JAX's
+    units, so the outputs and the saved boundaries are JAX's."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _ce_sum(x: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Σ (logsumexp − target logit) over one chunk, logits in float32."""
+    logits = (x @ unembed).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (lse - tgt).sum()
+
+
+def chunked_ce(x: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
+               seq_chunk: int = 256) -> torch.Tensor:
+    """Mean cross-entropy of x (B, S, D) @ unembed (D, V) against targets
+    (B, S) without the full (B, S, V) logits: sequence chunks whose logits
+    the backward recomputes (`torch.utils.checkpoint`, JAX's
+    `jax.checkpoint`), summed in float32 in chunk order and divided by
+    B·S. When `seq_chunk` does not divide S, the full logits' mean, as in
+    the JAX package."""
+    b, s, _d = x.shape
+    seq_chunk = min(seq_chunk, s)
+    if s % seq_chunk != 0:
+        logp = torch.log_softmax((x @ unembed).float(), dim=-1)
+        return -torch.gather(logp, -1, targets[..., None].long())[..., 0].mean()
+    total = None
+    for c0 in range(0, s, seq_chunk):
+        args = (x[:, c0:c0 + seq_chunk], unembed, targets[:, c0:c0 + seq_chunk])
+        part = (checkpoint(_ce_sum, *args, use_reentrant=False) if torch.is_grad_enabled()
+                else _ce_sum(*args))
+        total = part if total is None else total + part
+    return total / (b * s)

@@ -51,7 +51,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch
         cum = torch.cumsum(ldec, dim=1)
         # intra: w_ij = exp(cum_i − cum_j)·dt_j, j ≤ i
         lw = cum[:, :, None] - cum[:, None, :]           # (B, T_i, T_j, H)
-        w = torch.where(causal[None, :, :, None], torch.exp(lw), 0.0) * dti[:, None]
+        # masked before the exp: above the diagonal lw > 0 can overflow, and
+        # exp's gradient there, 0·inf, would be NaN (the JAX package masks
+        # after the exp and gets NaN gradients)
+        w = torch.exp(torch.where(causal[None, :, :, None], lw, -torch.inf)) * dti[:, None]
         cb = torch.einsum("bin,bjn->bij", Ci, Bi)        # (B, T_i, T_j)
         y_intra = torch.einsum("bijh,bjhp->bihp", cb[..., None] * w, xi)
         # inter: y_i += exp(cum_i) · (h_st C_i)

@@ -6,15 +6,16 @@ seed on a device instead of returning a parameter tree. Every family of
 `configs/` serves: dense and vlm (`models/dense.py`), moe, encdec, xlstm
 and hybrid (Zamba2). The frontends are stubs, as in the JAX package: a
 paligemma prefill takes `img_embed` (B, n_img_tokens, VISION_FEAT), a
-seamless one `frames` (B, S // audio_downsample, AUDIO_FEAT). `loss` comes
-with the training slice; the dry-run stand-ins (`input_specs`,
-`batch_logical_axes`, `abstract_params`) with `launch/*`.
+seamless one `frames` (B, S // audio_downsample, AUDIO_FEAT), and so does
+a train batch, beside `tokens` and `targets` (`stub_shapes`). The dry-run
+stand-ins (`input_specs`, `batch_logical_axes`, `abstract_params`) come
+with `launch/*`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 from repro_torch.models import dense, encdec, moe, xlstm, zamba
 from repro_torch.models.config import ModelConfig
@@ -45,10 +46,36 @@ def k7_prefill_launches(cfg: ModelConfig) -> int:
             "xlstm": 0}[cfg.family]
 
 
+def k7_train_launches(cfg: ModelConfig) -> int:
+    """K7 launches of one train step (`loss` and its gradient) on the card:
+    each launch of the prefill, once more for each one inside a remat unit
+    when `cfg.remat` is set, since the backward re-runs the unit's forward.
+    The dense remainder layers lie outside the units; the backward itself
+    launches none (`kernels/flash_attention.py`)."""
+    n = k7_prefill_launches(cfg)
+    if not cfg.remat:
+        return n
+    if cfg.family == "dense":
+        pat, n_groups, _rem = dense.layer_pattern(cfg)
+        return n + n_groups * len(pat)
+    return 2 * n
+
+
+def stub_shapes(cfg: ModelConfig, seq_len: int) -> Dict[str, Tuple[int, ...]]:
+    """The stub frontend's inputs a train or prefill batch of `seq_len`
+    tokens brings, by name, each example's shape (float32)."""
+    if cfg.family == "vlm":
+        return {"img_embed": (cfg.n_img_tokens, VISION_FEAT)}
+    if cfg.family == "encdec":
+        return {"frames": (max(seq_len // cfg.audio_downsample, 1), AUDIO_FEAT)}
+    return {}
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
     init: Callable          # (seed=0, device=None) -> model
+    loss: Callable          # (model, batch) -> scalar
     prefill: Callable       # (model, batch, max_len=0) -> (logits, cache)
     decode_step: Callable   # (model, cache, batch) -> (logits, cache)
     make_cache: Callable    # (batch, seq, device=None) -> cache
@@ -59,6 +86,7 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=lambda seed=0, device=None: fam.init(cfg, seed=seed, device=device),
+        loss=lambda m, b: fam.loss(m, b),
         prefill=lambda m, b, max_len=0: fam.prefill(m, b, max_len=max_len),
         decode_step=lambda m, c, b: fam.decode_step(m, c, b),
         make_cache=lambda batch, seq, device=None: fam.make_cache(cfg, batch, seq, device),

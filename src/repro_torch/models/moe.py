@@ -1,10 +1,12 @@
-"""Mixture-of-Experts decoder (granite-moe, qwen3-moe): the serving path.
+"""Mixture-of-Experts decoder (granite-moe, qwen3-moe): serving and the
+training loss.
 
 A layer is the dense family's block (`dense.DenseBlock`) with a routed MLP
 in place of the SwiGLU: the router is float32, softmax top-k with
-renormalisation (qwen3 style), plus the switch load-balance aux. So the
-family serves through `dense.prefill`/`dense.decode_step` and its caches
-are the dense family's global-layer caches (`dense.make_cache`).
+renormalisation (qwen3 style), plus the switch load-balance aux, which
+`loss` adds at AUX_COEF. So the family serves through
+`dense.prefill`/`dense.decode_step` and its caches are the dense family's
+global-layer caches (`dense.make_cache`).
 
 Dispatch is the JAX package's capacity-based sort-dispatch
 (`repro/models/moe.py:moe_mlp`) in one group: a stable sort of the
@@ -31,7 +33,7 @@ groups of experts so that the buffers stay under `_EXPERT_GROUP_BYTES`.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +43,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.models import dense
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, param, rmsnorm
+from repro_torch.models.layers import chunked_ce, dense_init, param, remat, rmsnorm
 
 AUX_COEF = 0.01
 _EXPERT_GROUP_BYTES = 1 << 30     # float32 bytes of one group's (E_g, C, max(D, F)) buffer
@@ -175,22 +177,36 @@ def moe_mlp_reference(x: torch.Tensor, p: MoEMLP, cfg: ModelConfig) -> torch.Ten
 # -- forward and serving -----------------------------------------------------------
 
 
+def _layer(blk, x: torch.Tensor, positions: torch.Tensor, kv_chunk: int):
+    """One layer → (x, its aux)."""
+    cfg = blk.cfg
+    h = rmsnorm(x, blk.attn_norm, cfg.norm_eps)
+    q, k, v = blk.qkv_rope(h, positions)
+    o = attention(q, k, v, causal=True, kv_chunk=kv_chunk)
+    x = x + o.reshape(o.shape[0], o.shape[1], -1) @ blk.attn.wo
+    mo, aux = moe_mlp(rmsnorm(x, blk.mlp_norm, cfg.norm_eps), blk.mlp, cfg)
+    return x + mo, aux
+
+
 def forward(model: MoELM, tokens: torch.Tensor, *, kv_chunk: int = 1024
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (final hidden states (B, S, D), the layers' mean aux)."""
+    """tokens (B, S) → (final hidden states (B, S, D), the layers' mean
+    aux). Each layer is one remat unit (`layers.remat`), as in JAX."""
     cfg = model.cfg
     x = F.embedding(tokens, model.embed)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     auxs = []
     for blk in model.layers:
-        h = rmsnorm(x, blk.attn_norm, cfg.norm_eps)
-        q, k, v = blk.qkv_rope(h, positions)
-        o = attention(q, k, v, causal=True, kv_chunk=kv_chunk)
-        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ blk.attn.wo
-        mo, aux = moe_mlp(rmsnorm(x, blk.mlp_norm, cfg.norm_eps), blk.mlp, cfg)
-        x = x + mo
+        x, aux = remat(_layer, cfg, blk, x, positions, kv_chunk)
         auxs.append(aux)
     return rmsnorm(x, model.final_norm, cfg.norm_eps), torch.stack(auxs).mean()
+
+
+def loss(model: MoELM, batch: Dict[str, torch.Tensor], *,
+         kv_chunk: int = 1024) -> torch.Tensor:
+    """`layers.chunked_ce` plus AUX_COEF × the layers' mean aux."""
+    x, aux = forward(model, batch["tokens"], kv_chunk=kv_chunk)
+    return chunked_ce(x, model.unembed, batch["targets"]) + AUX_COEF * aux
 
 
 # the family serves through the dense family's prefill and cached decode

@@ -1,4 +1,5 @@
-"""xLSTM (sLSTM + mLSTM blocks), arXiv:2405.04517: the serving path.
+"""xLSTM (sLSTM + mLSTM blocks), arXiv:2405.04517: serving and the
+training loss.
 
 mLSTM is a matrix-memory linear-attention recurrence with exponential input
 gating and a running stabilizer m_t:
@@ -30,7 +31,8 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.dense import Cache
-from repro_torch.models.layers import dense_init, dtype_of, embed_init, param, rmsnorm
+from repro_torch.models.layers import (chunked_ce, dense_init, dtype_of, embed_init, param,
+                                       remat, rmsnorm)
 
 _NEG = -1e30
 
@@ -76,7 +78,8 @@ def mlstm_chunked(q, k, v, log_f, log_i, chunk: int = 64, state: Optional[Tuple]
         # intra-chunk weights: exp(b_i − b_j + li_j − m_i), j ≤ i
         lw = (bcum[:, :, None] - bcum[:, None, :] + li[:, None, :]
               - m_i[:, :, None])                         # (B, T_i, T_j, H)
-        w = torch.where(causal[None, :, :, None], torch.exp(lw), 0.0)
+        # masked before the exp, as in models/mamba2.py (JAX masks after it)
+        w = torch.exp(torch.where(causal[None, :, :, None], lw, -torch.inf))
 
         score = torch.einsum("bihd,bjhd->bijh", qi, ki)
         num_intra = torch.einsum("bijh,bjhd->bihd", score * w, vi)
@@ -131,6 +134,7 @@ def slstm_scan(x_gates: torch.Tensor, r_weights: torch.Tensor, state: Optional[T
         state = tuple(torch.zeros((b, nh, dh), dtype=torch.float32, device=x_gates.device)
                       for _ in range(4))
     c, n, h, m = state
+    one = torch.ones((), dtype=torch.float32, device=x_gates.device)
     hs = []
     for t in range(s):
         rec = torch.einsum("bhd,hgde->bhge", h, r_weights)
@@ -144,7 +148,9 @@ def slstm_scan(x_gates: torch.Tensor, r_weights: torch.Tensor, state: Optional[T
         fg = torch.exp(f_t + m - m_new)
         c = fg * c + ig * z_t
         n = fg * n + ig
-        h = o_t * c / torch.clamp_min(n, 1.0)
+        # n is exactly 1 wherever a first step's input gate wins; at that tie
+        # `maximum` splits the gradient as `jnp.maximum` does (clamp_min would not)
+        h = o_t * c / torch.maximum(n, one)
         m = m_new
         hs.append(h)
     return torch.stack(hs, dim=1), (c, n, h, m)
@@ -284,15 +290,36 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> XLSTMLM:
     return XLSTMLM(cfg, seed=seed, device=device)
 
 
-def forward(model: XLSTMLM, tokens: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
-    """tokens (B, S) → final hidden states (B, S, D)."""
-    x = F.embedding(tokens, model.embed)
-    for blk in model.blocks:
+def _run_blocks(blocks, cfg: ModelConfig, x: torch.Tensor, chunk: int) -> torch.Tensor:
+    for blk in blocks:
         if blk.kind == "m":
-            x, _ = _mlstm_apply(x, blk, model.cfg, chunk)
+            x, _ = _mlstm_apply(x, blk, cfg, chunk)
         else:
-            x, _ = _slstm_apply(x, blk, model.cfg)
-    return rmsnorm(x, model.final_norm, model.cfg.norm_eps)
+            x, _ = _slstm_apply(x, blk, cfg)
+    return x
+
+
+def forward(model: XLSTMLM, tokens: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
+    """tokens (B, S) → final hidden states (B, S, D). Each pattern group is
+    one remat unit (`layers.remat`); the remainder blocks lie outside it,
+    as in JAX."""
+    cfg = model.cfg
+    pat, n_groups, _rem = _pattern(cfg)
+    n = len(pat)
+    x = F.embedding(tokens, model.embed)
+    for g in range(n_groups):
+        x = remat(_run_blocks, cfg, model.blocks[g * n:(g + 1) * n], cfg, x, chunk)
+    x = _run_blocks(model.blocks[n_groups * n:], cfg, x, chunk)
+    return rmsnorm(x, model.final_norm, cfg.norm_eps)
+
+
+def loss(model: XLSTMLM, batch: Dict[str, torch.Tensor], *,
+         kv_chunk: int = 1024) -> torch.Tensor:
+    """`layers.chunked_ce` of the final hidden states against
+    batch["targets"] (`kv_chunk` is the bundle's common argument)."""
+    del kv_chunk
+    x = forward(model, batch["tokens"])
+    return chunked_ce(x, model.unembed, batch["targets"])
 
 
 # -- serving: recurrent state cache (O(1) per token) ---------------------------------

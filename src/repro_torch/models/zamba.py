@@ -1,6 +1,7 @@
 """Zamba2 hybrid (arXiv:2411.15242): a Mamba2 backbone and one SHARED
-attention+MLP block applied after every `attn_every` Mamba2 blocks: the
-serving path.
+attention+MLP block applied after every `attn_every` Mamba2 blocks:
+serving and the training loss (each group, its Mamba2 blocks and the
+shared block, one remat unit as in JAX).
 
 The shared block's weights are one parameter set reused at every
 application site; its input is the current hidden state concatenated
@@ -30,8 +31,8 @@ from repro_torch.models import mamba2
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.dense import Cache
-from repro_torch.models.layers import (MLP, Attention, apply_rope, dense_init, dtype_of,
-                                       embed_init, param, qkv, rmsnorm)
+from repro_torch.models.layers import (MLP, Attention, apply_rope, chunked_ce, dense_init,
+                                       dtype_of, embed_init, param, qkv, remat, rmsnorm)
 
 
 def group_size(cfg: ModelConfig) -> int:
@@ -107,19 +108,34 @@ def _shared_apply(x, x0, sp: SharedBlock, cfg: ModelConfig, positions, kv_chunk:
     return _shared_finish(x, h, o, sp, cfg), (k, v)
 
 
+def _group(blocks, sp: SharedBlock, cfg: ModelConfig, x, x0, positions, kv_chunk: int,
+           chunk: int):
+    """One group: its Mamba2 blocks, then the shared block."""
+    for blk in blocks:
+        x, _ = mamba2.apply(x, blk, cfg, chunk=chunk)
+    return _shared_apply(x, x0, sp, cfg, positions, kv_chunk)[0]
+
+
 def forward(model: ZambaLM, tokens: torch.Tensor, *, kv_chunk: int = 1024,
             chunk: int = 64) -> torch.Tensor:
-    """tokens (B, S) → final hidden states (B, S, D)."""
+    """tokens (B, S) → final hidden states (B, S, D). Each group is one
+    remat unit (`layers.remat`), as in JAX."""
     cfg = model.cfg
     k = group_size(cfg)
     x = F.embedding(tokens, model.embed)
     x0 = x
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for i, blk in enumerate(model.blocks):
-        x, _ = mamba2.apply(x, blk, cfg, chunk=chunk)
-        if i % k == k - 1:
-            x, _ = _shared_apply(x, x0, model.shared, cfg, positions, kv_chunk)
+    for g in range(cfg.n_layers // k):
+        x = remat(_group, cfg, model.blocks[g * k:(g + 1) * k], model.shared, cfg, x, x0,
+                  positions, kv_chunk, chunk)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)
+
+
+def loss(model: ZambaLM, batch: Dict[str, torch.Tensor], *,
+         kv_chunk: int = 1024) -> torch.Tensor:
+    """`layers.chunked_ce` of the final hidden states against batch["targets"]."""
+    x = forward(model, batch["tokens"], kv_chunk=kv_chunk)
+    return chunked_ce(x, model.unembed, batch["targets"])
 
 
 # -- serving -----------------------------------------------------------------------

@@ -11,11 +11,24 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch import convert
 
 CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests: the small eager ops of a
+    training step lose more to six workers' threads contending for the
+    cores than they gain from intra-op threads (a test file imports this
+    fixture and marks its tests with `usefixtures`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 GAUSSIAN_FIELDS = ("mu", "log_scale", "quat", "opacity", "sh")
 TREE_FIELDS = ("size", "top_parent", "top_is_leaf", "slab_parent", "slab_is_leaf",
@@ -113,7 +126,7 @@ def assert_close(a, b, rtol, atol, msg=""):
 
 def flatten_tree(tree, prefix: str = "") -> dict:
     """A nested dict of arrays (a JAX parameter or cache tree) as
-    {'a/b/c': numpy array}, the form `convert.dense_params_from_jax` takes."""
+    {'a/b/c': numpy array}, the form `convert.params_from_jax` takes."""
     out = {}
     for key, val in tree.items():
         path = f"{prefix}{key}"
@@ -122,10 +135,6 @@ def flatten_tree(tree, prefix: str = "") -> dict:
         else:
             out[path] = np_(val)
     return out
-
-
-def to_torch_dense(params, cfg):
-    return convert.dense_params_from_jax(flatten_tree(params), cfg, CPU)
 
 
 def randomize_constants(tree, rng):

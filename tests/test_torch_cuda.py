@@ -729,6 +729,84 @@ def test_family_prefill_launches_k7_on_card(dev, name):
     assert torch.isfinite(logits).all() and cache["pos"] == cfg.n_img_tokens + 65
 
 
+@pytest.mark.parametrize("shape", [(2, 300, 8, 2, 64, 0), (1, 257, 4, 4, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_autograd_matches_plain(dev, shape, dtype):
+    """With grad on, K7 runs inside its autograd Function: one launch for
+    the forward, none for the backward, whose q, k and v gradients are
+    those of K7's plain version on the same inputs (the backward re-runs
+    it), on the strided (B, H, L, D) views of (B, S, H, D) tensors: a
+    causal GQA shape and a windowed one."""
+    b, s, h, hkv, d, window = shape
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    base = [torch.randn((b, s, n, d), generator=g, device=dev).to(dtype)
+            for n in (h, hkv, hkv)]
+    w = torch.randn((b, h, s, d), generator=g, device=dev)
+    grads = []
+    for fn in (flash_attention.flash_attention, flash_attention.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in base]
+        before = flash_attention.flash_attention.launches
+        out = fn(*(t.transpose(1, 2) for t in leaves), causal=True, window=window)
+        assert out.requires_grad
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = flash_attention.flash_attention.launches - before
+        assert launched == (1 if fn is flash_attention.flash_attention else 0)
+        grads.append([t.grad for t in leaves])
+    for ours, ref, name in zip(grads[0], grads[1], "qkv"):
+        assert ours.dtype == dtype and ours.shape == ref.shape
+        assert torch.allclose(ours.float(), ref.float(), rtol=1e-5, atol=1e-6), \
+            (name, float((ours.float() - ref.float()).abs().max()))
+        assert ours.abs().max() > 0
+
+
+TRAIN_FAMILIES = ["qwen2.5-3b"] + FAMILIES
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("name", TRAIN_FAMILIES)
+def test_family_train_step_on_card(dev, name, remat):
+    """A float32 `reduced` config of each family on the card (xlstm at 7
+    layers): the loss's gradient reaches every parameter, finite and
+    non-zero, and matches the same model's on the CPU; K7 launches
+    `model_zoo.k7_train_launches` times (the prefill's count, plus one for
+    each attention inside a remat unit with `remat`); a train step moves
+    every parameter."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    cfg = reduced(get_arch(name), remat=remat,
+                  **(dict(n_layers=7) if name == "xlstm-350m" else {}))
+    bundle = model_zoo.get_model(cfg)
+    model = bundle.init(seed=0, device=dev)
+    cpu_model = bundle.init(seed=0, device="cpu")
+    cpu_model.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    rng = np.random.default_rng(0)
+    arrays = {"tokens": rng.integers(0, cfg.vocab, (2, 64)),
+              "targets": rng.integers(0, cfg.vocab, (2, 64))}
+    for key, shp in model_zoo.stub_shapes(cfg, 64).items():
+        arrays[key] = rng.normal(size=(2,) + shp).astype(np.float32)
+    batch = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    before = flash_attention.flash_attention.launches
+    loss = bundle.loss(model, {k: t.to(dev) for k, t in batch.items()})
+    params = list(model.parameters())
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches - before == \
+        model_zoo.k7_train_launches(cfg)
+    cpu_loss = bundle.loss(cpu_model, batch)
+    cpu_grads = torch.autograd.grad(cpu_loss, list(cpu_model.parameters()))
+    assert torch.allclose(loss.cpu(), cpu_loss, rtol=1e-5)
+    for (n, _p), a, c in zip(model.named_parameters(), grads, cpu_grads):
+        assert torch.isfinite(a).all() and a.abs().max() > 0, n
+        assert torch.allclose(a.cpu(), c, rtol=0, atol=2e-4 * float(c.abs().max())), n
+    step = make_train_step(bundle, opt.OptimizerConfig(lr=1e-3, warmup_steps=0))
+    old = [p.detach().clone() for p in params]
+    _m, state, _e, met = step(model, opt.init(dict(model.named_parameters())), None, batch)
+    assert torch.isfinite(met["loss"]) and int(state.step) == 1
+    for (n, p), o in zip(model.named_parameters(), old):
+        assert not torch.equal(p.detach(), o), n
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_at_zamba2_shared_block_shape(dev, dtype):
     """K7 at zamba2-2.7b's shared attention (32/32 heads of 80, which the

@@ -1,5 +1,5 @@
 """The port's dense LM serving path against the JAX package on the CPU:
-configs, layer order, `dense_params_from_jax`, and prefill + cached decode
+configs, layer order, `params_from_jax`, and prefill + cached decode
 (logits, every cache k/v in ring order, `pos`, greedy tokens) on four
 reduced dense configs in float32."""
 
@@ -18,7 +18,7 @@ from repro_torch.configs import ARCHS, get_arch
 from repro_torch.models import dense, model_zoo
 from repro_torch.models.config import reduced
 
-from _torch_parity import dense_cache_layers, flatten_tree, to_torch_dense
+from _torch_parity import dense_cache_layers, flatten_tree, to_torch_model
 
 # Logits and caches agree within 1e-4 abs/rel. Measured on a CPU over the
 # four configs, prefill and 4 decode steps: at most 4.9e-6 on logits (of
@@ -75,7 +75,7 @@ def test_prefill_and_decode_match_jax(name):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     params, _ = jdense.init(jax.random.PRNGKey(0), jcfg)
     params = _randomize(params, np.random.default_rng(1))
-    model = to_torch_dense(params, cfg)
+    model = to_torch_model(params, cfg)
     tokens = np.random.default_rng(2).integers(0, cfg.vocab, (BATCH, PROMPT))
     max_len = PROMPT + DECODE
 
@@ -104,13 +104,13 @@ def test_dense_params_from_jax_layer_order():
     jcfg = jreduced(JAX_ARCHS[name], n_layers=14)
     cfg = reduced(get_arch(name), n_layers=14)
     params, _ = jdense.init(jax.random.PRNGKey(3), jcfg)
-    model = to_torch_dense(params, cfg)
+    model = to_torch_model(params, cfg)
     want = [("groups", g, si) for g in range(2) for si in range(6)] + [("rem", 0, 0),
                                                                         ("rem", 1, 0)]
     for i, (kind, a, si) in enumerate(want):
         src = (params["groups"][f"sub{si}"]["attn"]["wq"][a] if kind == "groups"
                else params[f"rem{a}"]["attn"]["wq"])
-        np.testing.assert_array_equal(model.layers[i].attn.wq.numpy(), np.asarray(src))
+        np.testing.assert_array_equal(model.layers[i].attn.wq.detach().numpy(), np.asarray(src))
     assert dense.layer_windows(cfg) == (64,) * 5 + (0,) + (64,) * 5 + (0,) + (64, 64)
     assert [b.window for b in model.layers] == list(dense.layer_windows(cfg))
 
@@ -122,12 +122,12 @@ def test_dense_params_from_jax_takes_bf16():
     cfg = reduced(get_arch("qwen2.5-3b"), dtype="bfloat16", n_layers=2)
     params, _ = jdense.init(jax.random.PRNGKey(4), jcfg)
     params = _randomize(params, np.random.default_rng(5))
-    model = to_torch_dense(params, cfg)
+    model = to_torch_model(params, cfg)
     flat = flatten_tree(params)
     assert model.embed.dtype == torch.bfloat16
-    np.testing.assert_array_equal(model.embed.float().numpy(),
+    np.testing.assert_array_equal(model.embed.detach().float().numpy(),
                                   np.asarray(flat["embed"], np.float32))
-    np.testing.assert_array_equal(model.layers[1].attn.bk.float().numpy(),
+    np.testing.assert_array_equal(model.layers[1].attn.bk.detach().float().numpy(),
                                   np.asarray(flat["groups/sub0/attn/bk"][1], np.float32))
 
 
