@@ -175,12 +175,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      step 15; require one restart, the run's end, finite and falling
      losses, every gradient non-zero, and K7 launched
      `model_zoo.k7_train_launches` times a step run.
+ 16. (run after phase 15) the sharding context and the dry-run: (a) on a
+     1x1 mesh (NCCL, a world of one, `launch.mesh.make_mesh`), qwen2.5-3b
+     as published has its parameters placed by `make_shardings` and runs
+     under `meshed(activation_rules(mesh))`: phase 9's prefill of 4 x 2048
+     and 8 greedy decode steps against the same model meshless (its
+     weights then placed on the mesh), and 2 of phase 15 (a)'s train steps
+     against a meshless run from the same seed; require K7 36 times in the
+     meshed prefill and 72 times a meshed step, and logits, greedy tokens
+     and losses equal bit for bit (else within 1e-4 of the largest
+     |value|, the gap printed); print both runs' prefill, decode and step
+     ms. (b) `launch.dryrun` cells in processes of their own, all started
+     together, each with a fake world of 256 or 512 ranks (`DRYRUN_CELLS`:
+     qwen2.5-3b's train_4k, prefill_32k and decode_32k on both production
+     meshes, granite-moe's train_4k on one pod); require every cell `ok`
+     and print its bytes a device against 80 GB, FLOPs, collectives,
+     roofline terms and trace seconds. (c) The 1x1 dry-run of phase 15
+     (a)'s step (1 x 4096): its argument bytes, less the batch and the
+     step counter, must equal the parameters' and moments' bytes, which
+     must equal what the caching allocator was asked for when (a) built
+     them (`memory_stats` "requested_bytes", less the counter's 4 B; the
+     growth of `memory_allocated`, its rounded blocks, is printed beside
+     it); print its predicted peak
+     beside phase 15's measured one and its roofline bound beside the
+     measured step.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
 kernel's time is printed by events and by device time (profiler).
 The kernel report's `launches_by_path` has an entry a path (session, fleet,
-ragged, recovery, mesh, lm, families, train). The last three lines are the kernel
+ragged, recovery, mesh, lm, families, train, lm_mesh). The last three lines are the kernel
 report (JSON), the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
@@ -2617,6 +2641,330 @@ def lm_train(torch, dev, card: str) -> dict:
     return out
 
 
+LM_MESH_STEPS = 8            # phase 16 (a): greedy decode steps (phase 9's prefill)
+LM_MESH_TRAIN_STEPS = 2      # (a): train steps a run, meshed and meshless
+# (b): dry-run cells, each in a process of its own with a fake world
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single"), ("qwen2.5-3b", "prefill_32k", "single"),
+                ("qwen2.5-3b", "decode_32k", "single"), ("qwen2.5-3b", "train_4k", "multi"),
+                ("qwen2.5-3b", "prefill_32k", "multi"), ("qwen2.5-3b", "decode_32k", "multi"),
+                ("granite-moe-1b-a400m", "train_4k", "single"))
+DRYRUN_WAIT_S = 420          # (b), (c): the longest the phase waits on a dry-run process
+HBM_GB = 80.0                # the card's memory, against each cell's per-device bytes
+
+_DRYRUN_1X1 = r"""
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_world, make_mesh
+from repro_torch.models.config import ShapeConfig
+init_fake_world(1)
+rec = dryrun.trace_cell(sys.argv[1], ShapeConfig("train", int(sys.argv[2]), int(sys.argv[3]),
+                                                 "train"), make_mesh((1, 1), ("data", "model")))
+print(json.dumps(rec))
+"""
+
+
+def start_dryruns(workdir: Path) -> dict:
+    """Phase 16 (b) and (c)'s processes, all started at once (no card: each
+    traces on the meta device in a fake world of its own)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", mesh, "--out", str(workdir), "--force"]
+        log_f = open(workdir / f"{arch}__{shape}__{mesh}.log", "w")
+        procs[(arch, shape, mesh)] = (subprocess.Popen(cmd, env=env, stdout=log_f,
+                                                       stderr=subprocess.STDOUT), log_f)
+    out_f = open(workdir / "dryrun_1x1.json", "w")
+    procs["1x1"] = (subprocess.Popen([sys.executable, "-c", _DRYRUN_1X1, TRAIN_ARCH,
+                                      str(TRAIN_SEQ), str(TRAIN_BATCH)], env=env,
+                                     stdout=out_f, stderr=subprocess.DEVNULL), out_f)
+    return procs
+
+
+def wait_dryruns(procs: dict) -> dict:
+    """Wait for every process of `start_dryruns`; kill any still running at
+    the deadline. → {key: return code (None when killed)}."""
+    deadline = time.perf_counter() + DRYRUN_WAIT_S
+    codes = {}
+    for key, (p, f) in procs.items():
+        try:
+            codes[key] = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            codes[key] = None
+        f.close()
+    return codes
+
+
+def lm_mesh(torch, dev, card: str, train: dict) -> dict:
+    """Phase 16: (a) qwen2.5-3b on a 1x1 NCCL mesh against the meshless
+    model, (b) the production dry-run cells, (c) the 1x1 dry-run of phase
+    15 (a)'s train step against the card. Returns the phase's report, with
+    the launch counts of (a)'s meshed runs under "counts"."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import destroy_fleet_group, init_fleet_group, make_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import param_axes
+    from repro_torch.sharding.context import activation_rules, meshed
+    from repro_torch.sharding.partitioning import (LOGICAL_RULES, make_shardings,
+                                                   shard_module, shard_tree)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_arch(LM_ARCH)
+    bundle = model_zoo.get_model(cfg)
+    out, path_counts = {}, {name: 0 for name in K.launch_counts()}
+    workdir = Path(tempfile.mkdtemp(prefix="nebula_dryrun_"))
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def greedy(logits):
+        return local(logits)[:, :cfg.vocab].argmax(-1)
+
+    try:
+        init_fleet_group(str(workdir / "store"), 0, 1, "nccl", device=dev)
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        rules = activation_rules(mesh)
+
+        def place_batch(batch):
+            axes = {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+            return shard_tree(batch, mesh, make_shardings(mesh, batch, axes, dict(LOGICAL_RULES)))
+
+        # (a) serving: phase 9's prefill and LM_MESH_STEPS greedy steps, the
+        # meshless model first, then the same weights placed on the mesh
+        b, s0, steps = LM_BATCH, LM_PROMPT, LM_MESH_STEPS
+        max_len = s0 + steps
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (b, s0), generator=gen, device=dev)
+        model = bundle.init(seed=0, device=dev)
+
+        def serve(m, batch, place=lambda t: t):
+            (logits, cache), pre_ms = timed(lambda: bundle.prefill(m, batch, max_len=max_len))
+            seq, step_ms = [local(logits).clone()], []
+            tok = greedy(logits)
+            toks = [tok]
+            for _ in range(steps):
+                (logits, cache), ms = timed(
+                    lambda: bundle.decode_step(m, cache, {"token": place(tok)}))
+                seq.append(local(logits).clone())
+                tok = greedy(logits)
+                toks.append(tok)
+                step_ms.append(ms)
+            return seq, torch.stack(toks, 1), pre_ms, step_ms
+
+        serve(model, {"tokens": tokens})                      # warm-up, not compared
+        ref_logits, ref_toks, pre_plain, steps_plain = serve(model, {"tokens": tokens})
+        specs = make_shardings(mesh, dict(model.named_parameters()), param_axes(model))
+        shard_module(model, mesh, specs)
+
+        def place_tok(t):
+            return place_batch({"token": t})["token"]
+
+        with meshed(rules):
+            serve(model, place_batch({"tokens": tokens}), place_tok)      # warm-up
+            K.reset_launch_counts()
+            got_logits, got_toks, pre_mesh, steps_mesh = serve(
+                model, place_batch({"tokens": tokens}), place_tok)
+            counts = K.launch_counts()
+        for key, n in counts.items():
+            path_counts[key] += n
+        if counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"phase 16 (a): K7 launched {counts['flash_attention']} times "
+                                 f"in a meshed prefill, not {cfg.n_layers}")
+        same = [torch.equal(a, b_) for a, b_ in zip(got_logits, ref_logits)]
+        gap = max(float((a.float() - b_.float()).abs().max()) for a, b_ in
+                  zip(got_logits, ref_logits))
+        scale = max(float(b_.float().abs().max()) for b_ in ref_logits)
+        tok_same = bool(torch.equal(got_toks, ref_toks))
+        log(f"[lm_mesh] (a) serving on a 1x1 mesh: logits bit for bit {all(same)} "
+            f"(prefill and {steps} steps; max gap {gap:.3g} of {scale:.3g}), greedy tokens "
+            f"equal {tok_same}; K7 {counts['flash_attention']} launches in the prefill")
+        if not (all(same) and tok_same) and gap > LM_REL_TOL * scale:
+            raise AssertionError(f"phase 16 (a): meshed logits {gap:.3g} from the meshless "
+                                 f"ones, above {LM_REL_TOL} of {scale:.3g}")
+        out["serve"] = dict(bitwise=all(same), tokens_equal=tok_same, max_abs_gap=gap,
+                            scale=scale, prefill_ms_meshless=pre_plain, prefill_ms_meshed=pre_mesh,
+                            decode_ms_meshless=statistics.median(steps_plain),
+                            decode_ms_meshed=statistics.median(steps_mesh),
+                            k7_prefill=counts["flash_attention"])
+        log(f"[lm_mesh] (a) prefill {b}x{s0}: meshless {pre_plain:.2f} ms, meshed "
+            f"{pre_mesh:.2f} ms; decode step median meshless "
+            f"{out['serve']['decode_ms_meshless']:.2f} ms, meshed "
+            f"{out['serve']['decode_ms_meshed']:.2f} ms | {card}")
+        del model, ref_logits, got_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) training: phase 15 (a)'s step, meshless then meshed, from seed 0
+        tcfg = get_arch(TRAIN_ARCH)
+        tbundle = model_zoo.get_model(tcfg)
+        source = SyntheticTokens(DataConfig(vocab=tcfg.vocab, seq_len=TRAIN_SEQ,
+                                            global_batch=TRAIN_BATCH, seed=0))
+        ocfg = opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=1000)
+        step = make_train_step(tbundle, ocfg)
+        want = model_zoo.k7_train_launches(tcfg)
+
+        def run_steps(m, state, place=lambda bt: bt):
+            losses, ms, per_step = [], [], []
+            for i in range(LM_MESH_TRAIN_STEPS):
+                batch = place({k: v.to(dev) for k, v in source.batch(i).items()})
+                before = K.launch_counts()["flash_attention"]
+                (res, t) = timed(lambda: step(m, state, None, batch))
+                m, state, _e, met = res
+                losses.append(local(met["loss"]).clone())
+                ms.append(t)
+                per_step.append(K.launch_counts()["flash_attention"] - before)
+            return losses, ms, per_step
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        def requested():
+            return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+        m0, r0 = torch.cuda.memory_allocated(), requested()
+        tmodel = tbundle.init(seed=0, device=dev)
+        state = opt.init(dict(tmodel.named_parameters()))
+        torch.cuda.synchronize()
+        measured = torch.cuda.memory_allocated() - m0
+        asked = requested() - r0
+        raw = sum(p.numel() * (p.element_size() + 8) for p in tmodel.parameters())
+        ref_losses, ms_plain, _ = run_steps(tmodel, state)
+        del tmodel, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        tmodel = tbundle.init(seed=0, device=dev)
+        tspecs = make_shardings(mesh, dict(tmodel.named_parameters()), param_axes(tmodel))
+        shard_module(tmodel, mesh, tspecs)
+        zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                 for n, p in tmodel.named_parameters()}
+        state = opt.AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                               m=shard_tree(zeros, mesh, tspecs),
+                               v=shard_tree({n: z.clone() for n, z in zeros.items()}, mesh,
+                                            tspecs))
+        del zeros
+        with meshed(rules):
+            K.reset_launch_counts()
+            got_losses, ms_mesh, per_step = run_steps(tmodel, state, place_batch)
+            counts = K.launch_counts()
+        for key, n in counts.items():
+            path_counts[key] += n
+        del tmodel, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        same = [torch.equal(a, b_) for a, b_ in zip(got_losses, ref_losses)]
+        loss_gap = max(float((a - b_).abs()) for a, b_ in zip(got_losses, ref_losses))
+        log(f"[lm_mesh] (a) train {TRAIN_BATCH}x{TRAIN_SEQ}: losses meshless "
+            f"{[float(x) for x in ref_losses]}, meshed {[float(x) for x in got_losses]} (bit "
+            f"for bit {all(same)}); K7 a meshed step {per_step}; step ms meshless "
+            f"{[round(x, 2) for x in ms_plain]}, meshed {[round(x, 2) for x in ms_mesh]} | {card}")
+        if per_step != [want] * LM_MESH_TRAIN_STEPS:
+            raise AssertionError(f"phase 16 (a): K7 launched {per_step} times a meshed step, "
+                                 f"not {want}")
+        if not all(same) and loss_gap > LM_REL_TOL * max(abs(float(x)) for x in ref_losses):
+            raise AssertionError(f"phase 16 (a): meshed losses {loss_gap:.3g} from the meshless")
+        out["train"] = dict(bitwise=all(same), loss_gap=loss_gap,
+                            losses_meshless=[float(x) for x in ref_losses],
+                            losses_meshed=[float(x) for x in got_losses],
+                            step_ms_meshless=ms_plain, step_ms_meshed=ms_mesh,
+                            k7_per_step=per_step, param_moment_bytes=raw,
+                            allocated_bytes=measured, requested_bytes=asked)
+    finally:
+        destroy_fleet_group()
+
+    # (b) and (c): the dry-run processes, after (a)'s timings
+    t0 = time.perf_counter()
+    procs = start_dryruns(workdir)
+    codes = wait_dryruns(procs)
+    wall = time.perf_counter() - t0
+    cells = []
+    try:
+        for (arch, shape, mesh_kind) in DRYRUN_CELLS:
+            path = workdir / f"{arch}__{shape}__{mesh_kind}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            if rec.get("status") != "ok" and "traceback" in rec:
+                raise AssertionError(f"phase 16 (b): {arch} {shape} {mesh_kind}: "
+                                     f"{rec['traceback'][-1500:]}")
+            if codes[(arch, shape, mesh_kind)] != 0 or not rec:
+                tail = (workdir / f"{arch}__{shape}__{mesh_kind}.log").read_text()[-1500:]
+                raise AssertionError(f"phase 16 (b): {arch} {shape} {mesh_kind} ended with "
+                                     f"{codes[(arch, shape, mesh_kind)]}: {tail}")
+            if rec["status"] != "ok":
+                raise AssertionError(f"phase 16 (b): {arch} {shape} {mesh_kind}: "
+                                     f"{rec.get('error')} {rec.get('traceback', '')[-800:]}")
+            mem = rec["memory"]
+            gb = (mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]) / 1e9
+            coll = rec["collectives"]
+            counts = {k[:-6]: int(v) for k, v in coll.items() if k.endswith("_count") and v}
+            rf = rec["roofline"]
+            log(f"[dryrun] {arch} {shape} {mesh_kind} ({rec['n_chips']} ranks): "
+                f"{gb:.2f} GB a device of {HBM_GB:.0f} (arguments "
+                f"{mem['argument_bytes'] / 1e9:.2f}, temporaries {mem['temp_bytes'] / 1e9:.2f}); "
+                f"{rec['flops']:.4g} FLOPs, {rec['bytes_accessed']:.4g} B; collectives "
+                f"{counts} {coll['collective_bytes']:.4g} B; roofline compute "
+                f"{rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g} s, collective "
+                f"{rf['collective_s']:.4g} s: {rf['dominant']}; traced in {rec['trace_s']:.1f} s "
+                f"(built in {rec['lower_s']:.1f} s)")
+            cells.append(dict(arch=arch, shape=shape, mesh=mesh_kind, gb=gb,
+                              **{k: rec[k] for k in ("n_chips", "memory", "flops",
+                                                     "bytes_accessed", "collectives",
+                                                     "roofline", "trace_s", "lower_s")}))
+        out["dryrun"] = dict(cells=cells, wall_s=wall)
+        log(f"[dryrun] (b) {len(cells)} cells ok in {wall:.1f} s of wall time, all at once")
+
+        # (c) the 1x1 dry-run of phase 15 (a)'s step against the card
+        if codes["1x1"] != 0:
+            raise AssertionError(f"phase 16 (c): the 1x1 dry-run ended with {codes['1x1']}")
+        rec = json.loads((workdir / "dryrun_1x1.json").read_text().strip().splitlines()[-1])
+        batch_bytes = 2 * TRAIN_BATCH * TRAIN_SEQ * 4          # int32 tokens and targets
+        dry = rec["memory"]["argument_bytes"] - batch_bytes - 4  # less the int32 step
+        raw = out["train"]["param_moment_bytes"]
+        measured, asked = out["train"]["allocated_bytes"], out["train"]["requested_bytes"]
+        log(f"[dryrun] (c) 1x1 {TRAIN_ARCH} {TRAIN_BATCH}x{TRAIN_SEQ}: parameters and moments "
+            f"{dry} B by the dry-run, {raw} B by the card's model, {asked - 4} B requested "
+            f"from the allocator (its requested_bytes, less the step counter's 4); "
+            f"memory_allocated grew by {measured} B, its blocks rounded up "
+            f"({measured - asked} B more)")
+        if not dry == raw == asked - 4:
+            raise AssertionError(f"phase 16 (c): argument bytes {dry}, model {raw}, "
+                                 f"requested {asked - 4}")
+        peak_pred = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+        peak_meas = train.get("full", {}).get("peak_bytes")
+        bound_s = max(rec["roofline"][k] for k in ("compute_s", "memory_s", "collective_s"))
+        step_meas = train.get("full", {}).get("step_ms_median")
+        log(f"[dryrun] (c) predicted peak {peak_pred / 2**30:.2f} GiB (arguments + "
+            f"temporaries) against phase 15's measured {fmt_gib(peak_meas)}; roofline bound "
+            f"{bound_s * 1e3:.2f} ms ({rec['roofline']['dominant']}) against the step's "
+            f"{fmt_ms(step_meas)} measured in phase 15 and "
+            f"{statistics.median(out['train']['step_ms_meshless']):.2f} ms here | {card}")
+        out["dryrun_1x1"] = dict(argument_bytes=rec["memory"]["argument_bytes"],
+                                 param_moment_bytes=dry, allocated_bytes=measured,
+                                 predicted_peak_bytes=peak_pred, measured_peak_bytes=peak_meas,
+                                 flops=rec["flops"], bytes_accessed=rec["bytes_accessed"],
+                                 roofline=rec["roofline"], bound_ms=bound_s * 1e3,
+                                 step_ms=step_meas, trace_s=rec["trace_s"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["counts"] = path_counts
+    return out
+
+
+def fmt_gib(x) -> str:
+    return "not measured" if x is None else f"{x / 2**30:.2f} GiB"
+
+
 def fmt_share(x) -> str:
     return "not measured" if x is None else f"{x:.3f}"
 
@@ -2631,6 +2979,8 @@ def main() -> int:
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help="run as rank R of phase 13's four-rank mesh (the parent starts it)")
     ap.add_argument("--mesh-dir", type=str, default=None, help="phase 13's shared directory")
+    ap.add_argument("--lm-mesh-only", action="store_true",
+                    help="build the kernels and run phase 16 alone (a quick check of it)")
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank, args.mesh_dir)
@@ -2692,6 +3042,12 @@ def main() -> int:
         log(f"[build] SASS {row['function']}: {row['instructions']} instructions; hot loop "
             f"{loop['instructions']} over {loop['ex2']} MUFU.EX2 = "
             f"{loop['per_ex2']:.2f} instructions a pixel-entry")
+
+    if args.lm_mesh_only:
+        lmm = lm_mesh(torch, dev, card, {})
+        log(f"[lm_mesh] launches {json.dumps(lmm.pop('counts'))}")
+        print(json.dumps(lmm, default=str))
+        return 0
 
     # 2. scene, rigs, budgets --------------------------------------------------
     t0 = time.perf_counter()
@@ -3486,6 +3842,14 @@ def main() -> int:
     report["phases"]["train_s"] = time.perf_counter() - t_train
     log(f"[train] phase 15 took {report['phases']['train_s']:.1f} s")
 
+    # 16. the sharding context and the dry-run ---------------------------------
+    t_lmm = time.perf_counter()
+    lmm = lm_mesh(torch, dev, card, trained)
+    counts_lm_mesh = lmm.pop("counts")
+    report["lm_mesh"] = lmm
+    report["phases"]["lm_mesh_s"] = time.perf_counter() - t_lmm
+    log(f"[lm_mesh] phase 16 took {report['phases']['lm_mesh_s']:.1f} s")
+
     main_case = k7[0]            # phase 9's prefill shape, by construction
     kernels["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3501,7 +3865,8 @@ def main() -> int:
         by_path = {"session": counts_session[name], "fleet": counts_fleet[name],
                    "ragged": counts_ragged[name], "recovery": counts_recovery[name],
                    "mesh": counts_mesh[name], "lm": counts_lm[name],
-                   "families": counts_families[name], "train": counts_train[name]}
+                   "families": counts_families[name], "train": counts_train[name],
+                   "lm_mesh": counts_lm_mesh[name]}
         rows.append(dict(name=name, route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=sum(by_path.values()),
                          launches_by_path=by_path,

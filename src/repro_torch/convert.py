@@ -222,6 +222,88 @@ def unstack_from_jax(arrays: Mapping[str, object], cfg: ModelConfig,
     return out
 
 
+def axes_as_jax(axes: Mapping[str, tuple], cfg: ModelConfig) -> Dict[str, tuple]:
+    """The parameters' logical axes (`layers.param_axes`, keyed by the
+    port's names) keyed as the JAX `init` tree's axes, '/'-joined: a
+    stacked leaf's axes gain JAX's leading "layer" (its layers' axes must
+    agree)."""
+    out = {}
+    for key, parts in jax_layout(axes, cfg).items():
+        ax = {tuple(axes[n]) for n, _g in parts}
+        if len(ax) != 1:
+            raise ValueError(f"{key}: the port's layers disagree on axes {sorted(ax)}")
+        ax = ax.pop()
+        out[key] = ax if parts[0][1] is None else ("layer",) + ax
+    return out
+
+
+def cache_leaf_keys(cfg: ModelConfig, cache) -> List[Tuple[Tuple, str, Optional[int]]]:
+    """Where each leaf of the port's serving cache (`models/*.make_cache`)
+    sits in the JAX family's cache tree: (its path in the port's cache,
+    the JAX '/'-joined key, its index on the stacked leading axis)."""
+    fam = cfg.family
+    out: List[Tuple[Tuple, str, Optional[int]]] = [(("pos",), "pos", None)]
+
+    def entries(group: str, prefix_of):
+        for i, entry in enumerate(cache[group]):
+            prefix, g = prefix_of(i)
+            for name in entry:
+                out.append(((group, i, name), f"{prefix}{name}", g))
+
+    if fam in ("dense", "vlm"):
+        keys = dense_layer_keys(cfg)
+        entries("layers", lambda i: (keys[i][0] + "/", keys[i][1]))
+    elif fam in ("moe", "encdec"):
+        entries("layers", lambda i: ("", i))
+    elif fam == "hybrid":
+        k = zamba.group_size(cfg)
+        entries("mamba", lambda i: (f"mamba/m{i % k}/", i // k))
+        entries("attn", lambda i: ("attn_", i))
+    elif fam == "xlstm":
+        keys = xlstm_block_keys(cfg)
+        entries("layers", lambda i: (keys[i][0] + "/", keys[i][1]))
+    return out
+
+
+def cache_as_jax(tree, cfg: ModelConfig, like=None) -> Dict[str, object]:
+    """A tree in the port's cache layout, keyed as the JAX family's cache
+    tree ('/'-joined): tensors stacked on JAX's leading axes, or logical
+    axes with JAX's "layer" added where it stacks. `pos` becomes an int32
+    scalar tensor (on the leaves' device) or (). `like`: the cache whose
+    lists give the layout (`tree` itself by default)."""
+    groups: Dict[str, List[Tuple[Optional[int], object]]] = {}
+    for path, key, g in cache_leaf_keys(cfg, tree if like is None else like):
+        leaf = tree
+        for p in path:
+            leaf = leaf[p]
+        groups.setdefault(key, []).append((g, leaf))
+    out = {}
+    for key, parts in groups.items():
+        parts.sort(key=lambda gl: -1 if gl[0] is None else gl[0])
+        leaves = [leaf for _g, leaf in parts]
+        if isinstance(leaves[0], tuple):
+            if len(set(leaves)) != 1:
+                raise ValueError(f"{key}: the port's layers disagree on axes {set(leaves)}")
+            out[key] = leaves[0] if parts[0][0] is None else ("layer",) + leaves[0]
+        elif isinstance(leaves[0], int):
+            dev = next((t.device for t in _tensor_leaves(tree)), None)
+            out[key] = torch.tensor(leaves[0], dtype=torch.int32, device=dev)
+        else:
+            out[key] = leaves[0] if parts[0][0] is None else torch.stack(leaves)
+    return out
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensor_leaves(v)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
 def params_to_jax(model, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The inverse of `params_from_jax`: the model's parameters as the
     JAX `init` tree flattened with '/'-joined keys, pattern groups stacked.

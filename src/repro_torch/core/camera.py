@@ -69,6 +69,13 @@ class StereoRig:
         near = self.left.near if near is None else near
         return float(self.baseline) * float(self.left.focal) / near
 
+    def widened_left(self, max_disparity_px: int) -> Camera:
+        """The widened-FoV camera of shared preprocessing and binning (paper
+        Fig. 13): the left camera's image plane extended to the right by
+        `max_disparity_px` columns, which covers both eyes' frusta in
+        left-camera pixel coordinates, [0, W + max_disp)."""
+        return dataclasses.replace(self.left, width=self.left.width + int(max_disparity_px))
+
 
 
 def look_at(pos, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:

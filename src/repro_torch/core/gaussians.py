@@ -86,6 +86,15 @@ class Gaussians:
                          quat=self.quat.to(device), opacity=self.opacity.to(device),
                          sh=self.sh.to(device))
 
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (self.mu, self.log_scale, self.quat, self.opacity, self.sh))
+
+
+def bytes_per_gaussian(sh_degree: int, raw: bool = True) -> int:
+    """Uncompressed storage per Gaussian in float32 (mu3+ls3+q4+op1 + sh)."""
+    return 4 * (3 + 3 + 4 + 1 + 3 * sh_dim(sh_degree))
+
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """(…, 4) wxyz quaternion → (…, 3, 3) rotation matrix.

@@ -72,6 +72,10 @@ class LodTree:
     def device(self) -> torch.device:
         return self.size.device
 
+    def slab_gid(self, s, j):
+        """The global id of slab `s`'s node `j`."""
+        return self.meta.T + s * self.meta.S + j
+
     def top_mu(self) -> torch.Tensor:
         return self.gaussians.mu[: self.meta.T]
 

@@ -18,6 +18,15 @@ keys and values, GQA/MQA (query head h attends kv head h // (H/Hkv)).
   leaves those patterns to XLA outside any Pallas kernel as well; no
   kernel computes them in either package, so this is not a fall back.
 
+On DTensors (a model placed on a mesh, `sharding.partitioning`) the call
+runs per shard through `local_map`. Over the whole sequence, q, k and v
+are redistributed to batch over the data axes and heads over `model` (kv
+heads repeated for their query group where only the query heads divide
+it; replicated where neither does), and each rank attends its own batch
+rows and heads, so on the card K7 still launches, once a rank, on plain
+tensors. Against a cache, the cache stays as it lies and q follows it
+(`_attention_cached_sharded`).
+
 The two differ in two rounding points. K7 follows the Pallas body: it
 scales q in the input type, and it rounds the probabilities p to v's type
 before p·V. `attention_plain` follows the JAX `attention`: it upcasts q to
@@ -31,15 +40,74 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.sharding.context import (activation_rules, current_rules, logical_spec, pad_seq,
+                                          when_placed)
+from repro_torch.sharding.partitioning import to_placements
 
 _NEG_INF = -1e30
 
 IntLike = Union[int, torch.Tensor]
 
 
+def _attention_sharded(fn, q, k, v, **kw) -> torch.Tensor:
+    """`attention` (`fn`) on DTensors, one call a shard (module
+    docstring)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    if kw.get("kv_valid_len") is not None:
+        return _attention_cached_sharded(q, k, v, **kw)
+    mesh = q.device_mesh
+    rules = current_rules() or activation_rules(mesh)
+    logical = ("batch", None, "heads_act", None)
+    spec_q, spec_k = logical_spec(q.shape, logical, rules), logical_spec(k.shape, logical, rules)
+    if spec_q[2] is not None and spec_k[2] is None:
+        # kv heads do not divide `model` but q heads do: each kv head
+        # repeated for its query group, so that both split by head
+        b, sk, hkv, dh = k.shape
+        g = q.shape[2] // hkv
+        k, v = (t.unsqueeze(3).expand(b, sk, hkv, g, dh).reshape(b, sk, hkv * g, dh)
+                for t in (k, v))
+        spec_k = logical_spec(k.shape, logical, rules)
+    elif spec_q[2] != spec_k[2]:
+        spec_q, spec_k = spec_q[:2] + (None, None), spec_k[:2] + (None, None)
+    pl_q, pl_k = to_placements(spec_q, mesh, q.shape), to_placements(spec_k, mesh, k.shape)
+    return local_map(lambda ql, kl, vl: fn(ql, kl, vl, **kw), out_placements=list(pl_q),
+                     in_placements=(list(pl_q), list(pl_k), list(pl_k)), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _attention_cached_sharded(q, k, v, **kw) -> torch.Tensor:
+    """`attention` against a cache on DTensors (decode), once a shard: the
+    cache stays as it lies (batch, and its heads or head dim split; a
+    split sequence is gathered), q takes the same splits, and where the
+    head dim is split each chunk's scores are summed across its ranks
+    (an all-reduce) before the softmax, as XLA contracts a split dim."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) or p.is_shard(3) else Replicate()
+          for p in k.placements]
+    hd_split = [i for i, p in enumerate(pl) if p.is_shard(3)]
+    pl_q = [Replicate() if p.is_shard(0) and q.shape[0] == 1 else p for p in pl]
+
+    def scores_sum(s):
+        for i in hd_split:
+            s = funcol.all_reduce(s, "sum", (mesh, i))
+        return s
+
+    def local(ql, kl, vl):
+        return attention_plain(ql, kl, vl, head_dim=q.shape[-1],
+                               scores_sum=scores_sum if hd_split else None, **kw)
+
+    return local_map(local, out_placements=pl_q, in_placements=(pl_q, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+@when_placed(_attention_sharded)
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               window: int = 0,
@@ -73,22 +141,27 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0,
                     kv_valid_len: Optional[IntLike] = None,
                     kv_chunk: int = 1024,
-                    q_chunk: int = 0) -> torch.Tensor:
+                    q_chunk: int = 0,
+                    head_dim: Optional[int] = None,
+                    scores_sum=None) -> torch.Tensor:
     """The JAX package's chunked online softmax in torch ops: q upcast to
     float32 and scaled, kv chunks zero-padded to a whole chunk, masked
     scores set to -1e30, and with `q_chunk` an outer loop over query
-    blocks."""
+    blocks. On a shard of the head dim (`_attention_cached_sharded`),
+    `head_dim` is the whole one (the scale's) and `scores_sum` sums each
+    chunk's partial scores across the ranks."""
     if q_chunk and q.shape[1] > q_chunk and q.shape[1] % q_chunk == 0:
         outs = [attention_plain(q[:, i:i + q_chunk], k, v, causal=causal, window=window,
                                 prefix_len=prefix_len, q_offset=q_offset + i,
-                                kv_valid_len=kv_valid_len, kv_chunk=kv_chunk, q_chunk=0)
+                                kv_valid_len=kv_valid_len, kv_chunk=kv_chunk, q_chunk=0,
+                                head_dim=head_dim, scores_sum=scores_sum)
                 for i in range(0, q.shape[1], q_chunk)]
         return torch.cat(outs, dim=1)
     dev = q.device
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / ((head_dim or hd) ** 0.5)
 
     qg = (q.float() * scale).reshape(b, sq, hkv, g, hd)
     rows = q_offset + torch.arange(sq, device=dev)           # (Sq,) global rows
@@ -96,8 +169,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_chunk = min(kv_chunk, sk)
     n_chunks = -(-sk // kv_chunk)
     pad = n_chunks * kv_chunk - sk
-    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
-    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kp, vp = pad_seq(k, 0, pad), pad_seq(v, 0, pad)
 
     if kv_valid_len is None or isinstance(kv_valid_len, int):
         # a fill on the device, not a copy from the host (decode calls this
@@ -118,6 +190,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vci = vp[:, ci * kv_chunk:(ci + 1) * kv_chunk].float()
         cols = ci * kv_chunk + torch.arange(kv_chunk, device=dev)   # (C,) global cols
         s = torch.einsum("bqhgd,bchd->bqhgc", qg, kci)               # (B, Sq, Hkv, G, C)
+        if scores_sum is not None:
+            s = scores_sum(s)
 
         mask = cols[None, None, :] < valid_len[:, None, None]         # (B?, 1, C)
         mask = mask.expand(max(b, mask.shape[0]), sq, kv_chunk)

@@ -38,18 +38,20 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, Attention, apply_rope, chunked_ce, dense_init,
-                                       dtype_of, embed_init, param, qkv, remat, rmsnorm)
+from repro_torch.models.layers import (MLP, Attention, apply_rope, chunked_ce, dense_init, dtype_of,
+                                       embed_init, embed_lookup, generator, merge_heads, param, qkv,
+                                       remat, rmsnorm)
+from repro_torch.sharding.context import bshard, pad_seq, seq_whole_grad
 
 Cache = Dict[str, object]
 
 VISION_FEAT = 1152   # SigLIP width (paligemma's stub frontend)
+KV_AXES = ("batch", None, "kv_heads_c", "head_dim_c")   # a (B, S, Hkv, Dh) cache leaf
 
 
 # -- layer pattern -------------------------------------------------------------
@@ -86,6 +88,8 @@ class DenseBlock(nn.Module):
     """One pre-norm decoder layer: attention and an MLP, by default SwiGLU
     (the MoE family passes its routed one)."""
 
+    AXES = {"attn_norm": ("embed",), "mlp_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, window: int, dtype: torch.dtype, device,
                  gen: torch.Generator, mlp: Optional[nn.Module] = None):
         super().__init__()
@@ -104,10 +108,11 @@ class DenseBlock(nn.Module):
         return q, k, v
 
     def finish(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """Output projection, residual, MLP and residual."""
-        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ self.attn.wo
+        """Output projection, residual, MLP and residual (a block boundary,
+        `bshard`)."""
+        x = x + seq_whole_grad(merge_heads(o) @ self.attn.wo)
         h = rmsnorm(x, self.mlp_norm, self.cfg.norm_eps)
-        return x + self.mlp(h)
+        return bshard(x + self.mlp(h))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, kv_chunk: int = 1024,
                 prefix_len: Optional[int] = None, causal: bool = True):
@@ -130,6 +135,8 @@ class DenseLM(nn.Module):
     card unless the caller asks for the CPU), in `cfg.dtype`."""
 
     FAMILIES = ("dense", "vlm")
+    AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "final_norm": ("embed",), "img_proj": (None, "embed")}
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
         super().__init__()
@@ -138,7 +145,7 @@ class DenseLM(nn.Module):
                              f"not {cfg.family!r}")
         device = resolve_device(device)
         dtype = dtype_of(cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(seed, device)
         vp = cfg.vocab_padded
         self.cfg = cfg
         self.embed = param(embed_init(gen, (vp, cfg.d_model), dtype, device))
@@ -165,11 +172,15 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> DenseLM:
 
 
 def embed_inputs(model: DenseLM, tokens: torch.Tensor,
-                 img_embed: Optional[torch.Tensor] = None
+                 img_embed: Optional[torch.Tensor] = None, shard: bool = False
                  ) -> Tuple[torch.Tensor, Optional[int]]:
     """The token embeddings, with paligemma's projected image embeddings
-    in front → (x (B, [N_img +] S, D), prefix_len: N_img or None)."""
-    x = F.embedding(tokens, model.embed)
+    in front → (x (B, [N_img +] S, D), prefix_len: N_img or None). With
+    `shard` the token embeddings are a block boundary (`bshard`), as in
+    the reference's forward."""
+    x = embed_lookup(tokens, model.embed)
+    if shard:
+        x = bshard(x)
     if not model.cfg.n_img_tokens or img_embed is None:
         return x, None
     img = img_embed.to(x.dtype) @ model.img_proj
@@ -188,7 +199,7 @@ def forward(model: DenseLM, tokens: torch.Tensor, *,
     """tokens (B, S) → final hidden states (B, [N_img +] S, D). Each
     pattern group is one remat unit (`layers.remat`)."""
     cfg = model.cfg
-    x, prefix_len = embed_inputs(model, tokens, img_embed)
+    x, prefix_len = embed_inputs(model, tokens, img_embed, shard=True)
     positions = torch.arange(x.shape[1], device=tokens.device)
     pat, n_groups, _rem = layer_pattern(cfg)
     n = len(pat)
@@ -230,6 +241,12 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int, device: DeviceLike = None
     return {"pos": 0, "layers": [one(w) for w in layer_windows(cfg)]}
 
 
+def cache_axes(cfg: ModelConfig) -> Cache:
+    """The logical axes of `make_cache`'s tree, leaf for leaf (`pos`, a
+    Python int, has none: ())."""
+    return {"pos": (), "layers": [{"k": KV_AXES, "v": KV_AXES} for _ in layer_windows(cfg)]}
+
+
 def _cache_entry(t: torch.Tensor, win: int, s: int, max_len: int) -> torch.Tensor:
     """A prefill's (B, S, Hkv, Dh) keys or values as the layer caches them."""
     if win > 0:  # keep the last `win` positions, ring-aligned (slot = pos % win)
@@ -237,9 +254,9 @@ def _cache_entry(t: torch.Tensor, win: int, s: int, max_len: int) -> torch.Tenso
         t = t[:, s - wlen:]
         if wlen == win:
             return torch.roll(t, shifts=s % win, dims=1)
-        return F.pad(t, (0, 0, 0, 0, 0, win - wlen))   # pos p already sits at slot p
+        return pad_seq(t, 0, win - wlen)               # pos p already sits at slot p
     if max_len > s:  # room for subsequent decode steps
-        return F.pad(t, (0, 0, 0, 0, 0, max_len - s))
+        return pad_seq(t, 0, max_len - s)
     return t.contiguous()
 
 
@@ -275,7 +292,7 @@ def decode_step(model: DenseLM, cache: Cache, batch: Dict[str, torch.Tensor], *,
     cfg = model.cfg
     tok = batch["token"]
     pos = int(cache["pos"])
-    x = F.embedding(tok[:, None], model.embed)
+    x = embed_lookup(tok[:, None], model.embed)
     positions = torch.arange(pos, pos + 1, device=tok.device)
     for blk, kvc in zip(model.layers, cache["layers"]):
         h = rmsnorm(x, blk.attn_norm, cfg.norm_eps)

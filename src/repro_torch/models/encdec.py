@@ -31,15 +31,16 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import dense
 from repro_torch.models.dense import Cache, DenseBlock
 from repro_torch.models.layers import (Attention, chunked_ce, dense_init, dtype_of, embed_init,
-                                       param, remat, rmsnorm)
+                                       embed_lookup, generator, merge_heads, param, remat, rmsnorm)
+from repro_torch.sharding.context import bshard, gather_seq, pad_seq, seq_whole_grad
 
 AUDIO_FEAT = 1280
 
@@ -47,6 +48,8 @@ AUDIO_FEAT = 1280
 class DecoderBlock(DenseBlock):
     """A decoder layer: `DenseBlock`'s causal self-attention and MLP, with
     the cross-attention projections (no biases) and their norm between."""
+
+    AXES = {**DenseBlock.AXES, "cross_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device, gen: torch.Generator):
         super().__init__(cfg, 0, dtype, device, gen)
@@ -65,13 +68,13 @@ class DecoderBlock(DenseBlock):
         residual, the cross-attention to (kc, vc), the MLP."""
         cfg = self.cfg
         b, s = x.shape[:2]
-        x = x + o.reshape(b, s, -1) @ self.attn.wo
+        x = x + seq_whole_grad(merge_heads(o) @ self.attn.wo)
         h = rmsnorm(x, self.cross_norm, cfg.norm_eps)
-        qc = (h @ self.cross.wq).reshape(b, s, cfg.n_heads, cfg.hd)
+        qc = (gather_seq(h) @ self.cross.wq).reshape(b, s, cfg.n_heads, cfg.hd)
         oc = attention(qc, kc, vc, causal=False, kv_chunk=kv_chunk)
-        x = x + oc.reshape(b, s, -1) @ self.cross.wo
+        x = x + seq_whole_grad(merge_heads(oc) @ self.cross.wo)
         h = rmsnorm(x, self.mlp_norm, cfg.norm_eps)
-        return x + self.mlp(h)
+        return bshard(x + self.mlp(h))
 
 
 class EncDecLM(nn.Module):
@@ -80,13 +83,17 @@ class EncDecLM(nn.Module):
     `DenseBlock`s and `cfg.n_layers` `DecoderBlock`s, from `seed` on
     `device` (the card unless the caller asks for the CPU)."""
 
+    AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "final_norm": ("embed",), "audio_proj": (None, "embed"),
+            "enc_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"EncDecLM serves the encdec family, not {cfg.family!r}")
         device = resolve_device(device)
         dtype = dtype_of(cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(seed, device)
         vp, d = cfg.vocab_padded, cfg.d_model
         self.cfg = cfg
         self.audio_proj = param(dense_init(gen, (AUDIO_FEAT, d), dtype, device))
@@ -120,13 +127,15 @@ def _dec_layer(blk: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor,
 
 
 def encode(model: EncDecLM, frames: torch.Tensor, *, kv_chunk: int = 1024) -> torch.Tensor:
-    """frames (B, S_frames, 1280) → the encoder's output (B, S_frames, D).
-    Each layer is one remat unit (`layers.remat`), as in JAX."""
+    """frames (B, S_frames, 1280) → the encoder's output (B, S_frames, D),
+    whole over its frames on every rank of a mesh (each decoder layer's
+    cross K/V projects it). Each layer is one remat unit (`layers.remat`),
+    as in JAX."""
     x = frames.to(model.embed.dtype) @ model.audio_proj
     positions = torch.arange(x.shape[1], device=x.device)
     for blk in model.enc_layers:
         x = remat(_enc_layer, model.cfg, blk, x, positions, kv_chunk)
-    return rmsnorm(x, model.enc_norm, model.cfg.norm_eps)
+    return gather_seq(rmsnorm(x, model.enc_norm, model.cfg.norm_eps))
 
 
 def loss(model: EncDecLM, batch: Dict[str, torch.Tensor], *,
@@ -137,7 +146,7 @@ def loss(model: EncDecLM, batch: Dict[str, torch.Tensor], *,
     cfg = model.cfg
     enc_out = encode(model, batch["frames"], kv_chunk=kv_chunk)
     tokens = batch["tokens"]
-    x = F.embedding(tokens, model.embed)
+    x = embed_lookup(tokens, model.embed)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for blk in model.dec_layers:
         x = remat(_dec_layer, cfg, blk, x, enc_out, positions, kv_chunk)
@@ -159,7 +168,7 @@ def prefill(model: EncDecLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 
     tokens = batch["tokens"]
     s = tokens.shape[1]
     ml = max(max_len, s)
-    x = F.embedding(tokens, model.embed)
+    x = embed_lookup(tokens, model.embed)
     positions = torch.arange(s, device=tokens.device)
     layers: List[Dict[str, torch.Tensor]] = []
     for blk in model.dec_layers:
@@ -168,8 +177,8 @@ def prefill(model: EncDecLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 
         o = attention(q, k, v, causal=True, kv_chunk=kv_chunk)
         kc, vc = blk.cross_kv(enc_out)
         x = blk.self_and_cross(x, o, kc, vc, kv_chunk)
-        layers.append({"k": F.pad(k, (0, 0, 0, 0, 0, ml - s)),
-                       "v": F.pad(v, (0, 0, 0, 0, 0, ml - s)), "ck": kc, "cv": vc})
+        layers.append({"k": pad_seq(k, 0, ml - s), "v": pad_seq(v, 0, ml - s),
+                       "ck": kc, "cv": vc})
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = (x[:, -1] @ model.unembed).float()
     return logits, {"pos": s, "layers": layers}
@@ -188,6 +197,13 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int, device: DeviceLike = None
                                   "cv": zeros(s_audio)} for _ in range(cfg.n_layers)]}
 
 
+def cache_axes(cfg: ModelConfig) -> Cache:
+    """The logical axes of `make_cache`'s tree, leaf for leaf."""
+    kv = dense.KV_AXES
+    return {"pos": (), "layers": [{"k": kv, "v": kv, "ck": kv, "cv": kv}
+                                  for _ in range(cfg.n_layers)]}
+
+
 @torch.no_grad()
 def decode_step(model: EncDecLM, cache: Cache, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 2048) -> Tuple[torch.Tensor, Cache]:
@@ -197,7 +213,7 @@ def decode_step(model: EncDecLM, cache: Cache, batch: Dict[str, torch.Tensor], *
     cfg = model.cfg
     tok = batch["token"]
     pos = int(cache["pos"])
-    x = F.embedding(tok[:, None], model.embed)
+    x = embed_lookup(tok[:, None], model.embed)
     positions = torch.arange(pos, pos + 1, device=tok.device)
     for blk, kvc in zip(model.dec_layers, cache["layers"]):
         h = rmsnorm(x, blk.attn_norm, cfg.norm_eps)

@@ -20,16 +20,23 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, param, rmsnorm
+from repro_torch.models.layers import BSHD, dense_init, param, rmsnorm
+from repro_torch.sharding.context import (bshard, gather_seq, over_batch_heads, pad_seq,
+                                          seq_whole_grad)
 
 State = Dict[str, torch.Tensor]
 
 
+@over_batch_heads((BSHD, ("batch", None, "heads"), ("heads",), ("batch", None, None),
+                   ("batch", None, None), None, ("batch", "heads", None, None)),
+                  (BSHD, ("batch", "heads", None, None)))
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch.Tensor,
                 C_mat: torch.Tensor, chunk: int = 64,
                 state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, H, P); dt: (B, S, H); A: (H,) negative; B_mat/C_mat: (B, S, N).
-    Returns (y (B, S, H, P) float32, state (B, H, P, N) float32)."""
+    Returns (y (B, S, H, P) float32, state (B, H, P, N) float32). On
+    DTensors, once a shard: each rank scans its own batch rows and heads
+    over the whole sequence; B and C are shared by the heads."""
     b, s, nh, p = x.shape
     n = B_mat.shape[-1]
     chunk = min(chunk, s)
@@ -69,9 +76,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch
     return y[:, :s], state
 
 
+@over_batch_heads((("batch", "heads", None, None), ("batch", "heads", None), ("batch", "heads"),
+                   ("heads",), ("batch", None), ("batch", None)),
+                  (("batch", "heads", None, None), ("batch", "heads", None)), key=1)
 def ssd_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_vec: torch.Tensor, C_vec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-token step. x: (B, H, P); dt: (B, H); B_vec/C_vec: (B, N)."""
+    """One-token step. x: (B, H, P); dt: (B, H); B_vec/C_vec: (B, N). On
+    DTensors, once a shard, as `ssd_chunked`."""
     xf = x.float()
     dec = torch.exp(dt * A)                              # (B, H)
     state = (state * dec[..., None, None]
@@ -86,7 +97,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state: Optional[torch.Te
     float32, new_state (B, K−1, C) in x's type)."""
     k = w.shape[0]
     if conv_state is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
+        xp = pad_seq(x, k - 1, 0)
     else:
         xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
     new_state = xp[:, -(k - 1):] if k > 1 else x.new_zeros((x.shape[0], 0, x.shape[2]))
@@ -98,6 +109,10 @@ class Mamba2Block(nn.Module):
     """One Mamba2 block's parameters (the JAX `block_init`): norm, in_proj
     (d, 2·di + 2·N + H), conv_w (K, di + 2·N) float32, A_log, D and dt_bias
     (H,) float32, gate_norm (di,), out_proj (di, d)."""
+
+    AXES = {"norm": ("embed",), "in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+            "A_log": ("mheads",), "D": ("mheads",), "dt_bias": ("mheads",),
+            "gate_norm": ("inner",), "out_proj": ("inner", "embed")}
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device, gen: torch.Generator):
         super().__init__()
@@ -135,7 +150,7 @@ def apply_prefill(x: torch.Tensor, p: Mamba2Block, cfg: ModelConfig, chunk: int 
     {"ssd" (B, H, P, N), "conv" (B, K−1, di + 2N)}, both float32)."""
     b, s, _d = x.shape
     h = rmsnorm(x, p.norm, cfg.norm_eps)
-    z, xbc, dt_raw, di, n, nh = _split_proj(h @ p.in_proj, cfg)
+    z, xbc, dt_raw, di, n, nh = _split_proj(seq_whole_grad(gather_seq(h) @ p.in_proj), cfg)
     xbc, conv_state = _causal_conv(xbc, p.conv_w)
     xs = xbc[..., :di].reshape(b, s, nh, cfg.mamba_headdim)
     B_mat = xbc[..., di:di + n]
@@ -146,7 +161,8 @@ def apply_prefill(x: torch.Tensor, p: Mamba2Block, cfg: ModelConfig, chunk: int 
     y = y + p.D[None, None, :, None] * xs.float()
     y = y.reshape(b, s, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
-    return x + y @ p.out_proj, {"ssd": ssd_state, "conv": conv_state.float()}
+    out = seq_whole_grad(gather_seq(y) @ p.out_proj)
+    return bshard(x + out), {"ssd": ssd_state, "conv": conv_state.float()}
 
 
 def apply(x: torch.Tensor, p: Mamba2Block, cfg: ModelConfig, chunk: int = 64
@@ -170,12 +186,17 @@ def make_state(cfg: ModelConfig, batch: int, device: DeviceLike = None) -> State
     }
 
 
+def state_axes() -> Dict[str, tuple]:
+    """The logical axes of `make_state`'s leaves."""
+    return {"ssd": ("batch", "mheads", None, None), "conv": ("batch", None, "inner")}
+
+
 def apply_decode(x: torch.Tensor, p: Mamba2Block, st: State, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, State]:
     """One-token step. x: (B, 1, D) → (x + the block's output, new state)."""
     b = x.shape[0]
     h = rmsnorm(x, p.norm, cfg.norm_eps)
-    z, xbc, dt_raw, di, n, nh = _split_proj(h @ p.in_proj, cfg)
+    z, xbc, dt_raw, di, n, nh = _split_proj(seq_whole_grad(gather_seq(h) @ p.in_proj), cfg)
     xbc, conv_state = _causal_conv(xbc, p.conv_w, conv_state=st["conv"])
     xs = xbc[:, 0, :di].reshape(b, nh, cfg.mamba_headdim)
     B_vec = xbc[:, 0, di:di + n]

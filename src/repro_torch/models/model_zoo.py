@@ -7,18 +7,25 @@ seed on a device instead of returning a parameter tree. Every family of
 and hybrid (Zamba2). The frontends are stubs, as in the JAX package: a
 paligemma prefill takes `img_embed` (B, n_img_tokens, VISION_FEAT), a
 seamless one `frames` (B, S // audio_downsample, AUDIO_FEAT), and so does
-a train batch, beside `tokens` and `targets` (`stub_shapes`). The dry-run
-stand-ins (`input_specs`, `batch_logical_axes`, `abstract_params`) come
-with `launch/*`.
+a train batch, beside `tokens` and `targets` (`stub_shapes`).
+
+The dry-run's stand-ins allocate nothing: `ModelBundle.abstract_params`
+builds the module on the meta device and returns its parameters with their
+logical axes (`layers.param_axes`), `abstract_cache` does the same for a
+cache, and `input_specs` / `batch_logical_axes` give every input of an
+(arch × shape) cell as meta tensors of the reference's shapes and dtypes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
+
+import torch
 
 from repro_torch.models import dense, encdec, moe, xlstm, zamba
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.layers import param_axes
 
 VISION_FEAT = dense.VISION_FEAT
 AUDIO_FEAT = encdec.AUDIO_FEAT
@@ -79,6 +86,18 @@ class ModelBundle:
     prefill: Callable       # (model, batch, max_len=0) -> (logits, cache)
     decode_step: Callable   # (model, cache, batch) -> (logits, cache)
     make_cache: Callable    # (batch, seq, device=None) -> cache
+    cache_axes: Callable    # () -> logical axes of the cache, leaf for leaf
+
+    def abstract_params(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+        """({parameter name: meta tensor}, {parameter name: logical axes}),
+        from the module built on the meta device: no allocation."""
+        module = self.init(seed=0, device="meta")
+        return ({n: p.detach() for n, p in module.named_parameters()},
+                param_axes(module))
+
+    def abstract_cache(self, batch: int, seq: int) -> Tuple[Any, Any]:
+        """(the cache of `make_cache` on the meta device, its logical axes)."""
+        return self.make_cache(batch, seq, device="meta"), self.cache_axes()
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
@@ -90,4 +109,41 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
         prefill=lambda m, b, max_len=0: fam.prefill(m, b, max_len=max_len),
         decode_step=lambda m, c, b: fam.decode_step(m, c, b),
         make_cache=lambda batch, seq, device=None: fam.make_cache(cfg, batch, seq, device),
+        cache_axes=lambda: fam.cache_axes(cfg),
     )
+
+
+# ---------------------------------------------------------------------------
+# input specs (dry-run stand-ins)
+# ---------------------------------------------------------------------------
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, tuple]:
+    if shape.mode in ("train", "prefill"):
+        ax: Dict[str, tuple] = {"tokens": ("batch", None)}
+        if shape.mode == "train":
+            ax["targets"] = ("batch", None)
+        if cfg.family == "vlm":
+            ax["img_embed"] = ("batch", None, None)
+        if cfg.family == "encdec":
+            ax["frames"] = ("batch", None, None)
+        return ax
+    return {"token": ("batch",)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for one (arch × shape) cell's inputs: a train
+    or prefill batch, or a decode step's one new token a sequence."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.mode in ("train", "prefill"):
+        batch = {"tokens": meta((b, s), torch.int32)}
+        if shape.mode == "train":
+            batch["targets"] = meta((b, s), torch.int32)
+        for name, shp in stub_shapes(cfg, s).items():
+            batch[name] = meta((b,) + shp, torch.float32)
+        return batch
+    return {"token": meta((b,), torch.int32)}

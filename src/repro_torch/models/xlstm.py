@@ -31,8 +31,10 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.dense import Cache
-from repro_torch.models.layers import (chunked_ce, dense_init, dtype_of, embed_init, param,
-                                       remat, rmsnorm)
+from repro_torch.models.layers import (BSHD, chunked_ce, dense_init, dtype_of, embed_init,
+                                       embed_lookup, generator, merge_heads, param, remat, rmsnorm,
+                                       split_heads)
+from repro_torch.sharding.context import constrain, gather_seq, over_batch_heads, seq_whole_grad
 
 _NEG = -1e30
 
@@ -40,9 +42,16 @@ _NEG = -1e30
 # -- mLSTM core ------------------------------------------------------------------
 
 
+_BSH = ("batch", None, "heads")
+_BHD = ("batch", "heads", None)
+_MLSTM_STATE = (("batch", "heads", None, None), ("batch", "heads", None), ("batch", "heads"))
+
+
+@over_batch_heads((BSHD, BSHD, BSHD, _BSH, _BSH, None, _MLSTM_STATE), (BSHD, _MLSTM_STATE))
 def mlstm_chunked(q, k, v, log_f, log_i, chunk: int = 64, state: Optional[Tuple] = None):
     """q, k, v: (B, S, H, Dh); log_f, log_i: (B, S, H). Returns (h (B, S,
-    H, Dh) float32, state = (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H)))."""
+    H, Dh) float32, state = (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H))). On
+    DTensors, once a shard: each rank its own batch rows and heads."""
     b, s, nh, dh = q.shape
     chunk = min(chunk, s)
     nc = -(-s // chunk)
@@ -105,8 +114,11 @@ def mlstm_chunked(q, k, v, log_f, log_i, chunk: int = 64, state: Optional[Tuple]
     return h[:, :s], (c_st, n_st, m_st)
 
 
+@over_batch_heads((_MLSTM_STATE, _BHD, _BHD, _BHD, ("batch", "heads"), ("batch", "heads")),
+                  (_MLSTM_STATE, _BHD), key=1)
 def mlstm_recurrent_step(state, q, k, v, log_f, log_i):
-    """One-token step. q, k, v: (B, H, Dh); gates: (B, H)."""
+    """One-token step. q, k, v: (B, H, Dh); gates: (B, H). On DTensors,
+    once a shard, as `mlstm_chunked`."""
     c_st, n_st, m_st = state
     dh = q.shape[-1]
     q = q.float() / (dh ** 0.5)
@@ -125,10 +137,16 @@ def mlstm_recurrent_step(state, q, k, v, log_f, log_i):
 # -- sLSTM core (sequential, scalar memory with exponential gating) -----------------
 
 
+_SLSTM_STATE = (("batch", "heads", None),) * 4
+
+
+@over_batch_heads((("batch", None, "heads", None, None), ("heads", None, None, None),
+                   _SLSTM_STATE), (BSHD, _SLSTM_STATE))
 def slstm_scan(x_gates: torch.Tensor, r_weights: torch.Tensor, state: Optional[Tuple] = None):
     """x_gates: (B, S, H, 4, Dh) input preactivations (i, f, z, o);
     r_weights: (H, 4, Dh, Dh) recurrent block-diagonal weights.
-    Returns (h (B, S, H, Dh) float32, state (c, n, h, m))."""
+    Returns (h (B, S, H, Dh) float32, state (c, n, h, m)). On DTensors,
+    once a shard: each rank steps its own batch rows and heads."""
     b, s, nh, _, dh = x_gates.shape
     if state is None:
         state = tuple(torch.zeros((b, nh, dh), dtype=torch.float32, device=x_gates.device)
@@ -164,6 +182,10 @@ class MLSTMBlock(nn.Module):
     head_norm (di,), w_down (di, d); di = mamba_expand · d."""
 
     kind = "m"
+    AXES = {"norm": ("embed",), "w_up": ("embed", "inner"), "w_z": ("embed", "inner"),
+            "wq": ("inner_fsdp", "inner"), "wk": ("inner_fsdp", "inner"),
+            "wv": ("inner_fsdp", "inner"), "w_gates": ("embed", None),
+            "head_norm": ("inner",), "w_down": ("inner", "embed")}
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device, gen: torch.Generator):
         super().__init__()
@@ -184,6 +206,8 @@ class SLSTMBlock(nn.Module):
     """norm, w_in (d, H·4·Dh), r (H, 4, Dh, Dh) float32, w_out (d, d); Dh = d / H."""
 
     kind = "s"
+    AXES = {"norm": ("embed",), "w_in": ("embed", "inner"),
+            "r": ("mheads", None, None, None), "w_out": ("embed", "embed_out")}
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device, gen: torch.Generator):
         super().__init__()
@@ -201,9 +225,10 @@ def _mlstm_qkv_gates(x, p: MLSTMBlock, cfg: ModelConfig):
     nh = cfg.n_heads
     dh = cfg.mamba_expand * d // nh
     h = rmsnorm(x, p.norm, cfg.norm_eps)
+    h = gather_seq(h)
     u = h @ p.w_up
     z = h @ p.w_z
-    q, k, v = ((u @ w).reshape(b, s, nh, dh) for w in (p.wq, p.wk, p.wv))
+    q, k, v = (split_heads(u @ w, nh, dh) for w in (p.wq, p.wk, p.wv))
     gates = (h @ p.w_gates).float()
     log_i = gates[..., :nh]
     log_f = -F.softplus(-gates[..., nh:])                # log σ(f̃)
@@ -212,15 +237,16 @@ def _mlstm_qkv_gates(x, p: MLSTMBlock, cfg: ModelConfig):
 
 def _mlstm_out(x, o, z, p: MLSTMBlock, cfg: ModelConfig) -> torch.Tensor:
     b, s, _d = x.shape
-    o = rmsnorm(o.reshape(b, s, -1).to(x.dtype), p.head_norm, cfg.norm_eps)
-    return x + (o * F.silu(z)) @ p.w_down
+    o = rmsnorm(merge_heads(o).to(x.dtype), p.head_norm, cfg.norm_eps)
+    return x + seq_whole_grad(gather_seq(o * F.silu(z)) @ p.w_down)
 
 
 def _mlstm_apply(x, p: MLSTMBlock, cfg: ModelConfig, chunk: int, state=None):
     z, q, k, v, log_f, log_i = _mlstm_qkv_gates(x, p, cfg)
     o, new_state = mlstm_chunked(q, k, v, log_f, log_i, chunk=chunk, state=state)
-    return _mlstm_out(x, o, z, p, cfg), {"c": new_state[0], "n": new_state[1],
-                                         "m": new_state[2]}
+    # batch-only boundary: the chunk reshape fights seq-parallel sharding
+    return constrain(_mlstm_out(x, o, z, p, cfg), ("batch", None, None)), {
+        "c": new_state[0], "n": new_state[1], "m": new_state[2]}
 
 
 def _mlstm_decode(x, p: MLSTMBlock, st, cfg: ModelConfig):
@@ -231,18 +257,22 @@ def _mlstm_decode(x, p: MLSTMBlock, st, cfg: ModelConfig):
                                                   "m": state[2]}
 
 
-def _slstm_apply(x, p: SLSTMBlock, cfg: ModelConfig, state=None):
+def _slstm_apply(x, p: SLSTMBlock, cfg: ModelConfig, state=None, boundary: bool = True):
+    """The sLSTM block; `boundary` constrains its output (the prefill and
+    train forms; the reference's decode does not)."""
     b, s, d = x.shape
     nh = cfg.n_heads
     h = rmsnorm(x, p.norm, cfg.norm_eps)
-    gates = (h @ p.w_in).reshape(b, s, nh, 4, d // nh)
+    gates = split_heads(gather_seq(h) @ p.w_in, nh, 4 * (d // nh)).reshape(b, s, nh, 4, d // nh)
     o, st = slstm_scan(gates, p.r, state=state)
-    y = o.reshape(b, s, d).to(x.dtype) @ p.w_out
-    return x + y, {"c": st[0], "n": st[1], "h": st[2], "m": st[3]}
+    y = seq_whole_grad(gather_seq(merge_heads(o).to(x.dtype)) @ p.w_out)
+    out = constrain(x + y, ("batch", None, None)) if boundary else x + y
+    return out, {"c": st[0], "n": st[1], "h": st[2], "m": st[3]}
 
 
 def _slstm_decode(x, p: SLSTMBlock, st, cfg: ModelConfig):
-    return _slstm_apply(x, p, cfg, state=(st["c"], st["n"], st["h"], st["m"]))
+    return _slstm_apply(x, p, cfg, state=(st["c"], st["n"], st["h"], st["m"]),
+                        boundary=False)
 
 
 # -- full model -------------------------------------------------------------------
@@ -270,13 +300,16 @@ class XLSTMLM(nn.Module):
     `cfg.n_layers` blocks in `block_kinds` order, from `seed` on `device`
     (the card unless the caller asks for the CPU)."""
 
+    AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "final_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
         super().__init__()
         if cfg.family != "xlstm":
             raise ValueError(f"XLSTMLM serves the xlstm family, not {cfg.family!r}")
         device = resolve_device(device)
         dtype = dtype_of(cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(seed, device)
         vp, d = cfg.vocab_padded, cfg.d_model
         self.cfg = cfg
         self.embed = param(embed_init(gen, (vp, d), dtype, device))
@@ -306,7 +339,7 @@ def forward(model: XLSTMLM, tokens: torch.Tensor, *, chunk: int = 64) -> torch.T
     cfg = model.cfg
     pat, n_groups, _rem = _pattern(cfg)
     n = len(pat)
-    x = F.embedding(tokens, model.embed)
+    x = embed_lookup(tokens, model.embed)
     for g in range(n_groups):
         x = remat(_run_blocks, cfg, model.blocks[g * n:(g + 1) * n], cfg, x, chunk)
     x = _run_blocks(model.blocks[n_groups * n:], cfg, x, chunk)
@@ -344,6 +377,15 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int, device: DeviceLike = None
     return {"pos": 0, "layers": [state(kind) for kind in block_kinds(cfg)]}
 
 
+def cache_axes(cfg: ModelConfig) -> Cache:
+    """The logical axes of `make_cache`'s tree, leaf for leaf."""
+    m_ax = {"c": ("batch", "mheads", None, None), "n": ("batch", "mheads", None),
+            "m": ("batch", "mheads")}
+    s_ax = {n: ("batch", "mheads", None) for n in ("c", "n", "h", "m")}
+    return {"pos": (), "layers": [dict(m_ax if kind == "m" else s_ax)
+                                  for kind in block_kinds(cfg)]}
+
+
 @torch.no_grad()
 def prefill(model: XLSTMLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1024,
             max_len: int = 0, chunk: int = 64) -> Tuple[torch.Tensor, Cache]:
@@ -354,7 +396,7 @@ def prefill(model: XLSTMLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1
     del kv_chunk, max_len
     cfg = model.cfg
     tokens = batch["tokens"]
-    x = F.embedding(tokens, model.embed)
+    x = embed_lookup(tokens, model.embed)
     states = []
     for blk in model.blocks:
         if blk.kind == "m":
@@ -374,7 +416,7 @@ def decode_step(model: XLSTMLM, cache: Cache, batch: Dict[str, torch.Tensor], *,
     `cache`. → (logits (B, Vp) float32, cache) with `pos` advanced."""
     del kv_chunk
     cfg = model.cfg
-    x = F.embedding(batch["token"][:, None], model.embed)
+    x = embed_lookup(batch["token"][:, None], model.embed)
     for i, blk in enumerate(model.blocks):
         step = _mlstm_decode if blk.kind == "m" else _slstm_decode
         x, cache["layers"][i] = step(x, blk, cache["layers"][i], cfg)

@@ -23,16 +23,17 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import mamba2
+from repro_torch.models import dense, mamba2
 from repro_torch.models.attention import attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.dense import Cache
-from repro_torch.models.layers import (MLP, Attention, apply_rope, chunked_ce, dense_init,
-                                       dtype_of, embed_init, param, qkv, remat, rmsnorm)
+from repro_torch.models.layers import (MLP, Attention, apply_rope, chunked_ce, dense_init, dtype_of,
+                                       embed_init, embed_lookup, generator, merge_heads, param, qkv,
+                                       remat, rmsnorm)
+from repro_torch.sharding.context import bshard, gather_seq, pad_seq, seq_whole_grad
 
 
 def group_size(cfg: ModelConfig) -> int:
@@ -46,6 +47,9 @@ def group_size(cfg: ModelConfig) -> int:
 class SharedBlock(nn.Module):
     """fuse (2d, d), attn_norm, mlp_norm, the attention projections, the
     SwiGLU MLP and out (d, d)."""
+
+    AXES = {"fuse": ("embed", "embed_out"), "out": ("embed", "embed_out"),
+            "attn_norm": ("embed",), "mlp_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device, gen: torch.Generator):
         super().__init__()
@@ -64,6 +68,9 @@ class ZambaLM(nn.Module):
     g·attn_every + j) and the `SharedBlock`, from `seed` on `device` (the
     card unless the caller asks for the CPU)."""
 
+    AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "final_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
         super().__init__()
         if cfg.family != "hybrid":
@@ -71,7 +78,7 @@ class ZambaLM(nn.Module):
         group_size(cfg)
         device = resolve_device(device)
         dtype = dtype_of(cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(seed, device)
         vp, d = cfg.vocab_padded, cfg.d_model
         self.cfg = cfg
         self.embed = param(embed_init(gen, (vp, d), dtype, device))
@@ -89,7 +96,7 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> ZambaLM:
 def _fused_qkv(x, x0, sp: SharedBlock, cfg: ModelConfig, positions):
     """The shared block up to attention: h = [x, x0]·fuse, and the roped
     q, k and v of rmsnorm(h)."""
-    h = torch.cat([x, x0], dim=-1) @ sp.fuse
+    h = torch.cat([gather_seq(x), gather_seq(x0)], dim=-1) @ sp.fuse
     q, k, v = qkv(rmsnorm(h, sp.attn_norm, cfg.norm_eps), sp.attn, cfg)
     return h, apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
@@ -97,15 +104,15 @@ def _fused_qkv(x, x0, sp: SharedBlock, cfg: ModelConfig, positions):
 def _shared_finish(x, h, o, sp: SharedBlock, cfg: ModelConfig) -> torch.Tensor:
     """The shared block after attention: projection and residual on h, the
     MLP, then `out` onto the residual stream x."""
-    h = h + o.reshape(o.shape[0], o.shape[1], -1) @ sp.attn.wo
+    h = h + merge_heads(o) @ sp.attn.wo
     h = h + sp.mlp(rmsnorm(h, sp.mlp_norm, cfg.norm_eps))
-    return x + h @ sp.out
+    return x + seq_whole_grad(gather_seq(h) @ sp.out)
 
 
 def _shared_apply(x, x0, sp: SharedBlock, cfg: ModelConfig, positions, kv_chunk: int):
     h, q, k, v = _fused_qkv(x, x0, sp, cfg, positions)
     o = attention(q, k, v, causal=True, kv_chunk=kv_chunk)
-    return _shared_finish(x, h, o, sp, cfg), (k, v)
+    return bshard(_shared_finish(x, h, o, sp, cfg)), (k, v)
 
 
 def _group(blocks, sp: SharedBlock, cfg: ModelConfig, x, x0, positions, kv_chunk: int,
@@ -122,7 +129,7 @@ def forward(model: ZambaLM, tokens: torch.Tensor, *, kv_chunk: int = 1024,
     remat unit (`layers.remat`), as in JAX."""
     cfg = model.cfg
     k = group_size(cfg)
-    x = F.embedding(tokens, model.embed)
+    x = embed_lookup(tokens, model.embed)
     x0 = x
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for g in range(cfg.n_layers // k):
@@ -152,6 +159,13 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int, device: DeviceLike = None
                      for _ in range(cfg.n_layers // group_size(cfg))]}
 
 
+def cache_axes(cfg: ModelConfig) -> Cache:
+    """The logical axes of `make_cache`'s tree, leaf for leaf."""
+    kv = dense.KV_AXES
+    return {"pos": (), "mamba": [mamba2.state_axes() for _ in range(cfg.n_layers)],
+            "attn": [{"k": kv, "v": kv} for _ in range(cfg.n_layers // group_size(cfg))]}
+
+
 @torch.no_grad()
 def prefill(model: ZambaLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1024,
             max_len: int = 0, chunk: int = 64) -> Tuple[torch.Tensor, Cache]:
@@ -163,7 +177,7 @@ def prefill(model: ZambaLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1
     tokens = batch["tokens"]
     s = tokens.shape[1]
     ml = max(max_len, s)
-    x = F.embedding(tokens, model.embed)
+    x = embed_lookup(tokens, model.embed)
     x0 = x
     positions = torch.arange(s, device=tokens.device)
     states, kvs = [], []
@@ -172,8 +186,7 @@ def prefill(model: ZambaLM, batch: Dict[str, torch.Tensor], *, kv_chunk: int = 1
         states.append(st)
         if i % k == k - 1:
             x, (kk, vv) = _shared_apply(x, x0, model.shared, cfg, positions, kv_chunk)
-            kvs.append({"k": F.pad(kk, (0, 0, 0, 0, 0, ml - s)),
-                        "v": F.pad(vv, (0, 0, 0, 0, 0, ml - s))})
+            kvs.append({"k": pad_seq(kk, 0, ml - s), "v": pad_seq(vv, 0, ml - s)})
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = (x[:, -1] @ model.unembed).float()
     return logits, {"pos": s, "mamba": states, "attn": kvs}
@@ -189,7 +202,7 @@ def decode_step(model: ZambaLM, cache: Cache, batch: Dict[str, torch.Tensor], *,
     k = group_size(cfg)
     tok = batch["token"]
     pos = int(cache["pos"])
-    x = F.embedding(tok[:, None], model.embed)
+    x = embed_lookup(tok[:, None], model.embed)
     x0 = x
     positions = torch.arange(pos, pos + 1, device=tok.device)
     sp = model.shared

@@ -24,6 +24,11 @@ class RenderPlan:
     left: TileLists
     right: TileLists
 
+    @property
+    def overflow(self) -> torch.Tensor:
+        """() bool: any budget (pairs, list, merge) exceeded anywhere."""
+        return self.left.overflow | self.right.overflow
+
 
 @dataclasses.dataclass(frozen=True)
 class StereoFrameStats:

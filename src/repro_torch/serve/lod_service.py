@@ -88,6 +88,12 @@ class ServiceState:
     def capacity(self) -> int:
         return self.sync_index.shape[0]
 
+    @property
+    def n_clients(self) -> int:
+        """The slot capacity, as the reference's property (the live count
+        is `fleet.active`)."""
+        return self.sync_index.shape[0]
+
 
 @dataclasses.dataclass(frozen=True)
 class ServiceStats:

@@ -9,7 +9,9 @@ parameters and moments in place under `torch.no_grad()`, the port's form of
 the reference's donated buffers: a second copy of the float32 moments would
 not fit beside a large model. Its arithmetic follows the reference op by
 op, with its rounding points: the update in float32, each parameter cast
-back to its own type last.
+back to its own type last. On a mesh each parameter's update runs once a
+shard (`_update_sharded`): it is elementwise, so no rank needs another's
+entries, and DTensor need not place its twenty-odd ops one by one.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import math
 from typing import Dict, Mapping, Tuple, Union
 
 import torch
+
+from repro_torch.sharding.context import when_placed
 
 Named = Mapping[str, torch.Tensor]
 
@@ -66,10 +70,36 @@ def init(params: Named) -> AdamWState:
            for n, p in params.items()})
 
 
+def state_axes(param_axes: Dict[str, tuple]) -> AdamWState:
+    """The state's logical axes: m and v mirror the parameters'."""
+    return AdamWState(step=(), m=param_axes, v=param_axes)
+
+
 def global_norm(tree: Named) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _update_sharded(fn, p, g, m, v, *rest):
+    """`_update` on DTensors, once a shard: the gradient and the moments on
+    the parameter's placements, the scalars replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl, rep = list(p.placements), [Replicate()] * p.device_mesh.ndim
+    specs = (pl,) * 4 + tuple(rep if isinstance(r, DTensor) else None for r in rest)
+    return local_map(fn, out_placements=None, in_placements=specs, device_mesh=p.device_mesh,
+                     redistribute_inputs=True)(p, g, m, v, *rest)
+
+
+@when_placed(_update_sharded)
+def _update(p, g, m, v, scale, lr, b1c, b2c, cfg: OptimizerConfig) -> None:
+    """One parameter's AdamW update, written into p, m and v."""
+    g = g.float() * scale
+    m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+    v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p.float()
+    p.copy_((p.float() - lr * delta).to(p.dtype))
 
 
 @torch.no_grad()
@@ -85,10 +115,5 @@ def apply_updates(params: Named, grads: Named, state: AdamWState, cfg: Optimizer
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m, v = state.m[name], state.v[name]
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        _update(p, grads[name], state.m[name], state.v[name], scale, lr, b1c, b2c, cfg)
     return params, AdamWState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}

@@ -9,8 +9,10 @@ is keyed and stacked as JAX's parameter tree: `convert.stack_as_jax`),
 and writes the AdamW update into the model in place (`optimizer`).
 On the card the forward's self-attention launches K7 (`models.attention`).
 
-The reference's sharding annotations (`sharding.context.activation_rules`,
-`use_rules`) are the identity on one device; they come with `launch/*`.
+On a mesh the module's parameters are DTensors (`sharding.partitioning`
+`shard_module`) and the step runs unchanged under the caller's
+`sharding.context.use_rules`, as the reference's does under its
+`activation_rules`; without rules the annotations are the identity.
 """
 
 from __future__ import annotations
@@ -22,6 +24,16 @@ import torch
 from repro_torch import convert
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.train import grad_compress, optimizer as opt
+
+
+def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient on its parameter's placements: on a mesh, a gradient
+    pending a sum over the data ranks is reduce-scattered onto the
+    parameter's shards, as XLA reduces FSDP gradients. A plain tensor as it
+    is."""
+    if hasattr(g, "placements") and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_loss_fn(model: ModelBundle):
@@ -45,7 +57,7 @@ def make_train_step(model: ModelBundle, ocfg: opt.OptimizerConfig,
         loss = model.loss(module, batch)
         gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                  materialize_grads=True)
-        grads = dict(zip(params, gs))
+        grads = {n: placed_like(g, params[n]) for n, g in zip(params, gs)}
         del gs
         if compress_grads:
             deq, grad_error, qerr = grad_compress.compress_grads_ef(

@@ -760,6 +760,37 @@ def test_k7_autograd_matches_plain(dev, shape, dtype):
         assert ours.abs().max() > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_through_local_map_on_a_1x1_mesh(dev, dtype, tmp_path):
+    """`models.attention` on DTensors of a 1×1 mesh (a world of one NCCL
+    rank) runs K7 per shard through `local_map`: one launch, and the
+    output equals K7's on the plain tensors bit for bit."""
+    from repro_torch.launch.mesh import destroy_fleet_group, init_fleet_group, make_mesh
+    from repro_torch.models.attention import attention
+    from repro_torch.sharding.context import activation_rules, meshed
+    from repro_torch.sharding.partitioning import place
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((2, 384, n, 128), generator=g, device=dev).to(dtype)
+               for n in (16, 2, 2))
+    before = flash_attention.flash_attention.launches
+    ref = attention(q, k, v, causal=True)
+    assert flash_attention.flash_attention.launches == before + 1
+    init_fleet_group(str(tmp_path / "store"), 0, 1, "nccl", device=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        spec = ("data", None, "model", None)
+        dq, dk, dv = (place(t, mesh, spec) for t in (q, k, v))
+        with meshed(activation_rules(mesh)):
+            out = attention(dq, dk, dv, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.flash_attention.launches == before + 2
+        assert tuple(out.placements) == tuple(dq.placements)
+        assert torch.equal(out.to_local(), ref)
+    finally:
+        destroy_fleet_group()
+
+
 TRAIN_FAMILIES = ["qwen2.5-3b"] + FAMILIES
 
 

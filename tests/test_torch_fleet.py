@@ -271,6 +271,13 @@ def test_service_matches_jax(services, mode):
     assert int(out["jax"][0][0]["resweeps"].sum()) > int(out["jax"][-1][0]["resweeps"].sum())
 
 
+def test_service_state_n_clients_is_the_slot_capacity(services):
+    """`ServiceState.n_clients` is the slot capacity, as JAX's property."""
+    js, ports, _out = services
+    for svc in ports.values():
+        assert svc.state.n_clients == js.state.n_clients == svc.state.capacity == B
+
+
 @pytest.mark.parametrize("wire", ["unicast", "paged"])
 def test_service_wire_settings_match_jax(trees, wire):
     """The other wire settings of `LodService`, both schedulers against the

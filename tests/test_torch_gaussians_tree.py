@@ -104,6 +104,48 @@ def test_camera_and_trajectory():
     assert tcam.VR_EYE_RES == jcam.VR_EYE_RES
 
 
+def test_widened_left_matches_jax():
+    """`StereoRig.widened_left`: the left camera, `max_disparity_px`
+    columns wider, as JAX's."""
+    cj = next(iter(jcam.walk_trajectory(jcam.TrajectoryConfig(seed=3), 1, (120.0, 90.0),
+                                        focal_px=300.0, width=96, height=64)))
+    ct = next(iter(tcam.walk_trajectory(tcam.TrajectoryConfig(seed=3), 1, (120.0, 90.0),
+                                        focal_px=300.0, width=96, height=64, device=CPU)))
+    rj, rt = jcam.StereoRig(left=cj, baseline=0.06), tcam.StereoRig(left=ct, baseline=0.06)
+    d = int(np.ceil(rt.max_disparity_px()))
+    wj, wt = rj.widened_left(d), rt.widened_left(d)
+    assert (wt.width, wt.height, wt.cx, wt.cy, wt.near, wt.far) == \
+        (wj.width, wj.height, wj.cx, wj.cy, wj.near, wj.far) == \
+        (96 + d, 64, ct.cx, ct.cy, ct.near, ct.far)
+    assert_equal(wt.pos, wj.pos)
+    assert_equal(wt.rot, wj.rot)
+    assert_equal(wt.focal, wj.focal)
+
+
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
+def test_gaussians_nbytes_match_jax(sh_degree):
+    """`Gaussians.nbytes` and `bytes_per_gaussian`, as JAX's."""
+    gj = jg.random_gaussians(np.random.default_rng(4), 37, sh_degree=sh_degree)
+    gt = to_torch_gaussians(gj)
+    assert gt.nbytes() == gj.nbytes() == 37 * tg.bytes_per_gaussian(sh_degree)
+    assert tg.bytes_per_gaussian(sh_degree) == jg.bytes_per_gaussian(sh_degree)
+
+
+def test_slab_gid_matches_jax(tiny_tree):
+    """`LodTree.slab_gid` (scalars and arrays), as JAX's."""
+    tt = tbuild(to_torch_gaussians(jg.random_gaussians(np.random.default_rng(7), 150,
+                                                       sh_degree=1, extent=30.0)),
+                branching=(2, 4), target_subtrees=8, seed=1, device=CPU)
+    m = tt.meta
+    for s, j in [(0, 0), (m.Ns - 1, m.S - 1), (1, 2)]:
+        assert tt.slab_gid(s, j) == tiny_tree.slab_gid(s, j)
+    s = np.arange(m.Ns)[:, None]
+    j = np.arange(m.S)[None]
+    gid = tt.slab_gid(torch.from_numpy(s), torch.from_numpy(j))
+    assert_equal(gid, np.asarray(tiny_tree.slab_gid(jnp.asarray(s), jnp.asarray(j))))
+    assert int(gid.max()) == tt.n_pad - 1
+
+
 def test_default_device_is_the_card():
     """Entry points run on the card unless asked for the CPU; without one
     they raise rather than fall back."""

@@ -63,7 +63,7 @@ def test_moe_mlp_matches_jax(case):
     assert_close(ref, jref, TOL, TOL, "moe_mlp_reference")
 
     n = x.shape[0] * x.shape[1]
-    _p, _w, top_e = moe.route(torch.from_numpy(x).reshape(n, -1), mlp, cfg.top_k)
+    _p, _w, top_e = moe.route(torch.from_numpy(x).reshape(n, -1), mlp.router, cfg.top_k)
     cap = moe.capacity(n, cfg)
     slot, _tok = moe.dispatch(top_e, cap, cfg.n_experts)
     dropped = int((slot == cfg.n_experts * cap).sum())
@@ -96,7 +96,7 @@ def test_moe_tie_order_is_lax_top_k():
     jcfg = JModelConfig(**dataclasses.asdict(cfg))
 
     xf = torch.from_numpy(x).reshape(32, 32)
-    probs, _w, top_e = moe.route(xf, mlp, 3)
+    probs, _w, top_e = moe.route(xf, mlp.router, 3)
     jw, je = jax.lax.top_k(jax.nn.softmax(jnp.asarray(x).reshape(32, 32) @ router, -1), 3)
     p = np_(probs)
     assert (p[:, 5] == p[:, 1]).all() and (p[:, 7] == p[:, 1]).all()

@@ -300,6 +300,15 @@ def saturated_plan():
     return g, rig, cfg, jstages.build_plan(g, rig, cfg)
 
 
+def test_render_plan_overflow_matches_jax(saturated_plan):
+    """`RenderPlan.overflow`: either eye's budget exceeded, as JAX's."""
+    *_rest, plan = saturated_plan
+    tplan = _to_torch_plan(plan)
+    assert tplan.overflow.dtype == torch.bool and tplan.overflow.shape == ()
+    assert bool(tplan.overflow) == bool(plan.overflow)
+    assert_equal(tplan.overflow, plan.overflow)
+
+
 def _to_torch_plan(plan):
     return TRenderPlan(splats=to_torch_splats(plan.splats),
                        ranks=torch.from_numpy(np_(plan.ranks).copy()),
