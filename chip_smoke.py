@@ -58,7 +58,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      training forward (1 x 16/2 heads of 128 over 4096, causal), each shape
      taken from its config, and time each beside its bound and
      `scaled_dot_product_attention` (K7's share of its bound, and its time
-     over the library call's);
+     over the library call's); then K7's backward kernel, in bf16 and
+     float32, at phase 15 (a)'s training shape, at the family patterns
+     phase 15 (c) trains through K7 (granite-moe's 16/8 heads of 64,
+     seamless's non-causal encoder over 512 frames, zamba2's head dim 80)
+     and at gemma3-4b's local layer (batch 1, head dim 320, window 1024),
+     each against `flash_attention_backward_plain` and against the plain
+     version's autograd gradient within `K7_BWD_TOL` (1e-5 float32, 2e-2
+     bf16) of each gradient's largest |value|, timed beside its bound, the
+     plain version, the route it replaced (autograd through the plain
+     version) and `scaled_dot_product_attention`'s backward;
  11. (run after phase 8, on phase 7's scene, before the LM phases free it)
      the ragged fleet, with the counters set to 0 first: a pooled service of
      8 clients at capacity 8 (max_clients 16, bandwidth tiers phone /
@@ -157,24 +166,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      256 cut to 1 for one card): one warm-up step, in which every
      parameter's gradient must be finite and non-zero, then, with the
      counters set to 0, 5 timed steps; require finite losses, the last
-     below the first, and K7 launched 72 times a step (36 forwards and 36
-     remat recomputes; its backward is the plain version's gradient);
-     report the step's median ms, tokens/s, model FLOPs and MFU against
-     989 TFLOP/s, peak memory, the device's idle share (1 - the kernels'
-     device time in one profiled step over the median unprofiled step) and
-     the plain attention backward's share of that device time, estimated as
-     one call of it, profiled alone on random inputs at the layers' shape,
-     times the step's 36 calls. (Phase 10 holds K7 against its plain version
-     at this training shape.) (b) In float32 at full width and 4
-     layers, the loss and every parameter's gradient with K7 against the
-     model with `attention_plain` substituted, within 1e-4 of each leaf's
-     largest |grad|. (c) Every family at `reduced` float32 size
+     below the first, K7 launched 72 times a step (36 forwards and 36
+     remat recomputes) and its backward kernel 36 times; report the step's
+     median ms, tokens/s, model FLOPs and MFU against 989 TFLOP/s, peak
+     memory, the device's idle share (1 - the kernels' device time in one
+     profiled step over the median unprofiled step) and the backward
+     kernel's share of that device time, read from the same trace. (Phase
+     10 holds K7 and its backward against their plain versions at this
+     training shape.) (b) In float32 at full width and 4 layers, the loss
+     and every parameter's gradient with K7 (forward and backward kernels,
+     the backward launched 4 times) against the model with
+     `attention_plain` substituted, within 1e-4 of each leaf's largest
+     |grad|. (c) Every family at `reduced` float32 size
      (qwen2.5-3b, granite-moe, seamless, paligemma, zamba2, xlstm at 7
      blocks) takes 20 steps through the `Trainer` (zamba2 with int8
      gradients), with a checkpoint every 10 steps and a fault injected at
      step 15; require one restart, the run's end, finite and falling
-     losses, every gradient non-zero, and K7 launched
-     `model_zoo.k7_train_launches` times a step run.
+     losses, every gradient non-zero, K7 launched
+     `model_zoo.k7_train_launches` times a step run and its backward
+     `model_zoo.k7_backward_launches` times.
  16. (run after phase 15) the sharding context and the dry-run: (a) on a
      1x1 mesh (NCCL, a world of one, `launch.mesh.make_mesh`), qwen2.5-3b
      as published has its parameters placed by `make_shardings` and runs
@@ -182,7 +192,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and 8 greedy decode steps against the same model meshless (its
      weights then placed on the mesh), and 2 of phase 15 (a)'s train steps
      against a meshless run from the same seed; require K7 36 times in the
-     meshed prefill and 72 times a meshed step, and logits, greedy tokens
+     meshed prefill and 72 times a meshed step, its backward 36 times a
+     meshed step (all per shard, inside `local_map`), and logits, greedy tokens
      and losses equal bit for bit (else within 1e-4 of the largest
      |value|, the gap printed); print both runs' prefill, decode and step
      ms. (b) `launch.dryrun` cells in processes of their own, all started
@@ -200,11 +211,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      beside phase 15's measured one and its roofline bound beside the
      measured step.
 The build phase prints each kernel's registers, static shared memory and
-spills from the compiler's `-Xptxas -v` lines, and the SASS instructions
+spills from the compiler's `-Xptxas -v` lines (K7's backward kernels by
+element type, head-dim bucket and blocks), and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
 kernel's time is printed by events and by device time (profiler).
 The kernel report's `launches_by_path` has an entry a path (session, fleet,
-ragged, recovery, mesh, lm, families, train, lm_mesh). The last three lines are the kernel
+ragged, recovery, mesh, lm, families, train, lm_mesh); K7's backward has
+its own line (`flash_attention_backward`, at the training shape in bf16).
+The last three lines are the kernel
 report (JSON), the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
@@ -353,10 +367,11 @@ def profiled(torch, what: str, fn) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=top, by_name=by_name)
 
 
-def device_ms(torch, fn, key: str, n: int = 10):
-    """Device ms a launch of the kernel whose name holds `key`, from
-    torch.profiler over `n` calls after a warm-up, averaged over the
-    launches it recorded (None if it recorded none): the kernel's own time,
+def device_ms(torch, fn, key: str, n: int = 10, per_call: int = 1):
+    """Device ms a call of `fn` spends in the kernels whose names hold
+    `key` (`per_call` launches of them a call), from torch.profiler over
+    `n` calls after a warm-up, averaged over the calls the launches it
+    recorded make up (None if it recorded none): the kernels' own time,
     without the host's issue time that CUDA events around a short call
     also see."""
     from torch.profiler import ProfilerActivity, profile
@@ -369,9 +384,9 @@ def device_ms(torch, fn, key: str, n: int = 10):
     evs = [ev for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key]
     total, count = sum(ev.self_device_time_total for ev in evs), sum(ev.count for ev in evs)
-    if count != n:
-        log(f"[profile] {key}: the profiler recorded {count} of {n} launches")
-    return total / 1e3 / count if total > 0 else None
+    if count != n * per_call:
+        log(f"[profile] {key}: the profiler recorded {count} of {n * per_call} launches")
+    return total / 1e3 / count * per_call if total > 0 else None
 
 
 def fmt_ms(x) -> str:
@@ -415,7 +430,11 @@ def ptxas_report(text: str) -> list:
                 while (d := re.match(r"\d+", mangled[pos:])):
                     n, pos = int(d.group()), pos + len(d.group())
                     ident, pos = mangled[pos:pos + n], pos + n
-            args = re.findall(r"L[ib](\d+)E", mangled[pos:].split("EE", 1)[0] + "E")
+            tmpl = mangled[pos:].split("EE", 1)[0] + "E"
+            args = re.findall(r"L[ib](\d+)E", tmpl)
+            elem = ("bf16" if "__nv_bfloat16" in tmpl else "f32" if tmpl.startswith("If")
+                    else None)
+            args = ([elem] if elem else []) + args
             rows.append(dict(kernel=ident + (f"<{','.join(args)}>" if args else ""),
                              registers=None, smem=0, spill_stores=None, spill_loads=None))
         elif rows:
@@ -2179,6 +2198,126 @@ def k7_cases(torch, dev) -> list:
     return rows
 
 
+K7_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # phase 10's backward, of each grad's scale
+
+
+def k7_backward_case_list() -> list:
+    """Phase 10's backward cases, (name, B, H, Hkv, L, D, causal, window),
+    each in bf16 and float32: phase 15 (a)'s training shape, the family
+    patterns phase 15 (c) trains through K7 (granite-moe's GQA group 2 at
+    head dim 64, seamless's non-causal encoder over the stub frames,
+    zamba2's shared block at head dim 80) at phase 10's forward shapes, and
+    gemma3-4b's local layer (window 1024, head dim 320), the widest input K7
+    takes."""
+    from repro_torch.configs import get_arch
+
+    tr, gm, enc, zb, wa = (get_arch(n) for n in (TRAIN_ARCH, "granite-moe-1b-a400m",
+                                                 "seamless-m4t-medium", "zamba2-2.7b",
+                                                 WINDOW_ARCH))
+    return [(f"{tr.name} train", TRAIN_BATCH, tr.n_heads, tr.n_kv_heads, TRAIN_SEQ, tr.hd, True,
+             tr.sliding_window),
+            (f"{gm.name} prefill", LM_BATCH, gm.n_heads, gm.n_kv_heads, LM_PROMPT, gm.hd, True,
+             0),
+            (f"{enc.name} encoder", LM_BATCH, enc.n_heads, enc.n_kv_heads,
+             LM_PROMPT // enc.audio_downsample, enc.hd, False, 0),
+            (f"{zb.name} shared block", LM_BATCH, zb.n_heads, zb.n_kv_heads, LM_PROMPT, zb.hd,
+             True, 0),
+            (f"{wa.name} local layer", 1, wa.n_heads, wa.n_kv_heads, LM_PROMPT, wa.hd, True,
+             wa.sliding_window)]
+
+
+def k7_backward_cases(torch, dev) -> list:
+    """Phase 10, the backward: at each shape of `k7_backward_case_list`, in
+    bf16 and float32, K7's forward (with lse) and the backward kernel on
+    seeded (B, L, H, D) views and output gradient, held against
+    `flash_attention_backward_plain` on the same (out, lse) and against the
+    autograd gradient of `flash_attention_plain`, each gradient within
+    `K7_BWD_TOL` of its largest |value|; timed by events and device time
+    beside its bound, the plain version, the route it replaced (autograd
+    through the plain version, forward included) and the backward of
+    `scaled_dot_product_attention` (a yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    rows = []
+    for name, b, h, hkv, length, d, causal, window in k7_backward_case_list():
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            gen = torch.Generator(device=dev).manual_seed(7 * length + d)
+            q, k, v, dout = (torch.randn((b, length, n, d), generator=gen, device=dev)
+                             .to(dtype).transpose(1, 2) for n in (h, hkv, hkv, h))
+            kw = dict(causal=causal, window=window)
+            lse = torch.empty((b, h, length), dtype=torch.float32, device=dev)
+            out = FA._launch(q, k, v, causal, window, lse)
+            got = FA.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            plain = FA.flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(FA.flash_attention_plain(*leaves, **kw), leaves, dout)
+            torch.cuda.synchronize()
+            tol = K7_BWD_TOL[dtype_name]
+            err_plain = max(rel_err(a.float(), r.float()) for a, r in zip(got, plain))
+            err_auto = max(rel_err(a.float(), r.float()) for a, r in zip(got, auto))
+            abs_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, plain))
+            if not (err_plain <= tol and err_auto <= tol):
+                raise AssertionError(f"K7 backward {name} {dtype_name}: {err_plain:.3g} of scale "
+                                     f"from its plain version, {err_auto:.3g} from the plain "
+                                     f"autograd gradient (tolerance {tol})")
+            del plain, auto
+            rows_ = torch.arange(length)
+            hi = rows_ if causal else torch.full_like(rows_, length - 1)
+            lo = (rows_ - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(rows_)
+            pairs = int((hi - lo + 1).clamp_min(0).sum())
+            es = q.element_size()
+            # q, k, v, out, dout and lse read once; dq, dk, dv written once
+            n_bytes = (4 * b * h * length * d + 4 * b * hkv * length * d) * es + b * h * length * 4
+            ops = 10 * d * b * h * pairs               # five products of 2 D a visible pair
+            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+            def kernel():
+                return FA.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+
+            def old_route():             # what FlashAttentionFn.backward ran before the kernel
+                return torch.autograd.grad(FA.flash_attention_plain(*leaves, **kw), leaves, dout)
+
+            row = dict(case=name, shape=[b, h, hkv, length, d], dtype=dtype_name, causal=causal,
+                       window=window, max_abs_err=abs_err, rel_err_vs_plain=err_plain,
+                       rel_err_vs_autograd=err_auto, tolerance=tol,
+                       ms=cuda_ms(torch, kernel, REPS),
+                       device_ms=device_ms(torch, kernel, "attention_bwd",
+                                           per_call=3 + (h > hkv)),
+                       plain_ms=cuda_ms(torch, lambda: FA.flash_attention_backward_plain(
+                           q, k, v, out, lse, dout, **kw), 3),
+                       plain_autograd_ms=cuda_ms(torch, old_route, 3),
+                       visible_pairs=pairs, bytes=n_bytes, ops=ops,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if window > 0:   # the library call takes the window as an explicit mask
+                r, c = rows_[:, None].to(dev), rows_[None, :].to(dev)
+                lib_kw = dict(attn_mask=(c <= r) & (c > r - window))
+            else:
+                lib_kw = dict(is_causal=causal)
+            try:                         # a yardstick: the port never calls it
+                lo_ = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **lib_kw)
+                row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                    lo_, leaves, dout, retain_graph=True), REPS)
+                del lo_
+            except RuntimeError as e:
+                log(f"[K7 bwd] {name} {dtype_name}: sdpa's backward failed ({e}): not measured")
+                row["library_ms"] = None
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            log(f"[K7 bwd] {name} {row['shape']} {dtype_name} causal={causal} window={window}: "
+                f"{row['ms']:.4f} ms, device {fmt_ms(row['device_ms'])}, plain "
+                f"{row['plain_ms']:.3f} ms, plain autograd {row['plain_autograd_ms']:.3f} ms, "
+                f"sdpa backward {fmt_ms(row['library_ms'])}, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}; share {row['bound_share']:.4f}); of scale "
+                f"{err_plain:.3g} vs plain, {err_auto:.3g} vs autograd, max |err| {abs_err:.3g}")
+            rows.append(row)
+            del q, k, v, dout, out, lse, got, leaves
+            torch.cuda.empty_cache()
+    return rows
+
+
 def stub_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
     """The family's stub frontend inputs for a prompt of s tokens: seeded
     image embeddings (paligemma) or audio frames (seamless)."""
@@ -2437,6 +2576,7 @@ def lm_train(torch, dev, card: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     flops = model_flops(cfg, n_params, model.embed.numel(), TRAIN_BATCH, TRAIN_SEQ)
     want = model_zoo.k7_train_launches(cfg)
+    want_bwd = model_zoo.k7_backward_launches(cfg)
     log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
         f"{cfg.dtype}, remat {cfg.remat}; {n_params} parameters from seed 0 in "
         f"{time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; "
@@ -2446,7 +2586,7 @@ def lm_train(torch, dev, card: str) -> dict:
     step = make_train_step(bundle, opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=0,
                                                        total_steps=1000))
     state = opt.init(dict(model.named_parameters()))
-    losses, step_ms, per_step, flags = [], [], [], []
+    losses, step_ms, per_step, bwd_per_step, flags = [], [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n_tensors = len(list(model.parameters()))
@@ -2462,29 +2602,35 @@ def lm_train(torch, dev, card: str) -> dict:
     K.reset_launch_counts()
     for i in range(1, TRAIN_STEPS + 1):
         batch = source.batch(i)
-        before = FA.flash_attention.launches
+        before = (FA.flash_attention.launches, FA.flash_attention_backward.launches)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         model, state, _e, met = step(model, state, None, batch)
         losses.append(float(met["loss"]))      # waits for the card
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        per_step.append(FA.flash_attention.launches - before)
+        per_step.append(FA.flash_attention.launches - before[0])
+        bwd_per_step.append(FA.flash_attention_backward.launches - before[1])
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for key, n in counts.items():
         path_counts[key] += n
     med = statistics.median(step_ms)
-    log(f"[train] losses {[round(x, 4) for x in losses]}; K7 launches a step {per_step}")
+    log(f"[train] losses {[round(x, 4) for x in losses]}; K7 launches a step {per_step}, "
+        f"its backward's {bwd_per_step}")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name}: losses {losses} not finite or not falling")
     if per_step != [want] * TRAIN_STEPS:
         raise AssertionError(f"K7 launched {per_step} times a step, not {want}")
+    if bwd_per_step != [want_bwd] * TRAIN_STEPS:
+        raise AssertionError(f"K7's backward launched {bwd_per_step} times a step, not "
+                             f"{want_bwd}")
     out["full"] = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
                        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
                        step_ms=step_ms, step_ms_median=med,
                        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
                        model_flops=flops, mfu=flops / (med * 1e-3) / BF16_OPS_PER_S,
-                       peak_bytes=peak, k7_launches_per_step=per_step, card=card)
+                       peak_bytes=peak, k7_launches_per_step=per_step,
+                       k7_backward_launches_per_step=bwd_per_step, card=card)
     log(f"[train] step median {med:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
         f"{out['full']['tokens_per_s']:.0f} tokens/s; MFU {out['full']['mfu']:.4f} of "
         f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; peak memory {peak / 2**30:.2f} GiB | {card}")
@@ -2492,8 +2638,8 @@ def lm_train(torch, dev, card: str) -> dict:
     # one profiled step (kernels only: a step launches about 10^5 of them, and
     # the host ops' events would take the profiler minutes to sort): its
     # kernels' device time over the unprofiled median step is the device's
-    # busy share; then one call of the plain attention backward at the
-    # layers' shape, profiled alone, times the step's calls
+    # busy share, and the attention backward's kernels' share of that time
+    # is read from the same trace
     from torch.profiler import ProfilerActivity, profile
     t1 = time.perf_counter()
     batch = source.batch(TRAIN_STEPS + 1)
@@ -2507,38 +2653,27 @@ def lm_train(torch, dev, card: str) -> dict:
                if ev.self_device_time_total > 0}
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    qkv = [torch.randn((TRAIN_BATCH, TRAIN_SEQ, n, cfg.hd), generator=gen, device=dev,
-                       dtype=torch.bfloat16).transpose(1, 2).requires_grad_()
-           for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
-    grad_out = torch.randn(qkv[0].shape, generator=gen, device=dev, dtype=torch.bfloat16)
-
-    def plain_backward():        # what FlashAttentionFn.backward runs
-        o = FA.flash_attention_plain(*qkv, causal=True, window=0)
-        return torch.autograd.grad(o, qkv, grad_out)
-
-    plain_backward()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as bprof:
-        plain_backward()
-        torch.cuda.synchronize()
-    one_bwd = sum(ev.self_device_time_total for ev in bprof.key_averages()) / 1e3
-    n_bwd = model_zoo.k7_prefill_launches(cfg)
+    bwd = {key: t for key, t in kernels.items() if "attention_bwd" in key}
+    fwd = {key: t for key, t in kernels.items() if "flash_attention_" in key}
+    bwd_ms, fwd_ms = sum(bwd.values()), sum(fwd.values())
     full = out["full"]
     full["profile"] = dict(wall_ms=wall, device_busy_ms=busy, top=top,
-                           attention_backward_ms_a_call=one_bwd,
-                           attention_backward_calls=n_bwd, seconds=time.perf_counter() - t1)
+                           attention_backward_ms=bwd_ms, attention_backward_kernels=bwd,
+                           attention_backward_calls=want_bwd, attention_forward_ms=fwd_ms,
+                           seconds=time.perf_counter() - t1)
     full["idle_share"] = 1 - busy / med if busy > 0 else None
-    full["attention_backward_share"] = n_bwd * one_bwd / busy if busy > 0 else None
+    full["attention_backward_share"] = bwd_ms / busy if busy > 0 else None
     log(f"[train] profiled step: device busy {busy:.2f} ms (wall {wall:.2f} ms with the "
         f"profiler on); idle share of the unprofiled median step "
-        f"{fmt_share(full['idle_share'])}; the plain attention backward "
-        f"{one_bwd:.2f} device ms a call, {n_bwd} calls a step: share of device time "
-        f"{fmt_share(full['attention_backward_share'])}; profiling took "
-        f"{full['profile']['seconds']:.1f} s")
+        f"{fmt_share(full['idle_share'])}; the attention backward's kernels "
+        f"{bwd_ms:.2f} device ms in {want_bwd} calls ({bwd_ms / want_bwd:.3f} a call), share "
+        f"of device time {fmt_share(full['attention_backward_share'])}; K7's forward "
+        f"{fwd_ms:.2f} ms; profiling took {full['profile']['seconds']:.1f} s")
     for name, t in top:
         log(f"[profile]   {t:9.3f} ms  {name[:90]}")
-    del model, state, met, prof, bprof, qkv, grad_out
+    if busy > 0 and not bwd:
+        raise AssertionError("phase 15 (a): the profiled step shows no backward kernel")
+    del model, state, met, prof
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2557,19 +2692,24 @@ def lm_train(torch, dev, card: str) -> dict:
     batch = {k: v.to(dev) for k, v in source.batch(0).items()}
     names, params = zip(*m32.named_parameters())
     runs = []
+    before = FA.flash_attention_backward.launches
     for sub in (contextlib.nullcontext(), mock.patch.object(MA, "flash_attention",
                                                             serving_plain)):
         with sub:
             loss = b32.loss(m32, batch)
             runs.append((loss.detach(), torch.autograd.grad(loss, params)))
+    n_bwd = FA.flash_attention_backward.launches - before
+    if n_bwd != model_zoo.k7_backward_launches(cfg32):
+        raise AssertionError(f"phase 15 (b): K7's backward launched {n_bwd} times, not "
+                             f"{model_zoo.k7_backward_launches(cfg32)}")
     loss_gap = abs(float(runs[0][0]) - float(runs[1][0])) / abs(float(runs[1][0]))
     errs = {n: rel_err(a, b) for n, a, b in zip(names, runs[0][1], runs[1][1])}
     worst = max(errs, key=errs.get)
     out["check"] = dict(layers=TRAIN_CHECK_LAYERS, seq=TRAIN_SEQ, loss_rel_gap=loss_gap,
-                        grad_rel_err_max=errs[worst], worst=worst)
+                        grad_rel_err_max=errs[worst], worst=worst, k7_backward_launches=n_bwd)
     log(f"[train check] float32, {TRAIN_CHECK_LAYERS} layers, {TRAIN_SEQ} tokens: loss with K7 "
         f"vs attention_plain {loss_gap:.3g}; gradients max |diff| / max |grad| {errs[worst]:.3g}"
-        f" ({worst})")
+        f" ({worst}); K7's backward launched {n_bwd} times")
     if not (loss_gap <= TRAIN_REL_TOL and errs[worst] <= TRAIN_REL_TOL):
         raise AssertionError(f"phase 15 (b): {loss_gap:.3g} / {errs[worst]:.3g} > "
                              f"{TRAIN_REL_TOL}")
@@ -2616,6 +2756,7 @@ def lm_train(torch, dev, card: str) -> dict:
         first = statistics.mean(h["loss"] for h in hist[:5])
         last = statistics.mean(h["loss"] for h in hist[-5:])
         k7_want = model_zoo.k7_train_launches(rcfg) * len(hist)
+        bwd_want = model_zoo.k7_backward_launches(rcfg) * len(hist)
         all_grads = bool(torch.stack([f.all() for f in flags]).all())
         row = dict(arch=rcfg.name, family=rcfg.family, layers=rcfg.n_layers,
                    compress_grads=name == TRAINER_COMPRESSED, steps_run=len(hist),
@@ -2623,15 +2764,18 @@ def lm_train(torch, dev, card: str) -> dict:
                    loss_first5=first, loss_last5=last,
                    step_ms_median=statistics.median(h["time"] for h in hist[3:]) * 1e3,
                    k7_launches=counts["flash_attention"], k7_want=k7_want,
-                   every_grad_nonzero=all_grads, seconds=seconds)
+                   k7_backward_launches=counts["flash_attention_backward"],
+                   k7_backward_want=bwd_want, every_grad_nonzero=all_grads, seconds=seconds)
         rows.append(row)
         log(f"[train] Trainer {rcfg.name} ({rcfg.family}{', int8 grads' if row['compress_grads'] else ''}): "
             f"{len(hist)} steps, restarts {res['restarts']}, loss {first:.4f} -> {last:.4f}, "
             f"step median {row['step_ms_median']:.1f} ms, K7 {counts['flash_attention']} "
-            f"(want {k7_want}), {seconds:.1f} s")
+            f"(want {k7_want}), its backward {counts['flash_attention_backward']} (want "
+            f"{bwd_want}), {seconds:.1f} s")
         if not (res["restarts"] == 1 and res["final_step"] == TRAINER_STEPS
                 and all(math.isfinite(h["loss"]) for h in hist) and last < first
-                and all_grads and counts["flash_attention"] == k7_want):
+                and all_grads and counts["flash_attention"] == k7_want
+                and counts["flash_attention_backward"] == bwd_want):
             raise AssertionError(f"phase 15 (c) {rcfg.name}: {row}")
         del trainer, res
         gc.collect()
@@ -2815,18 +2959,20 @@ def lm_mesh(torch, dev, card: str, train: dict) -> dict:
                                             global_batch=TRAIN_BATCH, seed=0))
         ocfg = opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=1000)
         step = make_train_step(tbundle, ocfg)
-        want = model_zoo.k7_train_launches(tcfg)
+        want = (model_zoo.k7_train_launches(tcfg), model_zoo.k7_backward_launches(tcfg))
 
         def run_steps(m, state, place=lambda bt: bt):
             losses, ms, per_step = [], [], []
             for i in range(LM_MESH_TRAIN_STEPS):
                 batch = place({k: v.to(dev) for k, v in source.batch(i).items()})
-                before = K.launch_counts()["flash_attention"]
+                before = K.launch_counts()
                 (res, t) = timed(lambda: step(m, state, None, batch))
                 m, state, _e, met = res
                 losses.append(local(met["loss"]).clone())
                 ms.append(t)
-                per_step.append(K.launch_counts()["flash_attention"] - before)
+                after = K.launch_counts()
+                per_step.append(tuple(after[key] - before[key] for key in
+                                      ("flash_attention", "flash_attention_backward")))
             return losses, ms, per_step
 
         gc.collect()
@@ -2868,11 +3014,11 @@ def lm_mesh(torch, dev, card: str, train: dict) -> dict:
         loss_gap = max(float((a - b_).abs()) for a, b_ in zip(got_losses, ref_losses))
         log(f"[lm_mesh] (a) train {TRAIN_BATCH}x{TRAIN_SEQ}: losses meshless "
             f"{[float(x) for x in ref_losses]}, meshed {[float(x) for x in got_losses]} (bit "
-            f"for bit {all(same)}); K7 a meshed step {per_step}; step ms meshless "
+            f"for bit {all(same)}); K7 and its backward a meshed step {per_step}; step ms meshless "
             f"{[round(x, 2) for x in ms_plain]}, meshed {[round(x, 2) for x in ms_mesh]} | {card}")
         if per_step != [want] * LM_MESH_TRAIN_STEPS:
-            raise AssertionError(f"phase 16 (a): K7 launched {per_step} times a meshed step, "
-                                 f"not {want}")
+            raise AssertionError(f"phase 16 (a): K7 and its backward launched {per_step} times "
+                                 f"a meshed step, not {want}")
         if not all(same) and loss_gap > LM_REL_TOL * max(abs(float(x)) for x in ref_losses):
             raise AssertionError(f"phase 16 (a): meshed losses {loss_gap:.3g} from the meshless")
         out["train"] = dict(bitwise=all(same), loss_gap=loss_gap,
@@ -3821,6 +3967,8 @@ def main() -> int:
     # 10. K7 against its plain version at the LM shapes ----------------------------
     k7 = k7_cases(torch, dev)
     report["k7_cases"] = k7
+    k7b = k7_backward_cases(torch, dev)
+    report["k7_backward_cases"] = k7b
     report["phases"]["lm_s"] = t_k7 - t_lm
     report["phases"]["k7_cases_s"] = time.perf_counter() - t_k7
     log(f"[lm] phase 9 took {t_k7 - t_lm:.1f} s, phase 10 "
@@ -3851,11 +3999,18 @@ def main() -> int:
     log(f"[lm_mesh] phase 16 took {report['phases']['lm_mesh_s']:.1f} s")
 
     main_case = k7[0]            # phase 9's prefill shape, by construction
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:59",
-        **{key: main_case[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                           "bound_ms", "bound_by", "library_ms")})
+        **{key: main_case[key] for key in keys})
+    # the backward at phase 15 (a)'s training shape in bf16, by construction; it
+    # replaces no TPU kernel (XLA derives the reference's gradient): the line
+    # names the forward it differentiates
+    kernels["flash_attention_backward"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:59",
+        **{key: k7b[0][key] for key in keys})
     for name, k in kernels.items():
         log(f"[kernel] {name}: {k['ms']:.4f} ms by events, {fmt_ms(k.get('device_ms'))} of "
             f"device time (profiler), bound {k['bound_ms']:.4f} ms")

@@ -8,6 +8,8 @@ built by `_build`), each beside its wrapper and its plain PyTorch version:
     K5 vq_assign.vq_assign             ← repro/kernels/vq_assign.py:vq_assign_pallas
     K6 lod_cut.lod_pair_sweep          ← repro/kernels/lod_cut.py:lod_pair_sweep_pallas
     K7 flash_attention.flash_attention ← repro/kernels/flash_attention.py:flash_attention_pallas
+       flash_attention.flash_attention_backward: K7's gradient (no TPU kernel: XLA
+       derives the reference's)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
@@ -21,7 +23,7 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """name → kernel wrapper, for every kernel of the library."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
     from repro_torch.kernels.lod_cut import lod_pair_sweep, lod_slab_sweep
     from repro_torch.kernels.preprocess import preprocess
     from repro_torch.kernels.rasterize import rasterize_slabs
@@ -30,7 +32,8 @@ def wrappers() -> Dict[str, object]:
     return {"lod_slab_sweep": lod_slab_sweep, "preprocess": preprocess,
             "stereo_merge": stereo_merge_kernel, "rasterize_slabs": rasterize_slabs,
             "vq_assign": vq_assign, "lod_pair_sweep": lod_pair_sweep,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -50,8 +50,11 @@ SIGNATURES = {
     "nebula_stereo_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nebula_stereo_merge_smem_bytes": [_I, _I],
     "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P],
-    "nebula_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "nebula_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                *[_L] * 12, _I, _I, _F, _P, _I, _I, _I, _I, _P],
+    "nebula_flash_attention_backward": [*[_P] * 12, _I, _I, _I, _I, _I, _I, _I,
+                                        *[_L] * 24, _I, _I, _F, _P, _I, _P, _I, _I, _I,
+                                        _I, _P],
 }
 
 

@@ -20,8 +20,12 @@
 // and the row's first visible block wipes that with alpha = exp(-1e30 - m')
 // = 0. Blocks masked for every row of a q block are skipped, which gives the
 // same result. A row with no visible column at all (never the case in
-// self-attention, where the diagonal is visible) gets 0, where the Pallas
-// body would average the values it read.
+// self-attention, where the diagonal is visible; its m stays -1e30) gets 0,
+// where the Pallas body would average the values it read.
+// With a non-null lse (B, H, Lq, float32, contiguous) both kernels also
+// write each row's log-sum-exp, lse = m + log l, for the backward
+// (flash_attention_bwd.cu); a row with no visible column gets lse = +inf,
+// which makes its p = exp(s - lse) = 0 there. Serving passes null.
 //
 // What bounds it on the H100: operations, 4 D per visible (row, col) pair.
 // Two kernels, chosen by type:
@@ -112,7 +116,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
 template <int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int group,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int group,
                        int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
                        Strides os, int causal, int window, float scale) {
   extern __shared__ float smem[];
@@ -226,14 +231,17 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  const long long lse_row = (static_cast<long long>(b) * gridDim.y + h) * Lq;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
     if (row >= Lq) continue;
+    const bool none = m[i] == kNegInf;  // no visible column
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (j < nj) op[row * os.l + tx + 16 * j] = acc[i][j] / den;
+      if (j < nj) op[row * os.l + tx + 16 * j] = none ? 0.f : acc[i][j] / den;
+    if (lse != nullptr && tx == 0) lse[lse_row + row] = none ? INFINITY : m[i] + logf(l[i]);
   }
 }
 
@@ -242,7 +250,7 @@ int smem_bytes(int D) {
 }
 
 template <int NJ>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
            int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
            Strides os, int causal, int window, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(D);
@@ -254,25 +262,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_kernel<NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / Hkv, Lq, Lk, D, qs, ks,
-      vs, os, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, Lq, Lk, D, qs,
+      ks, vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-             int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int H, int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
              Strides os, int causal, int window, float scale, cudaStream_t stream) {
   const int nj = D / 16;
   if (nj <= 2)
-    return launch<2>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+    return launch<2>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
                      scale, stream);
   if (nj <= 4)
-    return launch<4>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+    return launch<4>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
                      scale, stream);
   if (nj <= 8)
-    return launch<8>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
+    return launch<8>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
                      scale, stream);
-  return launch<kMaxD / 16>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
+  return launch<kMaxD / 16>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
                             window, scale, stream);
 }
 
@@ -561,7 +569,8 @@ __global__ void __launch_bounds__(Layout<DP>::THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                      Strides os, const int* __restrict__ plan, int group, int Lq, int Lk,
+                      float* __restrict__ lse, Strides os, const int* __restrict__ plan,
+                      int group, int Lq, int Lk,
                       int D, int causal, int window, float scale) {
   using Lt = Layout<DP>;
   constexpr int BN = Lt::BN, BM = Lt::BM, NWG = Lt::NWG;
@@ -752,10 +761,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     __nv_bfloat16* op = o + b * os.b + h * os.h;
+    const long long lse_row = (static_cast<long long>(b) * gridDim.x + h) * Lq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= Lq) continue;
+      const bool none = m[r] == kNegInf;  // no visible column
       const float den = fmaxf(l[r], 1e-30f);
       __nv_bfloat16* orow = op + row * os.l;
 #pragma unroll
@@ -763,8 +774,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
         const int col = 8 * j + 2 * c4;
         if (col < D)
           *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+              none ? __floats2bfloat162_rn(0.f, 0.f)
+                   : __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
       }
+      if (lse != nullptr && c4 == 0) lse[lse_row + row] = none ? INFINITY : m[r] + logf(l[r]);
     }
   }
 }
@@ -813,7 +826,8 @@ bool tma_ready(const void* p, Strides s) {
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int Hkv,
            int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
            const int* plan, int n_plan, int block_q, int block_k, int causal, int window,
            float scale, cudaStream_t stream) {
@@ -837,13 +851,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   }
   const dim3 grid(H, B, n_plan);  // every head's longest q blocks first
   flash_attention_wgmma<DP><<<grid, Lt::THREADS, Lt::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, plan, H / Hkv, Lq, Lk, D, causal,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, os, plan, H / Hkv, Lq, Lk, D, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-             int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
              const int* plan, int n_plan, int d_pad, int block_q, int block_k, int causal,
              int window, float scale, cudaStream_t stream) {
   if (!tma_ready(q, qs) || !tma_ready(k, ks) || !tma_ready(v, vs) ||
@@ -852,8 +866,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
     return static_cast<int>(cudaErrorInvalidValue);
 #define NEBULA_FA_TC(DP)                                                                      \
   if (d_pad == DP)                                                                            \
-    return launch<DP>(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, plan, n_plan, block_q, \
-                      block_k, causal, window, scale, stream);
+    return launch<DP>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, plan, n_plan,     \
+                      block_q, block_k, causal, window, scale, stream);
   NEBULA_FA_TC(64)
   NEBULA_FA_TC(128)
   NEBULA_FA_TC(192)
@@ -867,7 +881,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). Strides in elements,
+// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). lse: null, or (B, H,
+// Lq) float32, contiguous, for each row's log-sum-exp. Strides in elements,
 // (batch, head, row) for each tensor; the head-dim axis is contiguous.
 // D must be a multiple of 16 in [16, 320], and H a multiple of Hkv.
 // bfloat16 only: plan (device int32, n_plan rows of five: q block, first
@@ -875,7 +890,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // the padded head dim and the q and kv block rows, all from
 // kernels/flash_attention.py; the float32 kernel ignores them.
 extern "C" int nebula_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
+    const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B, int H,
     int Hkv, int Lq, int Lk, int D, long long qsb, long long qsh, long long qsl,
     long long ksb, long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, int causal,
@@ -887,11 +902,11 @@ extern "C" int nebula_flash_attention(
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl}, os{osb, osh, osl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
-                    scale, s);
+    return dispatch(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Lq, Lk, D, qs, ks, vs,
+                    os, causal, window, scale, s);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, o, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os,
-                        static_cast<const int*>(plan), n_plan, d_pad, block_q, block_k,
-                        causal, window, scale, s);
+    return tc::dispatch(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Lq, Lk, D, qs, ks,
+                        vs, os, static_cast<const int*>(plan), n_plan, d_pad, block_q,
+                        block_k, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,14 +26,23 @@ order) and `check_tma_layout` (the 16-byte alignment TMA needs; nothing is
 copied to meet it).
 
 Gradients. When grad is on and an input requires it, `flash_attention`
-launches K7 inside a `torch.autograd.Function`: the forward is the kernel,
-the backward re-runs `flash_attention_plain` (the kernel's own function,
-with its rounding points) on the saved q, k and v and differentiates it.
-There is no backward kernel because the reference has none: the JAX
-package trains through its plain `models.attention.attention`, and no
-function under `repro/kernels/` carries a `custom_vjp`, so its backward is
-what XLA derives from plain array code. With no input that requires grad,
-the wrapper launches the kernel directly, as serving does.
+launches K7 inside `FlashAttentionFn`: the forward is the kernel, which
+also writes each row's log-sum-exp (`lse`, float32), and the backward is
+`flash_attention_backward`, a kernel of its own
+(`csrc/flash_attention_bwd.cu`: FlashAttention-2's two passes, dK/dV and
+dQ, recomputing p = exp(s - lse); its rounding points are in
+`flash_attention_backward_plain`'s docstring). The reference has no
+backward kernel: the JAX package trains through its plain
+`models.attention.attention` and XLA derives the gradient; the port trains
+through K7's forward, so its gradient is this kernel's on the card. The
+backward's host side is plain code the CPU tests reach: `bwd_blocks` (its
+q and kv block rows by type and head dim), `kv_tile_plan` at those blocks
+for the dQ pass and `q_tile_plan` (the q blocks that see each kv tile) for
+the dK/dV pass. Under `torch.utils.checkpoint` (non-reentrant,
+`models.layers.remat`) the recomputed forward saves its own lse. With no
+input that requires grad, the wrapper launches the forward directly, as
+serving does, and writes no lse. (CPU tensors never reach the Function:
+the wrapper runs the plain version, and autograd differentiates it.)
 """
 
 from __future__ import annotations
@@ -55,6 +64,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TC_BLOCKS = {64: (128, 128), 128: (128, 128), 192: (128, 64), 256: (64, 64),
               320: (64, 64)}
 TMA_ALIGN = 16           # bytes: base addresses and strides of TMA's tensors
+# the backward kernel's (q block rows, kv tile rows) by type and head-dim
+# bucket (csrc/flash_attention_bwd.cu instantiates the same)
+_BWD_BUCKETS = (64, 128, 256, 320)
+_BWD_BLOCKS = {torch.bfloat16: {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (64, 32)},
+               torch.float32: {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (32, 32)}}
 
 
 def padded_head_dim(d: int) -> int:
@@ -102,21 +116,68 @@ def kv_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
     return np.asarray(rows, dtype=np.int32).reshape(n_qb, 5)
 
 
+def q_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
+                window: int) -> np.ndarray:
+    """`kv_tile_plan` seen from the kv side, for the backward's dK/dV pass:
+    one int32 row per kv tile, in launch order: (kv tile, first q block,
+    end q block, first block without a mask, end block without a mask).
+
+    A kv tile is visited by the q blocks [first, end) that hold a row < lq
+    that sees one of its columns < lk; a block in [first unmasked, end
+    unmasked) has every row < lq and sees every column of the tile, all
+    < lk. Tiles go longest first (stable)."""
+    n_qb, n_kb = -(-lq // block_q), -(-lk // block_k)
+    rows = []
+    for kb in range(n_kb):
+        c0, c1 = kb * block_k, min((kb + 1) * block_k, lk) - 1
+        # the rows that see some column c0 .. c1: one interval
+        lo = c0 if causal else 0
+        hi = min(lq - 1, c1 + window - 1) if window > 0 else lq - 1
+        if lo > hi:
+            rows.append((kb, 0, 0, 0, 0))
+            continue
+        first, end = lo // block_q, hi // block_q + 1
+        full_first = max(first, -(-c1 // block_q) if causal else first)
+        full_end = min(end, lq // block_q)
+        if window > 0:
+            full_end = min(full_end, (c0 + window) // block_q)
+        if (kb + 1) * block_k > lk:          # columns past lk: every block masks
+            full_end = full_first
+        rows.append((kb, first, end, full_first, max(full_end, full_first)))
+    rows.sort(key=lambda r: r[1] - r[2])         # longest first; sort is stable
+    return np.asarray(rows, dtype=np.int32).reshape(n_kb, 5)
+
+
+def bwd_blocks(d: int, dtype: torch.dtype) -> tuple:
+    """(q block rows, kv tile rows) of the backward kernel at head dim `d`."""
+    for bucket in _BWD_BUCKETS:
+        if d <= bucket:
+            return _BWD_BLOCKS[dtype][bucket]
+    raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+
+
 @functools.lru_cache(maxsize=64)
-def _device_plan(lq, lk, block_q, block_k, causal, window, device) -> torch.Tensor:
-    plan = kv_tile_plan(lq, lk, block_q, block_k, causal, window)
+def _device_plan(lq, lk, block_q, block_k, causal, window, device, by_kv=False) -> torch.Tensor:
+    plan = (q_tile_plan if by_kv else kv_tile_plan)(lq, lk, block_q, block_k, causal, window)
     return torch.from_numpy(plan).to(device)
+
+
+def _misaligned(t: torch.Tensor) -> list:
+    """What keeps `t` (B, H, L, D) from being read 16 bytes at a time as it
+    lies: its base address and (batch, head, row) strides, where not a
+    multiple of 16 bytes."""
+    es = t.element_size()
+    bad = [f"base address {t.data_ptr()}"] if t.data_ptr() % TMA_ALIGN else []
+    return bad + [f"{axis} stride {st * es} B" for axis, st in zip(("batch", "head", "row"),
+                                                                   t.stride()[:3])
+                  if (st * es) % TMA_ALIGN]
 
 
 def check_tma_layout(name: str, t: torch.Tensor) -> None:
     """Raise unless TMA can read `t` (B, H, L, D) as it lies: a 16-byte
     aligned base and (batch, head, row) strides that are multiples of 16
     bytes. Nothing is copied to meet this."""
-    es = t.element_size()
-    bad = [f"base address {t.data_ptr()}"] if t.data_ptr() % TMA_ALIGN else []
-    bad += [f"{axis} stride {st * es} B" for axis, st in zip(("batch", "head", "row"),
-                                                             t.stride()[:3])
-            if (st * es) % TMA_ALIGN]
+    bad = _misaligned(t)
     if bad:
         raise ValueError(f"flash_attention: the bf16 kernel reads {name} by TMA, which "
                          f"needs {TMA_ALIGN}-byte alignment: {', '.join(bad)}")
@@ -129,10 +190,12 @@ def _scale(d: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, window: int = 0) -> torch.Tensor:
+                          causal: bool = True, window: int = 0, return_lse: bool = False):
     """The Pallas body in torch ops, in its op order: kv blocks of
     min(128, Lk) columns (zero-padded past Lk), a running float32 (m, l,
-    acc) per row."""
+    acc) per row. With `return_lse`, also each row's log-sum-exp (B, H,
+    Lq) as the kernel writes it for the backward: m + log l, and +inf for
+    a row with no visible column (its m stays -1e30)."""
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     g = h // hkv
@@ -163,7 +226,61 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l_ = alpha * l_ + p.sum(-1, keepdim=True)
         acc = acc * alpha + p.to(v.dtype).float() @ vc.float()
         m = m_new
-    return (acc / l_.clamp_min(1e-30)).to(q.dtype).reshape(b, h, lq, d)
+    out = (acc / l_.clamp_min(1e-30)).to(q.dtype).reshape(b, h, lq, d)
+    if not return_lse:
+        return out
+    lse = torch.where(m == _NEG_INF, torch.inf, m + torch.log(l_))
+    return out, lse.reshape(b, h, lq)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                                   causal: bool = True, window: int = 0) -> tuple:
+    """dq, dk, dv of K7 from its output `out` and row log-sum-exp `lse`
+    (`flash_attention_plain(..., return_lse=True)`), given the output's
+    gradient `dout`: the backward kernel's recurrence in torch ops, over kv
+    blocks of min(128, Lk) columns, with its rounding points (T is q's
+    type; every sum float32):
+      qs = q * scale in T (the forward's), s = qs kᵀ, dp = dout vᵀ;
+      p = exp(s - lse) on the visible columns, else 0 (lse = +inf: 0);
+      Δ = rowsum(dout ∘ out);
+      dv = Σ (p rounded to v's type)ᵀ dout;
+      ds = p ∘ (dp - Δ), rounded to T;
+      dk = Σ dsᵀ qs (taken against the scaled q);
+      dq = scale · Σ ds k, scale the forward's (rounded to T);
+    each rounded to its input's type once. Outputs keep the inputs'
+    layouts."""
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    g = h // hkv
+    sc = _scale(d, q.dtype).to(q.device)
+    qs = (q * sc).float().reshape(b, hkv, g, lq, d)
+    do = dout.float().reshape(b, hkv, g, lq, d)
+    delta = (do * out.float().reshape(b, hkv, g, lq, d)).sum(-1, keepdim=True)
+    lse_ = lse.float().reshape(b, hkv, g, lq, 1)
+    row = torch.arange(lq, device=q.device)[:, None]
+    dq = torch.zeros_like(qs)
+    dks, dvs = [], []
+    bk = min(BLOCK_K, lk)
+    for c0 in range(0, lk, bk):
+        kc = k[:, :, None, c0:c0 + bk].float()
+        vc = v[:, :, None, c0:c0 + bk].float()
+        col = c0 + torch.arange(kc.shape[-2], device=q.device)[None, :]
+        mask = torch.ones((lq, kc.shape[-2]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (col <= row)
+        if window > 0:
+            mask = mask & (col > row - window)
+        s = qs @ kc.transpose(-1, -2)                        # (b, hkv, g, lq, bk)
+        p = torch.where(mask, torch.exp(s - lse_), 0.0)
+        dvs.append((p.to(v.dtype).float().transpose(-1, -2) @ do).sum(2))
+        dp = do @ vc.transpose(-1, -2)
+        ds = (p * (dp - delta)).to(q.dtype).float()
+        dq = dq + ds @ kc
+        dks.append((ds.transpose(-1, -2) @ qs).sum(2))
+    dq = (dq * sc.float()).to(q.dtype).reshape(b, h, lq, d)
+    dk, dv = torch.cat(dks, 2).to(k.dtype), torch.cat(dvs, 2).to(v.dtype)
+    return tuple(torch.empty_like(t).copy_(x) for t, x in ((q, dq), (k, dk), (v, dv)))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -193,8 +310,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int) -> torch.Tensor:
-    """One launch of K7 on CUDA tensors (checked here); counts it."""
+            window: int, lse: torch.Tensor = None) -> torch.Tensor:
+    """One launch of K7 on CUDA tensors (checked here); counts it. With
+    `lse` (B, H, Lq, float32, contiguous) the kernel also writes each
+    row's log-sum-exp into it."""
     _check(q, k, v)
     dev = q.device
     b, h, lq, d = q.shape
@@ -208,11 +327,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         block_q, block_k = tc_blocks(d)
         plan = _device_plan(lq, lk, block_q, block_k, bool(causal), int(window), dev)
         plan_ptr, n_plan = plan.data_ptr(), plan.shape[0]
+    if lse is not None and (lse.shape != (b, h, lq) or lse.dtype != torch.float32
+                            or lse.device != dev or not lse.is_contiguous()):
+        raise ValueError("flash_attention: lse must be a contiguous float32 (B, H, Lq) "
+                         "tensor on q's device")
     st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = _build.library()
     p = _build.ptr
     err = lib.nebula_flash_attention(
-        p(q), p(k), p(v), p(out), _DTYPE_CODE[q.dtype], b, h, hkv, lq, lk, d, *st,
+        p(q), p(k), p(v), p(out), None if lse is None else p(lse), _DTYPE_CODE[q.dtype],
+        b, h, hkv, lq, lk, d, *st,
         int(bool(causal)), int(window), float(_scale(d, q.dtype)), plan_ptr, n_plan,
         d_pad, block_q, block_k, _build.stream_handle(dev))
     _build.check(err, "nebula_flash_attention")
@@ -220,21 +344,95 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: int = 0, need_dq: bool = True,
+                             need_dkv: bool = True) -> tuple:
+    """(dq, dk, dv) of K7 at (q, k, v) from its output, its row
+    log-sum-exp and the output's gradient: q's type and layout for dq, k's
+    and v's for dk and dv (None for what is not needed). CPU tensors run
+    `flash_attention_backward_plain`; CUDA tensors launch the backward
+    kernel or raise."""
+    dev = q.device
+    if dev.type == "cpu":
+        dq, dk, dv = flash_attention_backward_plain(q, k, v, out, lse, dout, causal=causal,
+                                                    window=window)
+        return dq if need_dq else None, dk if need_dkv else None, dv if need_dkv else None
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    _check(q, k, v)
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"flash_attention: {name} must have q's shape, type and device")
+        if t.stride(-1) != 1 or min(t.stride()) < 0:
+            raise ValueError(f"flash_attention: {name} needs a contiguous head-dim axis")
+    if (lse.shape != (b, h, lq) or lse.dtype != torch.float32 or lse.device != dev
+            or not lse.is_contiguous()):
+        raise ValueError("flash_attention: lse must be a contiguous float32 (B, H, Lq) "
+                         "tensor on q's device")
+    block_q, block_k = bwd_blocks(d, q.dtype)
+    dq = torch.empty_like(q) if need_dq else None
+    dk = torch.empty_like(k) if need_dkv else None
+    dv = torch.empty_like(v) if need_dkv else None
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    parts = [None, None]
+    if need_dkv and h > hkv:
+        parts = [torch.empty((b, h, lk, d), dtype=torch.float32, device=dev) for _ in range(2)]
+    key = (lq, lk, block_q, block_k, bool(causal), int(window), dev)
+    dq_plan = _device_plan(*key) if need_dq else None
+    dkv_plan = _device_plan(*key, by_kv=True) if need_dkv else None
+    # the tensors the kernel may read 16 bytes at a time (else element by element)
+    vec = sum(bit for bit, t in ((1, q), (2, k), (4, v), (8, dout)) if not _misaligned(t))
+    st = [s for t in (q, k, v, out, dout, dq if need_dq else q, dk if need_dkv else k,
+                      dv if need_dkv else v) for s in t.stride()[:3]]
+    p = _build.ptr
+    opt = (lambda t: None if t is None else p(t))
+    err = _build.library().nebula_flash_attention_backward(
+        p(q), p(k), p(v), p(out), p(lse), p(dout), opt(dq), opt(dk), opt(dv), p(delta),
+        opt(parts[0]), opt(parts[1]), _DTYPE_CODE[q.dtype], b, h, hkv, lq, lk, d, *st,
+        int(bool(causal)), int(window), float(_scale(d, q.dtype)), opt(dq_plan),
+        0 if dq_plan is None else dq_plan.shape[0], opt(dkv_plan),
+        0 if dkv_plan is None else dkv_plan.shape[0], block_q, block_k, vec,
+        _build.stream_handle(dev))
+    _build.check(err, "nebula_flash_attention_backward")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """K7 forward, `flash_attention_plain`'s gradient backward (the module
-    docstring says why there is no backward kernel). Takes the strided
-    (B, H, L, D) views that `models.attention` hands K7."""
+    """K7 forward (saving q, k, v, the output and its row log-sum-exp), the
+    backward kernel backward (`flash_attention_backward`). Takes the
+    strided (B, H, L, D) views that `models.attention` hands K7. Given CPU
+    tensors (a test with the plain version as `_launch`), it saves q, k and
+    v and differentiates `flash_attention_plain` backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window)
+        if q.device.type != "cuda":
+            ctx.save_for_backward(q, k, v)
+            return _launch(q, k, v, causal, window)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:3]
+        if len(saved) == 5:
+            if grad_out.stride(-1) != 1:
+                grad_out = grad_out.contiguous()
+            dq, dk, dv = flash_attention_backward(
+                *saved, grad_out, causal=ctx.causal, window=ctx.window, need_dq=needs[0],
+                need_dkv=needs[1] or needs[2])
+            return dq, dk if needs[1] else None, dv if needs[2] else None, None, None
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
             out = flash_attention_plain(*ins, causal=ctx.causal, window=ctx.window)

@@ -8,9 +8,8 @@ keys and values, GQA/MQA (query head h attends kv head h // (H/Hkv)).
   `kernels.flash_attention.flash_attention` through a strided (B, H, L, Dh)
   view. If K7 does not take the shape (head dim, dtype), the call raises.
   That is prefill, and the forward of a train step: with grad on, K7 runs
-  inside an autograd Function whose backward differentiates K7's plain
-  version (`kernels/flash_attention.py` says why there is no backward
-  kernel).
+  inside an autograd Function whose backward is K7's backward kernel
+  (`kernels/flash_attention.py`).
 - Every other pattern, and every call on the CPU, runs `attention_plain`:
   the JAX package's chunked online softmax (`repro/models/attention.py`)
   step by step. On the card that covers decode against the cache

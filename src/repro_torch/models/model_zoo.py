@@ -54,11 +54,11 @@ def k7_prefill_launches(cfg: ModelConfig) -> int:
 
 
 def k7_train_launches(cfg: ModelConfig) -> int:
-    """K7 launches of one train step (`loss` and its gradient) on the card:
-    each launch of the prefill, once more for each one inside a remat unit
-    when `cfg.remat` is set, since the backward re-runs the unit's forward.
-    The dense remainder layers lie outside the units; the backward itself
-    launches none (`kernels/flash_attention.py`)."""
+    """K7 forward launches of one train step (`loss` and its gradient) on
+    the card: each launch of the prefill, once more for each one inside a
+    remat unit when `cfg.remat` is set, since the backward re-runs the
+    unit's forward. The dense remainder layers lie outside the units. The
+    backward kernel's launches are `k7_backward_launches`."""
     n = k7_prefill_launches(cfg)
     if not cfg.remat:
         return n
@@ -66,6 +66,13 @@ def k7_train_launches(cfg: ModelConfig) -> int:
         pat, n_groups, _rem = dense.layer_pattern(cfg)
         return n + n_groups * len(pat)
     return 2 * n
+
+
+def k7_backward_launches(cfg: ModelConfig) -> int:
+    """K7 backward launches of one train step on the card: one for each
+    attention call in the loss, remat or not (a recomputed forward is
+    differentiated once), so the prefill's count."""
+    return k7_prefill_launches(cfg)
 
 
 def stub_shapes(cfg: ModelConfig, seq_len: int) -> Dict[str, Tuple[int, ...]]:

@@ -319,7 +319,7 @@ def test_session_launches_every_kernel(scene):
     counts = K.launch_counts()
     assert counts == {"lod_slab_sweep": 2, "preprocess": 4, "stereo_merge": 4,
                       "rasterize_slabs": 8, "vq_assign": 0, "lod_pair_sweep": 0,
-                      "flash_attention": 0}, counts
+                      "flash_attention": 0, "flash_attention_backward": 0}, counts
 
 
 @pytest.mark.parametrize("d", [9, 24, 45])
@@ -729,14 +729,25 @@ def test_family_prefill_launches_k7_on_card(dev, name):
     assert torch.isfinite(logits).all() and cache["pos"] == cfg.n_img_tokens + 65
 
 
+def _of_scale(ours, ref) -> float:
+    """max |ours - ref| over the largest |ref|."""
+    return float((ours.float() - ref.float()).abs().max()) / max(float(ref.float().abs().max()),
+                                                                  1e-30)
+
+
+# K7's backward: within 1e-5 (float32) and 2e-2 (bf16) of each gradient's
+# largest |value|, against the plain autograd gradient and against
+# `flash_attention_backward_plain` (the kernel's own recurrence)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
 @pytest.mark.parametrize("shape", [(2, 300, 8, 2, 64, 0), (1, 257, 4, 4, 128, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_autograd_matches_plain(dev, shape, dtype):
-    """With grad on, K7 runs inside its autograd Function: one launch for
-    the forward, none for the backward, whose q, k and v gradients are
-    those of K7's plain version on the same inputs (the backward re-runs
-    it), on the strided (B, H, L, D) views of (B, S, H, D) tensors: a
-    causal GQA shape and a windowed one."""
+    """With grad on, K7 runs inside its autograd Function: one forward
+    launch and one backward launch, whose q, k and v gradients are those of
+    K7's plain version on the same inputs, on the strided (B, H, L, D)
+    views of (B, S, H, D) tensors: a causal GQA shape and a windowed one."""
     b, s, h, hkv, d, window = shape
     g = torch.Generator(device=dev).manual_seed(s + d)
     base = [torch.randn((b, s, n, d), generator=g, device=dev).to(dtype)
@@ -745,19 +756,109 @@ def test_k7_autograd_matches_plain(dev, shape, dtype):
     grads = []
     for fn in (flash_attention.flash_attention, flash_attention.flash_attention_plain):
         leaves = [t.clone().requires_grad_() for t in base]
-        before = flash_attention.flash_attention.launches
+        before = (flash_attention.flash_attention.launches,
+                  flash_attention.flash_attention_backward.launches)
         out = fn(*(t.transpose(1, 2) for t in leaves), causal=True, window=window)
         assert out.requires_grad
         (out.float() * w).sum().backward()
         torch.cuda.synchronize()
-        launched = flash_attention.flash_attention.launches - before
-        assert launched == (1 if fn is flash_attention.flash_attention else 0)
+        launched = (flash_attention.flash_attention.launches - before[0],
+                    flash_attention.flash_attention_backward.launches - before[1])
+        assert launched == ((1, 1) if fn is flash_attention.flash_attention else (0, 0))
         grads.append([t.grad for t in leaves])
     for ours, ref, name in zip(grads[0], grads[1], "qkv"):
         assert ours.dtype == dtype and ours.shape == ref.shape
-        assert torch.allclose(ours.float(), ref.float(), rtol=1e-5, atol=1e-6), \
-            (name, float((ours.float() - ref.float()).abs().max()))
+        assert _of_scale(ours, ref) <= BWD_TOL[dtype], (name, _of_scale(ours, ref))
         assert ours.abs().max() > 0
+
+
+def _bwd_inputs(dev, b, h, hkv, lq, lk, d, dtype, seed):
+    """q, k, v, dout as the model's strided (B, H, L, D) views."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, n_l, n, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+            for n_l, n in ((lq, h), (lk, hkv), (lk, hkv), (lq, h))]
+
+
+# every head-dim bucket of the backward (80 padded inside 128), GQA groups
+# 1, 4 and 8, lengths off the blocks, Lq != Lk, and rows with no visible
+# column (causal, window 48, Lq 300 > Lk 100)
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d", [
+    (1, 8, 2, 257, 257, 64),
+    (2, 4, 4, 130, 130, 80),
+    (1, 8, 1, 200, 200, 128),
+    (1, 4, 2, 100, 100, 256),
+    (1, 2, 1, 97, 97, 320),
+    (1, 4, 2, 65, 200, 128),
+    (1, 4, 2, 300, 100, 64),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_backward_matches_its_plain_version(dev, b, h, hkv, lq, lk, d, causal, window,
+                                               dtype):
+    """The backward kernel against `flash_attention_backward_plain` on the
+    same (out, lse), on strided views; and the forward kernel's lse against
+    the plain version's (+inf exactly where a row sees no column)."""
+    q, k, v, dout = _bwd_inputs(dev, b, h, hkv, lq, lk, d, dtype, lq * d + window)
+    out, lse = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                     return_lse=True)
+    lse_k = torch.empty_like(lse)
+    out_k = flash_attention._launch(q, k, v, causal, window, lse_k)
+    before = flash_attention.flash_attention_backward.launches
+    got = flash_attention.flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                                   window=window)
+    ref = flash_attention.flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                                         causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_backward.launches == before + 1
+    empty = torch.isinf(lse)
+    assert torch.equal(torch.isinf(lse_k), empty) and (lse_k[empty] > 0).all()
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
+    assert torch.allclose(lse_k[~empty], lse[~empty], rtol=lse_tol, atol=lse_tol)
+    assert (out_k[empty] == 0).all()
+    for ours, want, t, name in zip(got, ref, (q, k, v), "qkv"):
+        assert ours.dtype == dtype and ours.shape == t.shape and ours.stride() == t.stride()
+        assert _of_scale(ours, want) <= BWD_TOL[dtype], (name, _of_scale(ours, want))
+    assert (got[0][empty] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_backward_is_deterministic(dev, dtype):
+    """Two backward runs on the same inputs give the same bits (no atomics:
+    a GQA group's dk and dv are summed over its heads in order)."""
+    q, k, v, dout = _bwd_inputs(dev, 2, 8, 2, 333, 333, 128, dtype, 3)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    out = flash_attention._launch(q, k, v, True, 0, lse)
+    runs = [flash_attention.flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_k7_backward_needs_and_raises_on_what_it_cannot_take(dev):
+    """Only the asked-for gradients; anything the kernel cannot take raises
+    (nothing falls back to the plain version)."""
+    q, k, v, dout = _bwd_inputs(dev, 1, 4, 2, 64, 64, 64, torch.bfloat16, 1)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    out = flash_attention._launch(q, k, v, True, 0, lse)
+    full = flash_attention.flash_attention_backward(q, k, v, out, lse, dout)
+    dq, dk, dv = flash_attention.flash_attention_backward(q, k, v, out, lse, dout,
+                                                          need_dkv=False)
+    assert dk is None and dv is None and torch.equal(dq, full[0])
+    dq, dk, dv = flash_attention.flash_attention_backward(q, k, v, out, lse, dout,
+                                                          need_dq=False)
+    assert dq is None and torch.equal(dk, full[1]) and torch.equal(dv, full[2])
+    bwd = flash_attention.flash_attention_backward
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half())
+    with pytest.raises(ValueError, match="head dims"):
+        bwd(q[..., :24], k[..., :24], v[..., :24], out[..., :24], lse, dout[..., :24])
+    with pytest.raises(ValueError, match="dout must have q's shape"):
+        bwd(q, k, v, out, lse, dout.float())
+    with pytest.raises(ValueError, match="lse must be"):
+        bwd(q, k, v, out, lse[:, :, :32], dout)
+    with pytest.raises(ValueError, match="contiguous head-dim"):
+        bwd(q, k, v, out, lse, dout.transpose(2, 3).contiguous().transpose(2, 3))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
