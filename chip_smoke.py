@@ -67,7 +67,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      version's autograd gradient within `K7_BWD_TOL` (1e-5 float32, 2e-2
      bf16) of each gradient's largest |value|, timed beside its bound, the
      plain version, the route it replaced (autograd through the plain
-     version) and `scaled_dot_product_attention`'s backward;
+     version) and `scaled_dot_product_attention`'s backward, with the
+     kernel's route (`wgmma` for bf16 up to head dim 128, else `mma_sync`)
+     and each pass's blocks logged, zamba2's head dim 80 also timed at its
+     bucket's 128;
  11. (run after phase 8, on phase 7's scene, before the LM phases free it)
      the ragged fleet, with the counters set to 0 first: a pooled service of
      8 clients at capacity 8 (max_clients 16, bandwidth tiers phone /
@@ -212,7 +215,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      measured step.
 The build phase prints each kernel's registers, static shared memory and
 spills from the compiler's `-Xptxas -v` lines (K7's backward kernels by
-element type, head-dim bucket and blocks), and the SASS instructions
+element type, head-dim bucket and blocks; the wgmma ones by bucket and
+k-steps, and the phase fails if one of those spills), and the SASS instructions
 of K2's hot loop per pixel-entry (`repro_torch.kernels.sass`). Every
 kernel's time is printed by events and by device time (profiler).
 The kernel report's `launches_by_path` has an entry a path (session, fleet,
@@ -2306,10 +2310,33 @@ def k7_backward_cases(torch, dev) -> list:
                 log(f"[K7 bwd] {name} {dtype_name}: sdpa's backward failed ({e}): not measured")
                 row["library_ms"] = None
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            rt = FA.bwd_route(d, dtype)
+            row.update(route=rt.route, padded_head_dim=rt.d_pad, dq_blocks=list(rt.dq_blocks),
+                       dkv_blocks=list(rt.dkv_blocks))
+            if row["library_ms"]:
+                row["vs_library"] = row["ms"] / row["library_ms"]
+            if rt.route == "wgmma" and rt.d_pad != d:
+                # what the padding costs: the same call at the padded head dim
+                qp, kp, vp, dop = (torch.randn((b, length, n, rt.d_pad), generator=gen,
+                                               device=dev).to(dtype).transpose(1, 2)
+                                   for n in (h, hkv, hkv, h))
+                lsep = torch.empty((b, h, length), dtype=torch.float32, device=dev)
+                outp = FA._launch(qp, kp, vp, causal, window, lsep)
+                row["ms_at_padded_head_dim"] = cuda_ms(torch, lambda: FA.flash_attention_backward(
+                    qp, kp, vp, outp, lsep, dop, **kw), REPS)
+                row["bound_ms_at_padded_head_dim"] = row["bound_ms"] * rt.d_pad / d
+                log(f"[K7 bwd] {name} at head dim {rt.d_pad}: "
+                    f"{row['ms_at_padded_head_dim']:.4f} ms against {row['ms']:.4f} ms at {d} "
+                    f"(ratio {row['ms'] / row['ms_at_padded_head_dim']:.3f})")
+                del qp, kp, vp, dop, lsep, outp
+            log(f"[K7 bwd] {name} {dtype_name}: route {rt.route}, head dim {d} in bucket "
+                f"{rt.d_pad}, dQ pass blocks {rt.dq_blocks}, dK/dV pass blocks {rt.dkv_blocks}")
             log(f"[K7 bwd] {name} {row['shape']} {dtype_name} causal={causal} window={window}: "
                 f"{row['ms']:.4f} ms, device {fmt_ms(row['device_ms'])}, plain "
                 f"{row['plain_ms']:.3f} ms, plain autograd {row['plain_autograd_ms']:.3f} ms, "
-                f"sdpa backward {fmt_ms(row['library_ms'])}, bound {row['bound_ms']:.4f} ms "
+                f"sdpa backward {fmt_ms(row['library_ms'])} (kernel / sdpa "
+                f"{row['vs_library'] if row.get('vs_library') else float('nan'):.3f}), bound "
+                f"{row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}; share {row['bound_share']:.4f}); of scale "
                 f"{err_plain:.3g} vs plain, {err_auto:.3g} vs autograd, max |err| {abs_err:.3g}")
             rows.append(row)
@@ -3178,6 +3205,11 @@ def main() -> int:
         log(f"[build] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} B static "
             f"shared memory, {k['spill_stores']} B spill stores, {k['spill_loads']} B spill "
             f"loads")
+    bwd_tc = [k for k in report["ptxas"]
+              if k["kernel"].startswith("attention_bwd") and "wgmma" in k["kernel"]]
+    if not bwd_tc or any(k["spill_stores"] or k["spill_loads"] for k in bwd_tc):
+        raise AssertionError(f"K7's wgmma backward kernels missing from the build log, or "
+                             f"spilling: {bwd_tc}")
     report["phases"]["build_s"] = b["seconds"]
     # K2's SASS instructions a pixel-entry: the measure its design moves
     report["sass_k2"] = sass.report(b["path"], "rasterize_kernel")

@@ -3,6 +3,8 @@
 At first use, one `nvcc` a source, all started together, compiles every
 source to an object, and one more links them into
 `build/repro_torch/libnebula_kernels.so` at the root of the checkout. The
+build is redone when a source, a header they include (`csrc/sm90.cuh`:
+the Hopper helpers of K7's forward and backward) or a flag changes. The
 library has a plain C interface and is loaded with `ctypes`: every pointer
 and the stream are `c_void_p`, strides `c_longlong`, and every entry point
 returns `cudaGetLastError()`, which `check` turns into an exception.
@@ -52,9 +54,8 @@ SIGNATURES = {
     "nebula_rasterize_slabs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P],
     "nebula_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                *[_L] * 12, _I, _I, _F, _P, _I, _I, _I, _I, _P],
-    "nebula_flash_attention_backward": [*[_P] * 12, _I, _I, _I, _I, _I, _I, _I,
-                                        *[_L] * 24, _I, _I, _F, _P, _I, _P, _I, _I, _I,
-                                        _I, _P],
+    "nebula_flash_attention_backward": [*[_P] * 14, *[_I] * 7, *[_L] * 24, _I, _I, _F,
+                                        _P, _I, _P, _I, *[_I] * 8, _P],
 }
 
 
@@ -67,9 +68,11 @@ def find_nvcc() -> str:
                        "be built (install the CUDA toolkit or put nvcc on PATH)")
 
 
-def _sources_digest(sources) -> str:
+def sources_digest(csrc: Path = CSRC) -> str:
+    """The build's stamp: every `*.cu` source and every `*.cuh` header they
+    include under `csrc`, by name and bytes, and the flags."""
     h = hashlib.sha256()
-    for s in sources:
+    for s in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
@@ -85,7 +88,7 @@ def build() -> dict:
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     log = BUILD_DIR / "build.log"
-    digest = _sources_digest(sources)
+    digest = sources_digest()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return {"path": str(lib), "seconds": 0.0, "rebuilt": False,
                 "ptxas": log.read_text() if log.exists() else ""}

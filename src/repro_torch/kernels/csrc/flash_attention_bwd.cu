@@ -25,21 +25,83 @@
 // >= Lk zero K and V; tiles that hold either are masked as partial.
 //
 // What bounds it on the H100: operations, 10 D per visible (row, col)
-// pair in five products (s, dp, dV, dK, dQ), 14 D as this kernel runs them
+// pair in five products (s, dp, dV, dK, dQ), 14 D as these kernels run them
 // (s and dp twice, once in each pass). Two passes, no atomics, so every
-// run gives the same bits:
+// run gives the same bits (FlashAttention-2 and -3 sum dQ with float32
+// atomics inside the dK/dV pass; a dQ partial for each kv tile would be
+// about 1 GB at the training shape):
 //   dK/dV pass: one block per (kv tile of BN rows, query head, batch). It
 //     loads its K and V tile once, then walks the q blocks that see the
 //     tile (the host's plan, q_tile_plan). With H / Hkv > 1 each query
 //     head writes float32 partials (B, H, Lk, D) and a reduce kernel sums
 //     a group's heads in order; with one head a group the pass writes dk
 //     and dv directly. Looping over the group inside one block instead
-//     would leave 2 kv heads x 64 tiles = 128 blocks at qwen2.5-3b's
-//     training shape, the first of them walking 8 x 64 q blocks.
+//     would leave 2 kv heads x 32 kv tiles of 128 rows = 64 blocks at
+//     qwen2.5-3b's training shape, the first of them walking 8 x 64 q
+//     blocks.
 //   dQ pass: one block per (q block of BM rows, head, batch); it loads its
-//     Q, dO, lse and D once and walks the kv tiles it sees (kv_tile_plan,
+//     qs, dO, lse and D once and walks the kv tiles it sees (kv_tile_plan,
 //     the forward's plan at these blocks).
-// Both passes run in two phases a step, 8 warps each:
+// Two routes, chosen by the host (kernels/flash_attention.py:bwd_route):
+//
+// wgmma — bfloat16 at head dims up to 128 (buckets 64 and 128), the
+// training path's. The forward's machinery (sm90.cuh) applied to both
+// passes. The pre-pass also writes qs = round_bf16(q * scale) once into a
+// contiguous (B, H, Lq, D) scratch, and lse and D into (B, H, Lq_pad)
+// buffers whose rows Lq .. Lq_pad - 1 (Lq_pad = Lq rounded up to 128) hold
+// lse = +inf and D = 0: TMA's zero fill would give lse 0 there. Each pass
+// is a block of two consumer warpgroups (256 threads), each 64 rows of the
+// block's tile, fed by TMA into 128-byte-swizzled shared memory (4-D
+// tensor maps, boxes of 64 columns; head-dim columns past D arrive as
+// zeros, add 0 to every score and are never stored). The block's first
+// thread issues every load: the block's fixed operands once, then a ring
+// of 4 stages, each with its own full and empty mbarriers as the forward's,
+// filled 2 steps ahead (a refill waits on the step two back, so neither
+// warpgroup waits on the other's current step). No producer warp: with 9
+// or 12 warps a block ptxas holds every thread to 168 registers (one
+// sub-partition's 16,384 over 3 warps), whatever setmaxnreg asks at run
+// time, and the dK/dV pass takes 226 (ptxas); with a producer warp or
+// warpgroup it spilled 4.3 KB.
+//   dK/dV pass (attention_bwd_dkv_wgmma): BN 128 kv rows; K and V once,
+//     then stages of (qs block of 64 rows, dO block, their 64 lse and D
+//     values by bulk copy). A step: s^T = K qs^T and dp^T = V dO^T by wgmma
+//     (A and B from shared memory, K-major), p^T and ds^T in registers (the
+//     mask only on the blocks the plan marks partial), then dV += p^T dO
+//     and dK += ds^T qs by wgmma with A from registers: the m64nNk16
+//     accumulator layout of s^T is the register-A layout, as the forward
+//     feeds P, so p and ds never touch shared memory; the B operand is the
+//     same dO or qs tile read MN-major. The dV and dK accumulators (64 + 64
+//     floats a thread at D_pad 128) and s^T and dp^T (32 + 32).
+//   dQ pass (attention_bwd_dq_wgmma): BM 128 q rows; qs and dO once, then
+//     stages of (K tile, V tile) of BN 64 rows. A step: s = qs K^T and
+//     dp = dO V^T (shared, K-major), ds in registers, then dQ += ds K (A
+//     from registers, K read MN-major) is issued behind the next step's s
+//     and dp and runs while that step's ds is computed (ds double-buffered
+//     in registers, 204 in all); dq is scaled once at the end. Run after
+//     its step instead, the pass took 0.29 ms at the training shape
+//     against 0.21.
+//   The s and dp products of a step are committed together and waited for
+//   before p and ds are computed, into registers of their own: a write to
+//   an accumulator while another product is in flight makes ptxas
+//   serialize every wgmma of the kernel. They issue NK = D / 16 k-steps,
+//   a constant of the instantiation: the bucket's, or 5 at D 80 (zamba2's),
+//   whose last three would hold only zero fill; the output products are
+//   16 NK columns wide (m64n80k16 at D 80, the second box read for its
+//   first 16 columns), so D 80 does 5/8 of D 128's work.
+//   pass     D_pad   q block   kv tile   shared memory (4 stages)
+//   dK/dV    64      64        128       99 KB
+//   dK/dV    128     64        128       195 KB
+//   dQ       64      128       64        97 KB
+//   dQ       128     128       64        193 KB
+//   TMA needs 16-byte aligned bases and strides of q, k, v and dout; the
+//   host checks them and raises, and the entry point refuses anything
+//   else: nothing is copied, nothing falls back to the other route.
+//
+// mma_sync — float32 at every head dim, and bfloat16 at buckets 256 and
+// 320 (the first kernels, kept: at gemma3's local layer, D 320, the bf16
+// kernel takes 1.14 ms against sdpa's 2.73, and two wgmma accumulators of
+// D_pad / 2 floats a thread do not fit there). Both passes run in two
+// phases a step, 8 warps each:
 //   A. the score tile (16-row pieces a warp): s and dp from shared memory,
 //      then p and ds in registers (the mask only on the tiles the plan
 //      marks partial), written to shared memory in T (p and ds in the
@@ -59,8 +121,6 @@
 // multiple of 16 up to the bucket; output columns past D are skipped a
 // whole 8-column tile at a time):
 //   type      bucket   BM   BN   shared memory (dK/dV pass, dQ pass)
-//   bfloat16  64       64   64   54 KB, 46 KB
-//   bfloat16  128      64   64   86 KB, 78 KB
 //   bfloat16  256      64   32   108 KB, 104 KB
 //   bfloat16  320      64   32   132 KB, 128 KB
 //   float32   64       64   64   98 KB, 82 KB
@@ -71,10 +131,9 @@
 // Global loads are 16 bytes a thread where the host says a tensor is
 // 16-byte aligned (base and strides), else element by element.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -82,10 +141,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
 typedef __nv_bfloat16 bf16;
-
-struct Strides {
-  long long b, h, l;  // in elements; the last axis is contiguous
-};
 
 template <typename T>
 struct Elem;
@@ -308,24 +363,59 @@ struct Shape {
 };
 
 // ---- the pre-pass: D_i = sum_d dO_id O_id ----------------------------------
+// A row of the (B, H, pitch) row space to each group of lpr lanes (a power
+// of two <= 32, each lane 16 bytes of the row at a time; 32 / lpr rows a
+// warp). delta (and lse_pad) have that pitch. With qs != null (the wgmma
+// route) it also writes the row's qs = round_T(q * scale) into the
+// contiguous (B, H, Lq, D) scratch and copies its lse into lse_pad; rows
+// Lq .. pitch - 1 get D = 0 and lse = +inf, so that a q block past Lq
+// reads them as the mma_sync route's loads set them.
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-                    Strides os, Strides dos, int H, int Lq, int D, long long n_rows) {
-  const long long r = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (r >= n_rows) return;
-  const int lane = threadIdx.x & 31;
-  const int i = static_cast<int>(r % Lq);
-  const long long bh = r / Lq;
+attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const T* __restrict__ q,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    float* __restrict__ lse_pad, T* __restrict__ qs, Strides os, Strides dos,
+                    Strides qst, int H, int Lq, int pitch, int D, float scale,
+                    long long n_rows, int lpr, int vec) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31, sub = lane & (lpr - 1);
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * (32 / lpr) +
+      lane / lpr;
+  const bool valid = r < n_rows;
+  const int i = valid ? static_cast<int>(r % pitch) : 0;
+  const long long bh = valid ? r / pitch : 0;
+  const bool in = valid && i < Lq;
   const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-  const T* op = o + b * os.b + h * os.h + i * os.l;
-  const T* dp = dout + b * dos.b + h * dos.h + i * dos.l;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += Elem<T>::get(op[d]) * Elem<T>::get(dp[d]);
+  if (in) {
+    const T* op = o + b * os.b + h * os.h + i * os.l;
+    const T* dp = dout + b * dos.b + h * dos.h + i * dos.l;
+    for (int c = sub * E; c < D; c += lpr * E) {
+      float x[E], y[E];
+      load_chunk(op + c, vec & 16, x);
+      load_chunk(dp + c, vec & 8, y);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[r] = s;
+      for (int e = 0; e < E; ++e) s += x[e] * y[e];
+    }
+  }
+  for (int off = lpr / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (valid && sub == 0) {
+    delta[r] = in ? s : 0.f;
+    if (qs != nullptr) lse_pad[r] = in ? lse[bh * Lq + i] : INFINITY;
+  }
+  if (in && qs != nullptr) {
+    const T* qp = q + b * qst.b + h * qst.h + i * qst.l;
+    T* out = qs + (bh * Lq + i) * D;
+    for (int c = sub * E; c < D; c += lpr * E) {
+      float x[E];
+      load_chunk(qp + c, vec & 1, x);
+#pragma unroll
+      for (int e = 0; e < E; ++e) x[e] *= scale;
+      store_chunk(out + c, x);
+    }
+  }
 }
 
 // ---- the dK/dV pass ---------------------------------------------------------
@@ -444,29 +534,33 @@ attention_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // dk and dv of a kv head: its group's float32 partials summed in head order
-// (blockIdx.y: 0 dv, 1 dk).
+// (blockIdx.y: 0 dv, 1 dk), 4 columns a thread (D is a multiple of 16).
 template <typename T>
 __global__ void __launch_bounds__(256)
 attention_bwd_reduce(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
                      T* __restrict__ dk, T* __restrict__ dv, Strides dks, Strides dvs, int Hkv,
-                     int group, int Lk, int D, long long n) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+                     int group, int Lk, int D, int n4) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n4) return;
   const int which = blockIdx.y;
-  const int d = static_cast<int>(idx % D);
-  long long rest = idx / D;
-  const int j = static_cast<int>(rest % Lk);
-  rest /= Lk;
-  const int hk = static_cast<int>(rest % Hkv), b = static_cast<int>(rest / Hkv);
+  const int d = (idx % (D / 4)) * 4, row = idx / (D / 4);  // row of (B, Hkv, Lk)
+  const int j = row % Lk, bh = row / Lk;
+  const int hk = bh % Hkv, b = bh / Hkv;
   const long long head = static_cast<long long>(Lk) * D;
   const float* p = (which ? dk_part : dv_part) +
                    (static_cast<long long>(b) * Hkv * group + hk * group) * head +
                    static_cast<long long>(j) * D + d;
-  float s = 0.f;
-  for (int i = 0; i < group; ++i) s += p[i * head];
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < group; ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i * head);
+    s.x += x.x, s.y += x.y, s.z += x.z, s.w += x.w;
+  }
   T* o = which ? dk + b * dks.b + hk * dks.h + j * dks.l + d
                : dv + b * dvs.b + hk * dvs.h + j * dvs.l + d;
-  *o = Elem<T>::put(s);
+  o[0] = Elem<T>::put(s.x);
+  o[1] = Elem<T>::put(s.y);
+  o[2] = Elem<T>::put(s.z);
+  o[3] = Elem<T>::put(s.w);
 }
 
 // ---- the dQ pass ---------------------------------------------------------------
@@ -568,17 +662,400 @@ attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- the wgmma route (bfloat16, D_pad 64 and 128) ----------------------------
+
+namespace tc {
+
+constexpr int kBarBytes = 128;  // room for the mbarriers
+
+// Both passes: 256 threads, two consumer warpgroups, and the first thread
+// fills a ring of kStages stages kAhead steps ahead. ptxas gives every
+// thread at most 168 registers when a block has 9 or 12 warps (one
+// sub-partition's 16,384 registers over 3 warps), whatever setmaxnreg asks
+// at run time; the dK/dV pass at D_pad 128 takes 226 and spilled 4.3 KB
+// with a producer warp or warpgroup.
+constexpr int kStages = 4;
+constexpr int kAhead = 2;  // <= kStages - 2: a refill waits on a step two back
+
+// dK/dV pass: BN kv rows (two consumer warpgroups of 64), q blocks of BM.
+template <int DP>
+struct DkvLayout {
+  static constexpr int BN = 128, BM = 64, NWG = 2, NBOX = DP / kBox;
+  static constexpr int KV_BYTES = BN * DP * 2;  // K or V: NBOX boxes of BN rows x 128 bytes
+  static constexpr int Q_BYTES = BM * DP * 2;   // qs or dO of a stage
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + KV_BYTES;
+  static constexpr int QS_OFF = V_OFF + KV_BYTES;
+  static constexpr int DO_OFF = QS_OFF + kStages * Q_BYTES;
+  static constexpr int L_OFF = DO_OFF + kStages * Q_BYTES;  // lse of a stage's BM rows
+  static constexpr int D_OFF = L_OFF + kStages * BM * 4;    // and their D
+  static constexpr int BAR_OFF = D_OFF + kStages * BM * 4;
+  static constexpr int SMEM = BAR_OFF + kBarBytes + 1024;  // slack to align to 1024
+  static constexpr int THREADS = NWG * kWarpgroup;
+};
+
+// acc (64 x N) = A (64 rows of a K-major tile at a) . B (N rows of a K-major
+// tile at b)^T over the first NK k-steps of the head dim (the rest hold
+// TMA's zero fill); each tile is NBOX boxes of a_rows / b_rows rows x 128
+// bytes. NK is a constant: a branch between the wgmmas makes ptxas
+// serialize them.
+template <int N, int NK>
+__device__ __forceinline__ void product_kmajor(float* acc, uint32_t a, int a_rows, uint32_t b,
+                                               int b_rows) {
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc) {
+    const uint32_t within = (kc % 4) * 32;  // 16 columns = 32 bytes into the box
+    WgmmaSS<N>::run(acc,
+                    sw128_desc(a + (kc / 4) * a_rows * kRowBytes + within, 16, 8 * kRowBytes),
+                    sw128_desc(b + (kc / 4) * b_rows * kRowBytes + within, 16, 8 * kRowBytes),
+                    kc > 0);
+  }
+}
+
+// acc (64 x N) += P (64 x K, registers: K / 16 groups of 4 packed bf16
+// pairs, the accumulator layout of a 64 x K product) . B (K rows x N columns
+// of an MN-major tile at b, boxes of b_rows rows x 128 bytes: N = 80 reads
+// the first 16 columns of the second box)
+template <int K, int N>
+__device__ __forceinline__ void product_rs(float* acc, const uint32_t* pk, uint32_t b,
+                                           int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    WgmmaRS<N>::run(acc, &pk[4 * kk],
+                     sw128_desc(b + kk * 16 * kRowBytes, b_rows * kRowBytes, 8 * kRowBytes));
+}
+
+template <int DP, int NK>
+__global__ void __launch_bounds__(DkvLayout<DP>::THREADS, 1)
+attention_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tqs,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse_pad, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        float* __restrict__ dk_part, float* __restrict__ dv_part, Strides dks,
+                        Strides dvs, const int* __restrict__ plan, int group, int Lq, int Lk,
+                        int lq_pad, int D, int causal, int window) {
+  using Lt = DkvLayout<DP>;
+  constexpr int BN = Lt::BN, BM = Lt::BM, NWG = Lt::NWG, NBOX = Lt::NBOX;
+  constexpr int S = kStages;
+  constexpr int NO = 16 * NK;  // output columns: D_pad, or 80 at D 80
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;  // swizzle atoms are 1024 bytes
+  const uint8_t* smem = smem_raw + pad;
+  const uint32_t base = raw + pad;
+  const uint32_t s_k = base + Lt::K_OFF, s_v = base + Lt::V_OFF;
+  const uint32_t bar = base + Lt::BAR_OFF;
+  const uint32_t kv_full = bar;
+  auto full = [&](int st) { return bar + 8 + 8 * st; };
+  auto empty = [&](int st) { return bar + 8 + 8 * S + 8 * st; };
+
+  // plan row: kv tile, first and end q block, first and end block without a mask
+  const int* pr = plan + 5 * blockIdx.z;
+  const int kb = pr[0], qb0 = pr[1], qb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
+  const int H = gridDim.x, h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int c0 = kb * BN, n = qb1 - qb0;
+  const int wg = threadIdx.x / kWarpgroup;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * lq_pad;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the i-th q block of the walk into stage i % S, once its last user is done
+  const bool loader = threadIdx.x == 0;
+  auto load = [&](int i) {
+    const int st = i % S, qb = qb0 + i;
+    if (i >= S) mbar_wait(empty(st), (i / S - 1) & 1);
+    mbar_expect_tx(full(st), 2 * Lt::Q_BYTES + 2 * BM * 4);
+    const uint32_t sq = base + Lt::QS_OFF + st * Lt::Q_BYTES;
+    const uint32_t sdo = base + Lt::DO_OFF + st * Lt::Q_BYTES;
+    for (int c = 0; c < NBOX; ++c) {
+      tma_load(sq + c * BM * kRowBytes, &tqs, full(st), c * kBox, qb * BM, h, b);
+      tma_load(sdo + c * BM * kRowBytes, &tdo, full(st), c * kBox, qb * BM, h, b);
+    }
+    bulk_load(base + Lt::L_OFF + st * BM * 4, lse_pad + row_bh + qb * BM, BM * 4, full(st));
+    bulk_load(base + Lt::D_OFF + st * BM * 4, delta + row_bh + qb * BM, BM * 4, full(st));
+  };
+  if (loader) {
+    mbar_expect_tx(kv_full, 2 * Lt::KV_BYTES);
+    for (int c = 0; c < NBOX; ++c) {
+      tma_load(s_k + c * BN * kRowBytes, &tk, kv_full, c * kBox, c0, hk, b);
+      tma_load(s_v + c * BN * kRowBytes, &tv, kv_full, c * kBox, c0, hk, b);
+    }
+    for (int i = 0; i < kAhead && i < n; ++i) load(i);
+  }
+
+  // ---- consumers: 64 kv rows per warpgroup ----
+  const int t = threadIdx.x - wg * kWarpgroup;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, c4 = lane & 3;
+  const int j0 = c0 + wg * 64 + warp * 16 + g;  // this lane's kv rows: j0 and j0 + 8
+  const uint32_t a_k = s_k + wg * 64 * kRowBytes, a_v = s_v + wg * 64 * kRowBytes;
+
+  float dv_acc[NO / 2], dk_acc[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  float s[BM / 2], dp[BM / 2];
+  uint32_t pk[BM / 4], dsk[BM / 4];
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n; ++i) {
+    if (loader && i + kAhead < n) load(i + kAhead);
+    const int st = i % S, ph = (i / S) & 1, qb = qb0 + i;
+    const uint32_t sq = base + Lt::QS_OFF + st * Lt::Q_BYTES;
+    const uint32_t sdo = base + Lt::DO_OFF + st * Lt::Q_BYTES;
+    const float* sL = reinterpret_cast<const float*>(smem + Lt::L_OFF) + st * BM;
+    const float* sD = reinterpret_cast<const float*>(smem + Lt::D_OFF) + st * BM;
+    const int q0 = qb * BM;
+
+    mbar_wait(full(st), ph);
+    wg_fence();
+    product_kmajor<BM, NK>(s, a_k, BN, sq, BM);  // s^T = K qs^T
+    product_kmajor<BM, NK>(dp, a_v, BN, sdo, BM);  // dp^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<BM / 2>(s);
+    reg_fence<BM / 2>(dp);
+
+    // element 4 jj + e is kv row j0 + 8 (e / 2), q column 8 jj + 2 c4 + e % 2;
+    // p and ds rounded to bf16 as wgmma's register A operand, a k-step (16 q
+    // columns) in 4 registers, as the forward feeds P
+    const bool partial = qb < fb0 || qb >= fb1;
+#pragma unroll
+    for (int jj = 0; jj < BM / 8; ++jj) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * jj + 2 * c4 + (e & 1);
+        p[e] = expf(s[4 * jj + e] - sL[col]);
+        if (partial && !visible(q0 + col, j0 + 8 * (e >> 1), Lq, Lk, causal, window)) p[e] = 0.f;
+        ds[e] = p[e] * (dp[4 * jj + e] - sD[col]);
+      }
+      pk[2 * jj] = pack_bf16(p[0], p[1]);
+      pk[2 * jj + 1] = pack_bf16(p[2], p[3]);
+      dsk[2 * jj] = pack_bf16(ds[0], ds[1]);
+      dsk[2 * jj + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    reg_fence<NO / 2>(dv_acc);
+    reg_fence<NO / 2>(dk_acc);
+    wg_fence();
+    product_rs<BM, NO>(dv_acc, pk, sdo, BM);   // dV += p^T dO
+    product_rs<BM, NO>(dk_acc, dsk, sq, BM);   // dK += ds^T qs
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<NO / 2>(dv_acc);
+    reg_fence<NO / 2>(dk_acc);
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = j0 + 8 * r;
+    if (row >= Lk) continue;
+#pragma unroll
+    for (int jj = 0; jj < NO / 8; ++jj) {
+      const int col = 8 * jj + 2 * c4;
+      if (col >= D) continue;
+      const float v0 = dv_acc[4 * jj + 2 * r], v1 = dv_acc[4 * jj + 2 * r + 1];
+      const float k0 = dk_acc[4 * jj + 2 * r], k1 = dk_acc[4 * jj + 2 * r + 1];
+      if (dk_part != nullptr) {  // a query head's share; the reduce kernel sums the group
+        const long long o = ((static_cast<long long>(b) * H + h) * Lk + row) * D + col;
+        *reinterpret_cast<float2*>(dv_part + o) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(dk_part + o) = make_float2(k0, k1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + hk * dvs.h + row * dvs.l + col) =
+            __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + hk * dks.h + row * dks.l + col) =
+            __floats2bfloat162_rn(k0, k1);
+      }
+    }
+  }
+}
+
+// dQ pass: BM q rows (two consumer warpgroups of 64), kv tiles of BN rows
+// in a ring of kStages stages filled kAhead tiles ahead by the first
+// consumer thread, as the dK/dV pass's.
+template <int DP>
+struct DqLayout {
+  static constexpr int BM = 128, BN = 64, NWG = 2, NBOX = DP / kBox;
+  static constexpr int Q_BYTES = BM * DP * 2;   // qs or dO
+  static constexpr int KV_BYTES = BN * DP * 2;  // K or V of a stage
+  static constexpr int QS_OFF = 0;
+  static constexpr int DO_OFF = QS_OFF + Q_BYTES;
+  static constexpr int K_OFF = DO_OFF + Q_BYTES;
+  static constexpr int V_OFF = K_OFF + kStages * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + kBarBytes + 1024;
+  static constexpr int THREADS = NWG * kWarpgroup;
+};
+
+template <int DP, int NK>
+__global__ void __launch_bounds__(DqLayout<DP>::THREADS, 1)
+attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tqs,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse_pad, const float* __restrict__ delta,
+                       bf16* __restrict__ dq, Strides dqs, const int* __restrict__ plan,
+                       int group, int Lq, int Lk, int lq_pad, int D, int causal, int window,
+                       float scale) {
+  using Lt = DqLayout<DP>;
+  constexpr int BN = Lt::BN, BM = Lt::BM, NWG = Lt::NWG, NBOX = Lt::NBOX;
+  constexpr int NO = 16 * NK;  // output columns: D_pad, or 80 at D 80
+  constexpr int S = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t base = raw + pad;
+  const uint32_t s_qs = base + Lt::QS_OFF, s_do = base + Lt::DO_OFF;
+  const uint32_t bar = base + Lt::BAR_OFF;
+  const uint32_t q_full = bar;
+  auto full = [&](int st) { return bar + 8 + 8 * st; };
+  auto empty = [&](int st) { return bar + 8 + 8 * S + 8 * st; };
+
+  const int* pr = plan + 5 * blockIdx.z;
+  const int qb = pr[0], kb0 = pr[1], kb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
+  const int H = gridDim.x, h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int q0 = qb * BM, n = kb1 - kb0;
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const bool loader = threadIdx.x == 0;
+  auto load = [&](int i) {
+    const int st = i % S, kb = kb0 + i;
+    if (i >= S) mbar_wait(empty(st), (i / S - 1) & 1);
+    mbar_expect_tx(full(st), 2 * Lt::KV_BYTES);
+    const uint32_t sk = base + Lt::K_OFF + st * Lt::KV_BYTES;
+    const uint32_t sv = base + Lt::V_OFF + st * Lt::KV_BYTES;
+    for (int c = 0; c < NBOX; ++c) {
+      tma_load(sk + c * BN * kRowBytes, &tk, full(st), c * kBox, kb * BN, hk, b);
+      tma_load(sv + c * BN * kRowBytes, &tv, full(st), c * kBox, kb * BN, hk, b);
+    }
+  };
+  if (loader) {
+    mbar_expect_tx(q_full, 2 * Lt::Q_BYTES);
+    for (int c = 0; c < NBOX; ++c) {
+      tma_load(s_qs + c * BM * kRowBytes, &tqs, q_full, c * kBox, q0, h, b);
+      tma_load(s_do + c * BM * kRowBytes, &tdo, q_full, c * kBox, q0, h, b);
+    }
+    for (int i = 0; i < kAhead && i < n; ++i) load(i);
+  }
+
+  const int t = threadIdx.x - wg * kWarpgroup;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, c4 = lane & 3;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
+  const uint32_t a_qs = s_qs + wg * 64 * kRowBytes, a_do = s_do + wg * 64 * kRowBytes;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * lq_pad;
+  const float l_r[2] = {lse_pad[row_bh + row0], lse_pad[row_bh + row0 + 8]};
+  const float d_r[2] = {delta[row_bh + row0], delta[row_bh + row0 + 8]};
+
+  float acc[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
+  float s[BN / 2], dp[BN / 2];
+  uint32_t dsk[BN / 4], prev[BN / 4];  // this tile's ds, and the one dQ takes now
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    if (loader && i + kAhead < n) load(i + kAhead);
+    const int st = i % S, ph = (i / S) & 1, kb = kb0 + i;
+    const uint32_t sk = base + Lt::K_OFF + st * Lt::KV_BYTES;
+    const uint32_t sv = base + Lt::V_OFF + st * Lt::KV_BYTES;
+    const int c0 = kb * BN;
+
+    mbar_wait(full(st), ph);
+    wg_fence();
+    product_kmajor<BN, NK>(s, a_qs, BM, sk, BN);   // s = qs K^T
+    product_kmajor<BN, NK>(dp, a_do, BM, sv, BN);  // dp = dO V^T
+    wg_commit();
+    if (i > 0) {  // the last tile's dQ += ds K, behind this tile's s and dp
+      reg_fence<NO / 2>(acc);
+      product_rs<BN, NO>(acc, prev, base + Lt::K_OFF + ((i - 1) % S) * Lt::KV_BYTES, BN);
+      wg_commit();
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    reg_fence<BN / 2>(s);
+    reg_fence<BN / 2>(dp);
+
+    const bool partial = kb < fb0 || kb >= fb1;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[4 * jj + e] - l_r[e >> 1]);
+        if (partial &&
+            !visible(row0 + 8 * (e >> 1), c0 + 8 * jj + 2 * c4 + (e & 1), Lq, Lk, causal, window))
+          p = 0.f;
+        ds[e] = p * (dp[4 * jj + e] - d_r[e >> 1]);
+      }
+      dsk[2 * jj] = pack_bf16(ds[0], ds[1]);
+      dsk[2 * jj + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    if (i > 0) {
+      wg_wait<0>();
+      reg_fence<NO / 2>(acc);
+      if (lane == 0) mbar_arrive(empty((i - 1) % S));
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 4; ++j) prev[j] = dsk[j];
+  }
+  if (n > 0) {
+    reg_fence<NO / 2>(acc);
+    wg_fence();
+    product_rs<BN, NO>(acc, prev, base + Lt::K_OFF + ((n - 1) % S) * Lt::KV_BYTES, BN);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence<NO / 2>(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    bf16* out = dq + b * dqs.b + h * dqs.h + row * dqs.l;
+#pragma unroll
+    for (int jj = 0; jj < NO / 8; ++jj) {
+      const int col = 8 * jj + 2 * c4;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+            scale * acc[4 * jj + 2 * r], scale * acc[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
+}  // namespace tc
+
 // ---- host side ---------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *o, *lse, *dout;
-  void *dq, *dk, *dv, *delta, *dk_part, *dv_part;
+  void *dq, *dk, *dv, *delta, *dk_part, *dv_part, *q_scaled, *lse_pad;
   int B, H, Hkv, Lq, Lk, D;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   int causal, window;
   float scale;
   const int *dq_plan, *dkv_plan;
-  int n_dq_plan, n_dkv_plan, block_q, block_k, vec;
+  int n_dq_plan, n_dkv_plan, d_pad, dq_bq, dq_bk, dkv_bq, dkv_bk, lq_pad, vec;
 };
 
 // Lets `kernel` take `bytes` of dynamic shared memory, once a device.
@@ -595,15 +1072,49 @@ int allow_smem(K kernel, int bytes, uint64_t* done) {
   return 0;
 }
 
+// The pre-pass over B * H rows of `pitch` (>= Lq); q_scaled and lse_pad null
+// on the mma_sync route.
+template <typename T>
+int launch_delta(const Args& a, int pitch, cudaStream_t st) {
+  const long long n_rows = static_cast<long long>(a.B) * a.H * pitch;
+  const int chunks = a.D / (16 / static_cast<int>(sizeof(T)));
+  int lpr = 1;  // lanes a row: the row's 16-byte chunks, to a power of two <= 32
+  while (lpr < chunks && lpr < 32) lpr *= 2;
+  const long long rows_per_block = static_cast<long long>(kWarps) * (32 / lpr);
+  attention_bwd_delta<T><<<static_cast<unsigned>((n_rows + rows_per_block - 1) / rows_per_block),
+                           kThreads, 0, st>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), static_cast<const T*>(a.q),
+      static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
+      static_cast<float*>(a.lse_pad), static_cast<T*>(a.q_scaled), a.os, a.dos, a.qs, a.H, a.Lq,
+      pitch, a.D, a.scale, n_rows, lpr, a.vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk and dv from the float32 partials of a GQA group's heads.
+template <typename T>
+int launch_reduce(const Args& a, cudaStream_t st) {
+  const long long n4 = static_cast<long long>(a.B) * a.Hkv * a.Lk * (a.D / 4);
+  if (n4 > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attention_bwd_reduce<T><<<dim3(static_cast<unsigned>((n4 + 255) / 256), 2), 256, 0, st>>>(
+      static_cast<const float*>(a.dk_part), static_cast<const float*>(a.dv_part),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dks, a.dvs, a.Hkv, a.H / a.Hkv, a.Lk,
+      a.D, static_cast<int>(n4));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool plans_ok(const Args& a, int dq_bq, int dq_bk, int dkv_bq, int dkv_bk) {
+  return a.dq_bq == dq_bq && a.dq_bk == dq_bk && a.dkv_bq == dkv_bq && a.dkv_bk == dkv_bk &&
+         (a.dq == nullptr || a.n_dq_plan == (a.Lq + dq_bq - 1) / dq_bq) &&
+         (a.dk == nullptr || a.n_dkv_plan == (a.Lk + dkv_bk - 1) / dkv_bk) &&
+         a.n_dq_plan <= 65535 && a.n_dkv_plan <= 65535 &&
+         (a.dk == nullptr || a.H == a.Hkv || (a.dk_part != nullptr && a.dv_part != nullptr));
+}
+
 template <typename T, int DM, int BM, int BN>
 int run(const Args& a, cudaStream_t st) {
   using S = Shape<T, DM, BM, BN>;
   const int group = a.H / a.Hkv;
-  if (a.block_q != BM || a.block_k != BN ||
-      (a.dq != nullptr && a.n_dq_plan != (a.Lq + BM - 1) / BM) ||
-      (a.dk != nullptr && a.n_dkv_plan != (a.Lk + BN - 1) / BN) || a.n_dq_plan > 65535 ||
-      a.n_dkv_plan > 65535 ||
-      (a.dk != nullptr && group > 1 && (a.dk_part == nullptr || a.dv_part == nullptr)))
+  if (a.d_pad != DM || !plans_ok(a, BM, BN, BM, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -612,16 +1123,11 @@ int run(const Args& a, cudaStream_t st) {
   const float* lse = static_cast<const float*>(a.lse);
   float* delta = static_cast<float*>(a.delta);
 
-  const long long n_rows = static_cast<long long>(a.B) * a.H * a.Lq;
-  attention_bwd_delta<T><<<static_cast<unsigned>((n_rows + kWarps - 1) / kWarps), kThreads, 0,
-                           st>>>(static_cast<const T*>(a.o), dout, delta, a.os, a.dos, a.H, a.Lq,
-                                 a.D, n_rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-
+  int err = launch_delta<T>(a, a.Lq, st);
+  if (err != 0) return err;
   if (a.dk != nullptr) {
     static uint64_t done = 0;
-    int err = allow_smem(attention_bwd_dkv<T, DM, BM, BN>, S::SMEM_KV, &done);
+    err = allow_smem(attention_bwd_dkv<T, DM, BM, BN>, S::SMEM_KV, &done);
     if (err != 0) return err;
     float* dk_part = group > 1 ? static_cast<float*>(a.dk_part) : nullptr;
     float* dv_part = group > 1 ? static_cast<float*>(a.dv_part) : nullptr;
@@ -629,20 +1135,13 @@ int run(const Args& a, cudaStream_t st) {
         q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), dk_part,
         dv_part, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.dkv_plan, group, a.Lq, a.Lk, a.D,
         a.causal, a.window, a.scale, a.vec);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (group > 1) {
-      const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * a.D;
-      attention_bwd_reduce<T><<<dim3(static_cast<unsigned>((n + 255) / 256), 2), 256, 0, st>>>(
-          dk_part, dv_part, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dks, a.dvs, a.Hkv,
-          group, a.Lk, a.D, n);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    err = static_cast<int>(cudaGetLastError());
+    if (err == 0 && group > 1) err = launch_reduce<T>(a, st);
+    if (err != 0) return err;
   }
   if (a.dq != nullptr) {
     static uint64_t done = 0;
-    int err = allow_smem(attention_bwd_dq<T, DM, BM, BN>, S::SMEM_Q, &done);
+    err = allow_smem(attention_bwd_dq<T, DM, BM, BN>, S::SMEM_Q, &done);
     if (err != 0) return err;
     attention_bwd_dq<T, DM, BM, BN><<<dim3(a.H, a.B, a.n_dq_plan), kThreads, S::SMEM_Q, st>>>(
         q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
@@ -651,46 +1150,121 @@ int run(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 pairs can be stored at every even column of every row
+bool pairs_ok(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0 && s.l % 2 == 0 && s.h % 2 == 0 &&
+         s.b % 2 == 0;
+}
+
+template <int DP, int NK>
+int run_wgmma(const Args& a, cudaStream_t st) {
+  using Kv = tc::DkvLayout<DP>;
+  using Qd = tc::DqLayout<DP>;
+  const int group = a.H / a.Hkv;
+  if (!plans_ok(a, Qd::BM, Qd::BN, Kv::BM, Kv::BN) || a.q_scaled == nullptr ||
+      a.lse_pad == nullptr || a.lq_pad % Qd::BM != 0 || a.lq_pad < a.Lq ||
+      a.lq_pad - a.Lq >= Qd::BM || !tc::tma_ready(a.q, a.qs) || !tc::tma_ready(a.k, a.ks) ||
+      !tc::tma_ready(a.v, a.vs) || !tc::tma_ready(a.dout, a.dos) ||
+      (a.dq != nullptr && !pairs_ok(a.dq, a.dqs)) ||
+      (a.dk != nullptr && (!pairs_ok(a.dk, a.dks) || !pairs_ok(a.dv, a.dvs))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_delta<bf16>(a, a.lq_pad, st);
+  if (err != 0) return err;
+  const float* lse_pad = static_cast<const float*>(a.lse_pad);
+  const float* delta = static_cast<const float*>(a.delta);
+  const Strides qss{static_cast<long long>(a.H) * a.Lq * a.D,
+                    static_cast<long long>(a.Lq) * a.D, a.D};  // the contiguous qs scratch
+  // a pass's tensor maps (qs, k, v, dout), its q and kv boxes of these rows
+  CUtensorMap m[4];
+  auto maps = [&](int q_rows, int kv_rows) {
+    return tc::encode(&m[0], a.q_scaled, a.D, a.Lq, a.H, a.B, qss, q_rows) &&
+           tc::encode(&m[1], a.k, a.D, a.Lk, a.Hkv, a.B, a.ks, kv_rows) &&
+           tc::encode(&m[2], a.v, a.D, a.Lk, a.Hkv, a.B, a.vs, kv_rows) &&
+           tc::encode(&m[3], a.dout, a.D, a.Lq, a.H, a.B, a.dos, q_rows);
+  };
+  if (a.dk != nullptr) {
+    if (!maps(Kv::BM, Kv::BN)) return static_cast<int>(cudaErrorInvalidValue);
+    static uint64_t done = 0;
+    err = allow_smem(tc::attention_bwd_dkv_wgmma<DP, NK>, Kv::SMEM, &done);
+    if (err != 0) return err;
+    const dim3 grid(a.H, a.B, a.n_dkv_plan);
+    tc::attention_bwd_dkv_wgmma<DP, NK><<<grid, Kv::THREADS, Kv::SMEM, st>>>(
+        m[0], m[1], m[2], m[3], lse_pad, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), group > 1 ? static_cast<float*>(a.dk_part) : nullptr,
+        group > 1 ? static_cast<float*>(a.dv_part) : nullptr, a.dks, a.dvs, a.dkv_plan, group,
+        a.Lq, a.Lk, a.lq_pad, a.D, a.causal, a.window);
+    err = static_cast<int>(cudaGetLastError());
+    if (err == 0 && group > 1) err = launch_reduce<bf16>(a, st);
+    if (err != 0) return err;
+  }
+  if (a.dq != nullptr) {
+    if (!maps(Qd::BM, Qd::BN)) return static_cast<int>(cudaErrorInvalidValue);
+    static uint64_t done = 0;
+    err = allow_smem(tc::attention_bwd_dq_wgmma<DP, NK>, Qd::SMEM, &done);
+    if (err != 0) return err;
+    const dim3 grid(a.H, a.B, a.n_dq_plan);
+    tc::attention_bwd_dq_wgmma<DP, NK><<<grid, Qd::THREADS, Qd::SMEM, st>>>(
+        m[0], m[1], m[2], m[3], lse_pad, delta, static_cast<bf16*>(a.dq), a.dqs, a.dq_plan,
+        group, a.Lq, a.Lk, a.lq_pad, a.D, a.causal, a.window, a.scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, o, dout, dq, dk and dv alike; lse,
-// delta and the partials are float32). Strides in elements, (batch, head,
-// row) for each of q, k, v, o, dout, dq, dk, dv; the head-dim axis is
-// contiguous; lse and delta are (B, H, Lq) and the partials (B, H, Lk, D),
-// contiguous. dq == null skips the dQ pass, dk == null the dK/dV pass (dk
-// and dv come together); with H > Hkv the dK/dV pass needs both partials.
-// D is a multiple of 16 in [16, 320], H a multiple of Hkv. The plans
-// (device int32, five columns a row) and the blocks come from
-// kernels/flash_attention.py (bwd_blocks, kv_tile_plan, q_tile_plan); vec
-// has bit 0 for q, 1 for k, 2 for v and 3 for dout where the tensor may be
-// read 16 bytes at a time.
+// delta, lse_pad and the partials are float32). Strides in elements, (batch,
+// head, row) for each of q, k, v, o, dout, dq, dk, dv; the head-dim axis is
+// contiguous; lse is (B, H, Lq) and the partials (B, H, Lk, D), contiguous.
+// dq == null skips the dQ pass, dk == null the dK/dV pass (dk and dv come
+// together); with H > Hkv the dK/dV pass needs both partials. D is a
+// multiple of 16 in [16, 320], H a multiple of Hkv. route (from
+// kernels/flash_attention.py:bwd_route, with d_pad and each pass's q block
+// and kv tile rows): 0 mma_sync (delta (B, H, Lq); q_scaled, lse_pad and
+// lq_pad unused), 1 wgmma (bfloat16, d_pad 64 or 128; delta and lse_pad
+// (B, H, lq_pad) with lq_pad the multiple of 128 at or above Lq, q_scaled
+// (B, H, Lq, D) contiguous bf16 scratch; q, k, v and dout 16-byte aligned in
+// base and strides). vec has bit 0 for q, 1 for k, 2 for v, 3 for dout and
+// 4 for o where the tensor may be read 16 bytes at a time. The plans (device int32, five
+// columns a row) come from kv_tile_plan (dQ pass) and q_tile_plan (dK/dV
+// pass) at those blocks.
 extern "C" int nebula_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, void* dk, void* dv, void* delta, void* dk_part, void* dv_part,
-    int dtype, int B, int H, int Hkv, int Lq, int Lk, int D, long long qsb, long long qsh,
-    long long qsl, long long ksb, long long ksh, long long ksl, long long vsb, long long vsh,
-    long long vsl, long long osb, long long osh, long long osl, long long dosb, long long dosh,
-    long long dosl, long long dqsb, long long dqsh, long long dqsl, long long dksb,
-    long long dksh, long long dksl, long long dvsb, long long dvsh, long long dvsl, int causal,
-    int window, float scale, const void* dq_plan, int n_dq_plan, const void* dkv_plan,
-    int n_dkv_plan, int block_q, int block_k, int vec, void* stream) {
+    void* q_scaled, void* lse_pad, int dtype, int B, int H, int Hkv, int Lq, int Lk, int D,
+    long long qsb, long long qsh, long long qsl, long long ksb, long long ksh, long long ksl,
+    long long vsb, long long vsh, long long vsl, long long osb, long long osh, long long osl,
+    long long dosb, long long dosh, long long dosl, long long dqsb, long long dqsh,
+    long long dqsl, long long dksb, long long dksh, long long dksl, long long dvsb,
+    long long dvsh, long long dvsl, int causal, int window, float scale, const void* dq_plan,
+    int n_dq_plan, const void* dkv_plan, int n_dkv_plan, int route, int d_pad, int dq_block_q,
+    int dq_block_k, int dkv_block_q, int dkv_block_k, int lq_pad, int vec, void* stream) {
   if (D < 16 || D > 320 || D % 16 != 0 || B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
       Lq < 1 || Lk < 1 || H > 65535 || B > 65535 || lse == nullptr || delta == nullptr ||
       (dk == nullptr) != (dv == nullptr) || (dq != nullptr && dq_plan == nullptr) ||
-      (dk != nullptr && dkv_plan == nullptr))
+      (dk != nullptr && dkv_plan == nullptr) || d_pad < D || d_pad - D >= 64)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, lse, dout, dq, dk, dv, delta, dk_part, dv_part, B, H, Hkv, Lq, Lk, D,
+  const Args a{q, k, v, o, lse, dout, dq, dk, dv, delta, dk_part, dv_part, q_scaled, lse_pad,
+               B, H, Hkv, Lq, Lk, D,
                Strides{qsb, qsh, qsl}, Strides{ksb, ksh, ksl}, Strides{vsb, vsh, vsl},
                Strides{osb, osh, osl}, Strides{dosb, dosh, dosl}, Strides{dqsb, dqsh, dqsl},
                Strides{dksb, dksh, dksl}, Strides{dvsb, dvsh, dvsl}, causal, window, scale,
                static_cast<const int*>(dq_plan), static_cast<const int*>(dkv_plan), n_dq_plan,
-               n_dkv_plan, block_q, block_k, vec};
+               n_dkv_plan, d_pad, dq_block_q, dq_block_k, dkv_block_q, dkv_block_k, lq_pad, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && route == 1) {
+    // the head dim's k-steps: all of the bucket's but at D 80 (zamba2's),
+    // whose last three hold only TMA's zero fill
+    if (d_pad == 64) return run_wgmma<64, 4>(a, st);
+    if (d_pad == 128 && D == 80) return run_wgmma<128, 5>(a, st);
+    if (d_pad == 128) return run_wgmma<128, 8>(a, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
-    if (D <= 64) return run<bf16, 64, 64, 64>(a, st);
-    if (D <= 128) return run<bf16, 128, 64, 64>(a, st);
-    if (D <= 256) return run<bf16, 256, 64, 32>(a, st);
-    return run<bf16, 320, 64, 32>(a, st);
+    if (D <= 256 && D > 128) return run<bf16, 256, 64, 32>(a, st);
+    if (D > 256) return run<bf16, 320, 64, 32>(a, st);
+    return static_cast<int>(cudaErrorInvalidValue);  // the wgmma route's head dims
   }
   if (dtype == 0) {
     if (D <= 64) return run<float, 64, 64, 64>(a, st);

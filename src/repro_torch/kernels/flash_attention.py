@@ -35,10 +35,13 @@ dQ, recomputing p = exp(s - lse); its rounding points are in
 backward kernel: the JAX package trains through its plain
 `models.attention.attention` and XLA derives the gradient; the port trains
 through K7's forward, so its gradient is this kernel's on the card. The
-backward's host side is plain code the CPU tests reach: `bwd_blocks` (its
-q and kv block rows by type and head dim), `kv_tile_plan` at those blocks
-for the dQ pass and `q_tile_plan` (the q blocks that see each kv tile) for
-the dK/dV pass. Under `torch.utils.checkpoint` (non-reentrant,
+backward's host side is plain code the CPU tests reach: `bwd_route` (by
+type and head dim, the route — `wgmma` for bf16 up to head dim 128, where
+q, k, v and dout must pass `check_tma_layout`, else the `mma_sync`
+kernels — its padded head dim and each pass's q and kv block rows),
+`bwd_wgmma_smem` (the wgmma passes' shared memory), `kv_tile_plan` at the
+dQ pass's blocks and `q_tile_plan` (the q blocks that see each kv tile)
+at the dK/dV pass's. Under `torch.utils.checkpoint` (non-reentrant,
 `models.layers.remat`) the recomputed forward saves its own lse. With no
 input that requires grad, the wrapper launches the forward directly, as
 serving does, and writes no lse. (CPU tensors never reach the Function:
@@ -48,6 +51,7 @@ the wrapper runs the plain version, and autograd differentiates it.)
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,11 +68,19 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TC_BLOCKS = {64: (128, 128), 128: (128, 128), 192: (128, 64), 256: (64, 64),
               320: (64, 64)}
 TMA_ALIGN = 16           # bytes: base addresses and strides of TMA's tensors
-# the backward kernel's (q block rows, kv tile rows) by type and head-dim
-# bucket (csrc/flash_attention_bwd.cu instantiates the same)
+# the backward's head-dim buckets; bf16 at the first two runs on wgmma
 _BWD_BUCKETS = (64, 128, 256, 320)
-_BWD_BLOCKS = {torch.bfloat16: {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (64, 32)},
-               torch.float32: {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (32, 32)}}
+_BWD_WGMMA_BUCKETS = (64, 128)
+# the wgmma route's (q block rows, kv tile rows) and ring stages of each pass,
+# and the rows of Lq's padding (csrc/flash_attention_bwd.cu: DqLayout,
+# DkvLayout, kStages)
+_BWD_WGMMA_DQ, _BWD_WGMMA_DKV = (128, 64), (64, 128)
+_BWD_WGMMA_STAGES = 4
+LQ_PAD = 128
+# the mma_sync route's (q block rows, kv tile rows), both passes alike
+_BWD_MMA_BLOCKS = {torch.bfloat16: {256: (64, 32), 320: (64, 32)},
+                   torch.float32: {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (32, 32)}}
+SMEM_LIMIT = 232_448     # bytes of shared memory a block can take on the H100
 
 
 def padded_head_dim(d: int) -> int:
@@ -148,12 +160,40 @@ def q_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
     return np.asarray(rows, dtype=np.int32).reshape(n_kb, 5)
 
 
-def bwd_blocks(d: int, dtype: torch.dtype) -> tuple:
-    """(q block rows, kv tile rows) of the backward kernel at head dim `d`."""
-    for bucket in _BWD_BUCKETS:
-        if d <= bucket:
-            return _BWD_BLOCKS[dtype][bucket]
-    raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+class BwdRoute(NamedTuple):
+    """How the backward kernel runs at a (head dim, type): `route` "wgmma"
+    (bf16 at buckets 64 and 128: TMA into a 4-stage ring, wgmma) or
+    "mma_sync" (`mma.sync` in bf16 at buckets 256 and 320, FMA in float32
+    at every bucket); the head-dim bucket `d_pad` it is built for; (q block
+    rows, kv tile rows) of the dQ pass and of the dK/dV pass."""
+    route: str
+    d_pad: int
+    dq_blocks: tuple
+    dkv_blocks: tuple
+
+
+def bwd_route(d: int, dtype: torch.dtype) -> BwdRoute:
+    """The backward kernel's route, padded head dim and blocks at head dim
+    `d` in `dtype` (csrc/flash_attention_bwd.cu instantiates the same)."""
+    bucket = next((b for b in _BWD_BUCKETS if d <= b), None)
+    if bucket is None:
+        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and bucket in _BWD_WGMMA_BUCKETS:
+        return BwdRoute("wgmma", bucket, _BWD_WGMMA_DQ, _BWD_WGMMA_DKV)
+    blocks = _BWD_MMA_BLOCKS[dtype][bucket]
+    return BwdRoute("mma_sync", bucket, blocks, blocks)
+
+
+def bwd_wgmma_smem(d_pad: int) -> dict:
+    """Shared memory (bytes) a block of each wgmma pass takes at `d_pad`,
+    as the kernel lays it out: 128-byte-swizzled tiles (2 bytes an
+    element), the ring's stages, 128 bytes of mbarriers and 1024 of slack
+    to align the tiles. dK/dV: K and V once, a stage of qs, dO and the
+    block's lse and Δ; dQ: qs and dO once, a stage of K and V."""
+    (dq_bq, dq_bk), (kv_bq, kv_bk) = _BWD_WGMMA_DQ, _BWD_WGMMA_DKV
+    st, tail = _BWD_WGMMA_STAGES, 128 + 1024
+    return {"dkv": 2 * kv_bk * d_pad * 2 + st * (2 * kv_bq * d_pad * 2 + 2 * kv_bq * 4) + tail,
+            "dq": 2 * dq_bq * d_pad * 2 + st * 2 * dq_bk * d_pad * 2 + tail}
 
 
 @functools.lru_cache(maxsize=64)
@@ -372,30 +412,39 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError("flash_attention: lse must be a contiguous float32 (B, H, Lq) "
                          "tensor on q's device")
-    block_q, block_k = bwd_blocks(d, q.dtype)
+    rt = bwd_route(d, q.dtype)
+    wgmma = rt.route == "wgmma"
+    if wgmma:     # TMA reads them as they lie: misaligned raises, nothing is copied
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            check_tma_layout(name, t)
     dq = torch.empty_like(q) if need_dq else None
     dk = torch.empty_like(k) if need_dkv else None
     dv = torch.empty_like(v) if need_dkv else None
-    delta = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    # wgmma: Δ and lse over Lq padded to LQ_PAD rows (+inf and 0 past Lq), qs
+    lq_pad = -(-lq // LQ_PAD) * LQ_PAD if wgmma else lq
+    delta = torch.empty((b, h, lq_pad), dtype=torch.float32, device=dev)
+    lse_pad = torch.empty_like(delta) if wgmma else None
+    q_scaled = torch.empty((b, h, lq, d), dtype=q.dtype, device=dev) if wgmma else None
     parts = [None, None]
     if need_dkv and h > hkv:
         parts = [torch.empty((b, h, lk, d), dtype=torch.float32, device=dev) for _ in range(2)]
-    key = (lq, lk, block_q, block_k, bool(causal), int(window), dev)
-    dq_plan = _device_plan(*key) if need_dq else None
-    dkv_plan = _device_plan(*key, by_kv=True) if need_dkv else None
-    # the tensors the kernel may read 16 bytes at a time (else element by element)
-    vec = sum(bit for bit, t in ((1, q), (2, k), (4, v), (8, dout)) if not _misaligned(t))
+    mask = (bool(causal), int(window), dev)
+    dq_plan = _device_plan(lq, lk, *rt.dq_blocks, *mask) if need_dq else None
+    dkv_plan = _device_plan(lq, lk, *rt.dkv_blocks, *mask, by_kv=True) if need_dkv else None
+    # the tensors the kernels may read 16 bytes at a time (else element by element)
+    vec = sum(bit for bit, t in ((1, q), (2, k), (4, v), (8, dout), (16, out))
+              if not _misaligned(t))
     st = [s for t in (q, k, v, out, dout, dq if need_dq else q, dk if need_dkv else k,
                       dv if need_dkv else v) for s in t.stride()[:3]]
     p = _build.ptr
     opt = (lambda t: None if t is None else p(t))
     err = _build.library().nebula_flash_attention_backward(
         p(q), p(k), p(v), p(out), p(lse), p(dout), opt(dq), opt(dk), opt(dv), p(delta),
-        opt(parts[0]), opt(parts[1]), _DTYPE_CODE[q.dtype], b, h, hkv, lq, lk, d, *st,
-        int(bool(causal)), int(window), float(_scale(d, q.dtype)), opt(dq_plan),
-        0 if dq_plan is None else dq_plan.shape[0], opt(dkv_plan),
-        0 if dkv_plan is None else dkv_plan.shape[0], block_q, block_k, vec,
-        _build.stream_handle(dev))
+        opt(parts[0]), opt(parts[1]), opt(q_scaled), opt(lse_pad), _DTYPE_CODE[q.dtype],
+        b, h, hkv, lq, lk, d, *st, int(bool(causal)), int(window), float(_scale(d, q.dtype)),
+        opt(dq_plan), 0 if dq_plan is None else dq_plan.shape[0], opt(dkv_plan),
+        0 if dkv_plan is None else dkv_plan.shape[0], int(wgmma), rt.d_pad, *rt.dq_blocks,
+        *rt.dkv_blocks, lq_pad, vec, _build.stream_handle(dev))
     _build.check(err, "nebula_flash_attention_backward")
     flash_attention_backward.launches += 1
     return dq, dk, dv

@@ -143,7 +143,7 @@ def _visible(lq, lk, causal, window):
                                    (300, 130)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (True, 1024), (False, 0),
                                            (False, 24)])
-@pytest.mark.parametrize("block_q,block_k", [(128, 128), (128, 64), (64, 64)])
+@pytest.mark.parametrize("block_q,block_k", [(128, 128), (128, 64), (64, 64), (64, 128)])
 def test_kv_tile_plan_matches_the_dense_mask(lq, lk, causal, window, block_q, block_k):
     """Every q block visits exactly the kv tiles from its first to its last
     visible one; the tiles it runs unmasked are visible to each of its rows

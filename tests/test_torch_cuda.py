@@ -779,9 +779,10 @@ def _bwd_inputs(dev, b, h, hkv, lq, lk, d, dtype, seed):
             for n_l, n in ((lq, h), (lk, hkv), (lk, hkv), (lq, h))]
 
 
-# every head-dim bucket of the backward (80 padded inside 128), GQA groups
-# 1, 4 and 8, lengths off the blocks, Lq != Lk, and rows with no visible
-# column (causal, window 48, Lq 300 > Lk 100)
+# every head-dim bucket of the backward (80 padded inside 128) on both
+# routes (bf16 up to 128 on wgmma), GQA groups 1, 4 and 8, lengths off the
+# blocks, Lq != Lk, rows with no visible column (causal, window 48, Lq 300 >
+# Lk 100), qwen2.5-3b's training shape and a head-dim-80 GQA group
 @pytest.mark.parametrize("b,h,hkv,lq,lk,d", [
     (1, 8, 2, 257, 257, 64),
     (2, 4, 4, 130, 130, 80),
@@ -790,6 +791,8 @@ def _bwd_inputs(dev, b, h, hkv, lq, lk, d, dtype, seed):
     (1, 2, 1, 97, 97, 320),
     (1, 4, 2, 65, 200, 128),
     (1, 4, 2, 300, 100, 64),
+    (1, 16, 2, 4096, 4096, 128),
+    (1, 8, 2, 300, 300, 80),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -821,11 +824,16 @@ def test_k7_backward_matches_its_plain_version(dev, b, h, hkv, lq, lk, d, causal
     assert (got[0][empty] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k7_backward_is_deterministic(dev, dtype):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
+                                     (torch.bfloat16, 80), (torch.bfloat16, 256)])
+def test_k7_backward_is_deterministic(dev, dtype, d):
     """Two backward runs on the same inputs give the same bits (no atomics:
-    a GQA group's dk and dv are summed over its heads in order)."""
-    q, k, v, dout = _bwd_inputs(dev, 2, 8, 2, 333, 333, 128, dtype, 3)
+    a GQA group's dk and dv are summed over its heads in order), on both
+    routes: bf16 at 128 and 80 on wgmma, float32 and bf16 at 256 on
+    mma_sync."""
+    assert flash_attention.bwd_route(d, dtype).route == (
+        "wgmma" if dtype == torch.bfloat16 and d <= 128 else "mma_sync")
+    q, k, v, dout = _bwd_inputs(dev, 2, 8, 2, 333, 333, d, dtype, 3)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     out = flash_attention._launch(q, k, v, True, 0, lse)
     runs = [flash_attention.flash_attention_backward(q, k, v, out, lse, dout, causal=True)
@@ -859,6 +867,31 @@ def test_k7_backward_needs_and_raises_on_what_it_cannot_take(dev):
         bwd(q, k, v, out, lse[:, :, :32], dout)
     with pytest.raises(ValueError, match="contiguous head-dim"):
         bwd(q, k, v, out, lse, dout.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+def test_k7_backward_wgmma_route_raises_on_a_misaligned_tensor(dev):
+    """bf16 at head dim up to 128 takes the wgmma route, whose TMA reads q,
+    k, v and dout as they lie: a base 2 bytes off 16 raises (nothing is
+    copied, and nothing falls back to the mma_sync kernels), as does a head
+    stride that is not a multiple of 16 bytes; the aligned call runs."""
+    q, k, v, dout = _bwd_inputs(dev, 1, 4, 2, 64, 64, 64, torch.bfloat16, 2)
+    assert flash_attention.bwd_route(64, torch.bfloat16).route == "wgmma"
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    out = flash_attention._launch(q, k, v, True, 0, lse)
+    bwd = flash_attention.flash_attention_backward
+    before = bwd.launches
+    shifted = torch.empty(dout.numel() + 1, dtype=dout.dtype, device=dev)[1:]
+    shifted = shifted.view(dout.shape).copy_(dout)
+    with pytest.raises(ValueError, match="reads dout by TMA.*base address"):
+        bwd(q, k, v, out, lse, shifted)
+    wide = torch.zeros((1, 64, 4, 68), dtype=dout.dtype, device=dev)[..., :64]
+    wide.copy_(dout.transpose(1, 2))
+    with pytest.raises(ValueError, match="reads dout by TMA.*head stride 136 B"):
+        bwd(q, k, v, out, lse, wide.transpose(1, 2))
+    assert bwd.launches == before
+    bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -2,7 +2,9 @@
 kernel's recurrence, with its rounding points) against autograd through
 `flash_attention_plain` and against `jax.grad` of the JAX package's
 `models.attention.attention`; the backward's tile plan (`q_tile_plan`)
-against the dense mask; the wrapper and `model_zoo.k7_backward_launches`.
+against the dense mask at both routes' blocks; `bwd_route` (its blocks and
+route), the wgmma route's shared memory and the build stamp over the
+kernels' header; the wrapper and `model_zoo.k7_backward_launches`.
 
 Tolerances, of each gradient's largest |value|: against the plain
 autograd 1e-5 in float32 (the two differ by the order of their float32
@@ -172,7 +174,7 @@ def _visible(lq, lk, causal, window):
                                    (300, 130)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (True, 1024), (False, 0),
                                            (False, 24)])
-@pytest.mark.parametrize("block_q,block_k", [(64, 64), (64, 32), (32, 32)])
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (64, 32), (32, 32), (64, 128)])
 def test_q_tile_plan_matches_the_dense_mask(lq, lk, causal, window, block_q, block_k):
     """Every kv tile is visited by exactly the q blocks from its first to its
     last that see it; the blocks it runs unmasked have every row < lq and
@@ -194,17 +196,58 @@ def test_q_tile_plan_matches_the_dense_mask(lq, lk, causal, window, block_q, blo
             assert (full_first <= qb < full_end) == full, (kb, qb)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.parametrize("d,dtype,blocks", [
-    (16, torch.bfloat16, (64, 64)), (80, torch.bfloat16, (64, 64)),
-    (128, torch.bfloat16, (64, 64)), (192, torch.bfloat16, (64, 32)),
-    (320, torch.bfloat16, (64, 32)), (64, torch.float32, (64, 64)),
-    (256, torch.float32, (64, 32)), (320, torch.float32, (32, 32))])
+    (16, BF16, ("wgmma", 64, (128, 64), (64, 128))),
+    (80, BF16, ("wgmma", 128, (128, 64), (64, 128))),
+    (128, BF16, ("wgmma", 128, (128, 64), (64, 128))),
+    (192, BF16, ("mma_sync", 256, (64, 32), (64, 32))),
+    (320, BF16, ("mma_sync", 320, (64, 32), (64, 32))),
+    (64, F32, ("mma_sync", 64, (64, 64), (64, 64))),
+    (256, F32, ("mma_sync", 256, (64, 32), (64, 32))),
+    (320, F32, ("mma_sync", 320, (32, 32), (32, 32))),
+    (64, BF16, ("wgmma", 64, (128, 64), (64, 128))),
+    (80, F32, ("mma_sync", 128, (64, 64), (64, 64)))])
 def test_bwd_blocks(d, dtype, blocks):
-    """The backward kernel's blocks by head-dim bucket (64, 128, 256, 320),
-    as `csrc/flash_attention_bwd.cu` instantiates them."""
-    assert fa.bwd_blocks(d, dtype) == blocks
+    """`bwd_route`: the backward's route, head-dim bucket and (q block, kv
+    tile) rows of the dQ and dK/dV passes by type and head dim, as
+    `csrc/flash_attention_bwd.cu` instantiates them: bf16 up to 128 (head
+    dim 80 in bucket 128) on wgmma, the rest on the mma_sync kernels."""
+    assert tuple(fa.bwd_route(d, dtype)) == blocks
     with pytest.raises(ValueError, match="head dim 336"):
-        fa.bwd_blocks(336, dtype)
+        fa.bwd_route(336, dtype)
+
+
+@pytest.mark.parametrize("d_pad,kib", [(64, (99, 97)), (128, (195, 193))])
+def test_wgmma_backward_shared_memory_fits(d_pad, kib):
+    """Each wgmma pass's shared memory (the kernel's layout, mirrored by
+    `bwd_wgmma_smem`) fits the 232,448 bytes a block can take, at every
+    bucket the route serves; the figures are the source's table's."""
+    assert d_pad in fa._BWD_WGMMA_BUCKETS
+    smem = fa.bwd_wgmma_smem(d_pad)
+    assert max(smem.values()) <= fa.SMEM_LIMIT == 232_448
+    assert (smem["dkv"] // 1024, smem["dq"] // 1024) == kib
+
+
+def test_build_stamp_covers_headers(tmp_path):
+    """A change to a header's bytes (`csrc/*.cuh`) changes the build's
+    stamp, so the library is rebuilt; so does a source's, and nothing else
+    in the directory counts."""
+    from repro_torch.kernels import _build
+
+    assert (_build.CSRC / "sm90.cuh").exists()
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.sources_digest(tmp_path)
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert _build.sources_digest(tmp_path) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build.sources_digest(tmp_path)
+    assert second != first
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// changed\n')
+    assert _build.sources_digest(tmp_path) not in (first, second)
 
 
 # -- the wrapper on the CPU, the launch count of a train step --------------------------
