@@ -65,217 +65,261 @@
 // 16-byte aligned bases and strides; the host checks them and the entry
 // point refuses anything else.
 //
-// float32 — flash_attention_kernel, on the FMA units: on the tensor cores
-// float32 would run as TF32 and break the 2e-5 contract. One block of 256
-// threads per (q block of 64 rows, head, batch). The scaled Q block and one
-// K or V tile of 64 rows live in shared memory as float32, rows padded to
-// D + 1 words so that the 16 rows a warp reads at once fall in 16 banks;
-// the probabilities of the tile go through shared memory too. Thread (ty,
-// tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3 of the block: it
-// computes their scores against columns tx + 16 j (j < 4) and accumulates
-// their outputs in columns tx + 16 j (j < D / 16) in registers. Row max and
-// row sum are shuffles over the 16 lanes that share a row. Shared memory:
-// (128 (D + 1) + 64 * 65) floats, 83 KB at D = 128 and 181 KB at D = 320.
-// Q blocks go from the last to the first, so that the causal blocks with
-// the most kv blocks start first.
+// float32 — flash_attention_tf32x3, on the tensor cores as three TF32
+// products (tf32x3.cuh: x = hi + lo, a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi
+// on mma.sync m16n8k8, about 2^-22 of |a b| from the float32 product). Its
+// bound is 12 D TF32 operations a visible pair at 495 TFLOP/s, 2.5x the 4 D
+// at the 67 TFLOP/s of the FMA units that a float32 kernel had before.
+// One block per (q block, head, batch) of the host's plan, in its launch
+// order (longest q blocks first); NW warps of 16 q rows each. The block
+// holds q * scale (float32) in shared memory, read by each warp for its own
+// rows and split on read once a k-step for all of the tile's columns. K and
+// V tiles, in turn, arrive by cp.async (16 bytes a copy where the tensor's
+// base and strides allow, else 4) into a landing tile; once landed, a tile
+// is split into a hi and a lo working tile, which every warp reads, and the
+// next tile's copy lands while this one is used (a ring of two stages: the
+// raw one and the split one). A warp that issues one n-tile's products
+// after another waits on each of them, so each warp issues the three
+// products of 4 n-tiles interleaved (`mma3_group`: the training-shape
+// forward 3.12 -> 1.96 ms, tools/k7_passes.py); a block has 8
+// warps (two blocks of 4 at bucket 128 took 2.44-2.57 ms at qwen2.5's
+// float32 prefill and training shapes against 1.99-2.05 for one of 8,
+// tools/k7_passes.py). Per kv tile: S = Q K^T (the mask only on the tiles the plan
+// marks partial), the online softmax in registers as the bf16 kernel's
+// (expf of s - m as the plain version takes it), then O += P V with P fed
+// from the S accumulator as the A operand, split in registers, and V's rows
+// 2t and 2t + 1 of each k-step read from the hi and lo tiles. Rows of
+// (bucket + 4) words put every fragment load in 32 banks. What bounds it:
+// the tensor pipe's issue (three mma.sync a product), and the shared-memory
+// reads of the B fragments (4 words a lane for 3 products) beside it. The
+// head dim runs in buckets (D a multiple of 16 up to the bucket):
+//   bucket   warps   q block   kv tile   shared memory
+//   64       8       128       64        87,040 B
+//   128      8       128       64        168,960 B
+//   256      8       128       24        208,000 B
+//   320      8       128       16        228,096 B
+// (q block + 3 kv tiles) x (bucket + 4) words; kernels/flash_attention.py
+// (`f32_blocks`, `tf32x3_smem`) mirrors the table.
 
 #include <math.h>
 
-#include "sm90.cuh"  // the Hopper helpers, shared with flash_attention_bwd.cu
+#include "sm90.cuh"    // the Hopper helpers, shared with flash_attention_bwd.cu
+#include "tf32x3.cuh"  // float32 as three TF32 products, shared likewise
 
 namespace {
 
-// ---- float32: scalar FMA kernel --------------------------------------------
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = 4;       // rows of the block a thread owns
-constexpr int kCols = 4;       // score columns of a tile a thread owns
-constexpr int kLdP = kBlockK + 1;
 constexpr int kMaxD = 320;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sl,
-                                          int r0, int n_valid, int D, int ld) {
-  for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    dst[r * ld + d] = r0 + r < n_valid ? src[(r0 + r) * sl + d] : 0.f;
-  }
-}
+// ---- float32: three TF32 products on mma.sync ---------------------------------
 
-// NJ >= D / 16: the output columns a thread owns, fixed at compile time so
-// that the accumulator stays in registers.
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+namespace x3 {
+
+// bucket -> kv tile rows (8 warps of 16 q rows each)
+template <int DM>
+struct FwdShape;
+template <>
+struct FwdShape<64> { static constexpr int BN = 64; };
+template <>
+struct FwdShape<128> { static constexpr int BN = 64; };
+template <>
+struct FwdShape<256> { static constexpr int BN = 24; };
+template <>
+struct FwdShape<320> { static constexpr int BN = 16; };
+
+template <int DM>
+struct FwdLayout {
+  static constexpr int NW = 8, BN = FwdShape<DM>::BN, BM = 16 * NW;
+  static constexpr int LD = Row<DM>::LD, THREADS = 32 * NW;
+  static constexpr int TILE = BN * LD;  // floats of a kv tile
+  // the scaled Q block, then the landing tile and the hi and lo tiles
+  static constexpr int SMEM = (BM * LD + 3 * TILE) * 4;
+  static_assert(BN % 8 == 0, "8-column n-tiles");
+};
+
+template <int DM>
+__global__ void __launch_bounds__(FwdLayout<DM>::THREADS, 1)
+flash_attention_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int group,
-                       int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
-                       Strides os, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* s_q = smem;                 // kBlockQ x ld
-  float* s_kv = s_q + kBlockQ * ld;  // kBlockK x ld: K, then V
-  float* s_p = s_kv + kBlockK * ld;  // kBlockQ x kLdP
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int q0 = qb * kBlockQ;
-  const int nj = D / 16;
-  const float* qp = q + b * qs.b + h * qs.h;
+                       float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+                       const int* __restrict__ plan, int group, int Lq, int Lk, int D,
+                       int causal, int window, float scale, int vec) {
+  using Lt = FwdLayout<DM>;
+  constexpr int BN = Lt::BN, BM = Lt::BM, LD = Lt::LD, THREADS = Lt::THREADS, NT = BN / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* raw = sQ + BM * LD;
+  float* hi = raw + Lt::TILE;
+  float* lo = hi + Lt::TILE;
+
+  // plan row: q block, first and end kv tile, first and end tile without a mask
+  const int* pr = plan + 5 * blockIdx.z;
+  const int qb = pr[0], kb0 = pr[1], kb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int q0 = qb * BM;
   const float* kp = k + b * ks.b + hk * ks.h;
   const float* vp = v + b * vs.b + hk * vs.h;
-  float* op = o + b * os.b + h * os.h;
 
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int row = q0 + r;
-    s_q[r * ld + d] = row < Lq ? qp[row * qs.l + d] * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][NJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // the kv blocks that hold a visible column for some row of this q block
-  const int last_row = min(q0 + kBlockQ, Lq) - 1;
-  int kb_end = (Lk + kBlockK - 1) / kBlockK;
-  if (causal) kb_end = min(kb_end, last_row / kBlockK + 1);
-  int kb_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kb_begin = (q0 - window + 1) / kBlockK;
-
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int c0 = kb * kBlockK;
-    __syncthreads();  // the previous tile's readers are done (and s_q is written)
-    load_tile(s_kv, kp, ks.l, c0, Lk, D, ld);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[kRows], c[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = s_q[(ty * kRows + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) c[j] = s_kv[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+  // item i: K (i even) or V (i odd) of kv tile kb0 + i / 2
+  const int n_items = 2 * (kb1 - kb0);
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      const bool is_v = i & 1;
+      copy_tile<BN, THREADS>(raw, LD, is_v ? vp : kp, is_v ? vs.l : ks.l, (kb0 + i / 2) * BN,
+                             Lk, D, vec & (is_v ? 4 : 2));
     }
+    cp_commit();
+  };
+  issue(0);
+  load_scaled<BM, THREADS>(sQ, LD, q + b * qs.b + h * qs.h, qs.l, q0, Lq, D, vec & 1, scale);
 
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = c0 + tx + 16 * j;
-        bool ok = col < Lk;
-        if (causal) ok = ok && col <= row;
-        if (window > 0) ok = ok && col > row - window;
-        if (!ok) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        s_p[(ty * kRows + i) * kLdP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // every score of the tile is read: K can go
-    load_tile(s_kv, vp, vs.l, c0, Lk, D, ld);
-    __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0 and row0 + 8
+  float acc[DM / 8][4], s[NT][4];
+  zero(acc);
+  zero(s);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's partial sums
+  const float* qa = sQ + (warp * 16 + g) * LD + t;
 
-    for (int c = 0; c < kBlockK; ++c) {
-      float p[kRows];
+  const uint32_t* bh = reinterpret_cast<const uint32_t*>(hi);
+  const uint32_t* bl = reinterpret_cast<const uint32_t*>(lo);
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1's hi and lo
+    split_tile<BN, THREADS>(raw, hi, lo, LD, D, 1.f);
+    __syncthreads();  // the landing tile is free: item i + 1 lands while item i is used
+    issue(i + 1);
+    const int kb = kb0 + i / 2;
+
+    if ((i & 1) == 0) {
+      // S = (q scale) K^T, Q split on read once a k-step for all NT n-tiles
+      zero(s);
+      mma3_kdim<NT>(s, qa, LD, bh, bl, g * LD + t, LD, D);
+      if (kb < fb0 || kb >= fb1) {  // a partial tile: mask it
+        const int c0 = kb * BN;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = s_p[(ty * kRows + i) * kLdP + c];
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-          const float x = s_kv[c * ld + tx + 16 * j];
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + (e >> 1) * 8;
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            bool ok = col < Lk;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && col > row - window;
+            if (!ok) s[j][e] = kNegInf;
+          }
+      }
+      float alpha[2];
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(p[i], x, acc[i][j]);
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[r] = expf(m[r] - mx);
+        m[r] = mx;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          rs[e >> 1] += s[j][e];
         }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+      for (int n = 0; n < DM / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    } else {
+      // O += P V: P from the S accumulator (split in registers), V's rows 2t
+      // and 2t + 1 of each 8-row k-step
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) {
+        uint32_t ah[4], al[4];
+        a_from_acc(ah, al, s[jj]);
+        mma3_rows<DM>(acc, ah, al, bh, bl, (8 * jj + 2 * t) * LD + g, LD, D);
       }
     }
   }
 
-  const long long lse_row = (static_cast<long long>(b) * gridDim.y + h) * Lq;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* op = o + b * os.b + h * os.h;
+  const long long lse_row = (static_cast<long long>(b) * gridDim.x + h) * Lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= Lq) continue;
-    const bool none = m[i] == kNegInf;  // no visible column
-    const float den = fmaxf(l[i], 1e-30f);
+    const bool none = m[r] == kNegInf;  // no visible column
+    const float den = fmaxf(l[r], 1e-30f);
+    float* orow = op + row * os.l;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (j < nj) op[row * os.l + tx + 16 * j] = none ? 0.f : acc[i][j] / den;
-    if (lse != nullptr && tx == 0) lse[lse_row + row] = none ? INFINITY : m[i] + logf(l[i]);
+    for (int n = 0; n < DM / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < D) {
+        orow[col] = none ? 0.f : acc[n][2 * r] / den;
+        orow[col + 1] = none ? 0.f : acc[n][2 * r + 1] / den;
+      }
+    }
+    if (lse != nullptr && t == 0) lse[lse_row + row] = none ? INFINITY : m[r] + logf(l[r]);
   }
 }
 
-int smem_bytes(int D) {
-  return ((kBlockQ + kBlockK) * (D + 1) + kBlockQ * kLdP) * static_cast<int>(sizeof(float));
-}
-
-template <int NJ>
+template <int DM>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-           int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale, cudaStream_t stream) {
-  const int smem = smem_bytes(D);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+           int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
+           const int* plan, int n_plan, int block_q, int block_k, int causal, int window,
+           float scale, cudaStream_t stream) {
+  using Lt = FwdLayout<DM>;
+  if (block_q != Lt::BM || block_k != Lt::BN || n_plan != (Lq + Lt::BM - 1) / Lt::BM ||
+      n_plan > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static uint64_t smem_set = 0;  // devices this instantiation was set up on
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= 64 || !(smem_set >> device & 1)) {
+    e = cudaFuncSetAttribute(flash_attention_tf32x3<DM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (device < 64) smem_set |= 1ull << device;
   }
-  const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, Lq, Lk, D, qs,
-      ks, vs, os, causal, window, scale);
+  const int vec = aligned16(q, qs) | aligned16(k, ks) << 1 | aligned16(v, vs) << 2;
+  const dim3 grid(H, B, n_plan);  // every head's longest q blocks first
+  flash_attention_tf32x3<DM><<<grid, Lt::THREADS, Lt::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, qs, ks, vs, os, plan, H / Hkv, Lq, Lk, D, causal, window,
+      scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-             int H, int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs,
-             Strides os, int causal, int window, float scale, cudaStream_t stream) {
-  const int nj = D / 16;
-  if (nj <= 2)
-    return launch<2>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
-                     scale, stream);
-  if (nj <= 4)
-    return launch<4>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
-                     scale, stream);
-  if (nj <= 8)
-    return launch<8>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal, window,
-                     scale, stream);
-  return launch<kMaxD / 16>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, causal,
-                            window, scale, stream);
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int Hkv, int Lq, int Lk, int D, Strides qs, Strides ks, Strides vs, Strides os,
+             const int* plan, int n_plan, int d_pad, int block_q, int block_k, int causal,
+             int window, float scale, cudaStream_t stream) {
+  const int bucket = D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 320;
+  if (plan == nullptr || d_pad != bucket || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define NEBULA_FA_X3(DM)                                                                      \
+  if (d_pad == DM)                                                                            \
+    return launch<DM>(q, k, v, o, lse, B, H, Hkv, Lq, Lk, D, qs, ks, vs, os, plan, n_plan,     \
+                      block_q, block_k, causal, window, scale, stream);
+  NEBULA_FA_X3(64)
+  NEBULA_FA_X3(128)
+  NEBULA_FA_X3(256)
+  NEBULA_FA_X3(320)
+#undef NEBULA_FA_X3
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace x3
 
 
 // ---- bfloat16: wgmma + TMA kernel ------------------------------------------
@@ -593,10 +637,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // Lq) float32, contiguous, for each row's log-sum-exp. Strides in elements,
 // (batch, head, row) for each tensor; the head-dim axis is contiguous.
 // D must be a multiple of 16 in [16, 320], and H a multiple of Hkv.
-// bfloat16 only: plan (device int32, n_plan rows of five: q block, first
-// and end kv tile, first and end tile without a mask, in launch order),
-// the padded head dim and the q and kv block rows, all from
-// kernels/flash_attention.py; the float32 kernel ignores them.
+// plan (device int32, n_plan rows of five: q block, first and end kv tile,
+// first and end tile without a mask, in launch order), the padded head dim
+// (bf16) or head-dim bucket (float32) and the q and kv block rows, all from
+// kernels/flash_attention.py.
 extern "C" int nebula_flash_attention(
     const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B, int H,
     int Hkv, int Lq, int Lk, int D, long long qsb, long long qsh, long long qsl,
@@ -610,8 +654,9 @@ extern "C" int nebula_flash_attention(
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl}, os{osb, osh, osl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Lq, Lk, D, qs, ks, vs,
-                    os, causal, window, scale, s);
+    return x3::dispatch(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Lq, Lk, D, qs, ks, vs,
+                        os, static_cast<const int*>(plan), n_plan, d_pad, block_q, block_k,
+                        causal, window, scale, s);
   if (dtype == 1)
     return tc::dispatch(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Lq, Lk, D, qs, ks,
                         vs, os, static_cast<const int*>(plan), n_plan, d_pad, block_q,

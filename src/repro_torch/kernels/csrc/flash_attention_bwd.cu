@@ -42,7 +42,7 @@
 //   dQ pass: one block per (q block of BM rows, head, batch); it loads its
 //     qs, dO, lse and D once and walks the kv tiles it sees (kv_tile_plan,
 //     the forward's plan at these blocks).
-// Two routes, chosen by the host (kernels/flash_attention.py:bwd_route):
+// Three routes, chosen by the host (kernels/flash_attention.py:bwd_route):
 //
 // wgmma — bfloat16 at head dims up to 128 (buckets 64 and 128), the
 // training path's. The forward's machinery (sm90.cuh) applied to both
@@ -97,11 +97,10 @@
 //   host checks them and raises, and the entry point refuses anything
 //   else: nothing is copied, nothing falls back to the other route.
 //
-// mma_sync — float32 at every head dim, and bfloat16 at buckets 256 and
-// 320 (the first kernels, kept: at gemma3's local layer, D 320, the bf16
-// kernel takes 1.14 ms against sdpa's 2.73, and two wgmma accumulators of
-// D_pad / 2 floats a thread do not fit there). Both passes run in two
-// phases a step, 8 warps each:
+// mma_sync — bfloat16 at buckets 256 and 320 (the first kernels, kept: at
+// gemma3's local layer, D 320, the bf16 kernel takes 1.14 ms against sdpa's
+// 2.73, and two wgmma accumulators of D_pad / 2 floats a thread do not fit
+// there). Both passes run in two phases a step, 8 warps each:
 //   A. the score tile (16-row pieces a warp): s and dp from shared memory,
 //      then p and ds in registers (the mask only on the tiles the plan
 //      marks partial), written to shared memory in T (p and ds in the
@@ -109,31 +108,67 @@
 //   B. the outputs' products from shared memory into float32 accumulators
 //      held in registers for the whole block (16-row pieces of the output;
 //      in the dK/dV pass warps 0-3 take dV and 4-7 dK).
-// bfloat16 multiplies on the tensor cores with mma.sync m16n8k16 (float32
-// sums): A fragments and the K-major B fragments are 32-bit shared loads,
-// the row-major B operand of phase B (dO, qs, K) comes by ldmatrix .trans.
-// Rows are padded by 16 bytes, so (row stride / 4 B) % 8 == 4: the 32-bit
-// fragment loads of 8 rows x 4 lanes and ldmatrix's 8 rows of 16 bytes
-// fall in distinct banks. float32 runs on the FMA units (TF32 would break
-// the float32 contract, as in the forward): the same fragment layout, each
-// lane's 16 x 8 share by fmaf, rows padded by one word.
-// Head dims are instantiated for the buckets 64, 128, 256 and 320 (D a
-// multiple of 16 up to the bucket; output columns past D are skipped a
-// whole 8-column tile at a time):
-//   type      bucket   BM   BN   shared memory (dK/dV pass, dQ pass)
-//   bfloat16  256      64   32   108 KB, 104 KB
-//   bfloat16  320      64   32   132 KB, 128 KB
-//   float32   64       64   64   98 KB, 82 KB
-//   float32   128      64   64   162 KB, 146 KB
-//   float32   256      64   32   210 KB, 202 KB
-//   float32   320      32   32   169 KB, 165 KB
+// mma.sync m16n8k16 (float32 sums): A fragments and the K-major B fragments
+// are 32-bit shared loads, the row-major B operand of phase B (dO, qs, K)
+// comes by ldmatrix .trans. Rows are padded by 16 bytes, so (row stride /
+// 4 B) % 8 == 4: the 32-bit fragment loads of 8 rows x 4 lanes and
+// ldmatrix's 8 rows of 16 bytes fall in distinct banks. Output columns past
+// D are skipped a whole 8-column tile at a time:
+//   bucket   BM   BN   shared memory (dK/dV pass, dQ pass)
+//   256      64   32   108 KB, 104 KB
+//   320      64   32   132 KB, 128 KB
 // The accumulators take at most 80 float32 registers a thread (bucket 320).
 // Global loads are 16 bytes a thread where the host says a tensor is
 // 16-byte aligned (base and strides), else element by element.
+//
+// tf32x3 — float32 at every head dim, on the tensor cores as three TF32
+// products (tf32x3.cuh: x = hi + lo, a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi
+// on mma.sync m16n8k8, about 2^-22 of |a b| from the float32 product): the
+// bound is 30 D TF32 operations a visible pair at 495 TFLOP/s (42 D as the
+// two passes run it), 2.5x the 10 D at the 67 TFLOP/s of the FMA units
+// that float32 ran on before. Both passes keep p and ds in registers: each
+// warp computes a 16-row piece of s and dp across the step's whole tile and
+// feeds it, split in registers, as the A operand of its output products
+// (the accumulator's columns 2t and 2t + 1 as k t and t + 4, so the B
+// operand's rows 2t and 2t + 1 of each k-step are read). A warp's own rows
+// of the fixed operand (K and V in the dK/dV pass, qs and dO in the dQ
+// pass) stay raw in shared memory and are split on read, once a k-step for
+// all of the step's n-tiles; the walked operand, which every warp reads,
+// arrives by cp.async (16 bytes a copy where the host says the tensor
+// allows, else 4) into landing tiles and is split once into hi and lo
+// working tiles, so that the next step's copy lands while this one is used
+// (a ring of two stages: the raw one and the split one). Rows of (bucket +
+// 4) words put every fragment load in 32 banks. A block has 8 warps (the
+// dQ pass 4 at buckets 256 and 320, where shared memory holds no more
+// rows), and each warp issues its products' chains interleaved, as the
+// forward's do (flash_attention.cu says why).
+//   dK/dV pass (attention_bwd_dkv_tf32x3): 16 kv rows a warp (at buckets
+//     256 and 320 two warps share them, one summing dV and the other dK: a
+//     warp holding both accumulators would need D floats a thread; the dV
+//     warp computes s^T and hands p^T to the dK warp through shared memory
+//     while that one computes dp^T); a step is a q block's qs (q scale) and
+//     dO, hi and lo, with its lse and D.
+//     A step: s^T = K qs^T and dp^T = V dO^T, p^T and ds^T, dV += p^T dO and
+//     dK += ds^T qs.
+//   dQ pass (attention_bwd_dq_tf32x3): 16 q rows a warp; the ring holds a
+//     kv tile's V and then its K (hi and lo), one at a time: dp = dO V^T
+//     with V, then s = qs K^T, ds and dQ += ds K with K.
+//   What bounds them: the tensor pipe's issue (three mma.sync a product)
+//   and the shared-memory reads of the B fragments (4 words a lane for 3
+//   products), with one step's copy in flight behind them.
+//   bucket   dK/dV: warps, kv tile, q block   dQ: warps, q block, kv tile   shared memory (dK/dV, dQ)
+//   64       8, 128, 32                       8, 128, 64                    122,112 B, 122,880 B
+//   128      8, 128, 16                       8, 128, 32                    185,984 B, 186,880 B
+//   256      8 (pairs), 64, 8                 4, 64, 16                     185,152 B, 183,552 B
+//   320      8 (pairs), 64, 8                 4, 64, 16                     230,208 B, 228,608 B
+//   (kernels/flash_attention.py:tf32x3_smem mirrors the table.)
+// The Δ pre-pass and the GQA reduce are the mma_sync route's kernels, in
+// float32.
 
 #include <math.h>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -145,9 +180,7 @@ typedef __nv_bfloat16 bf16;
 template <typename T>
 struct Elem;
 template <>
-struct Elem<float> {
-  static constexpr int kPad = 1;  // words a shared row is padded by
-  static __device__ __forceinline__ float get(float x) { return x; }
+struct Elem<float> {  // the float32 GQA reduce's store
   static __device__ __forceinline__ float put(float x) { return x; }
 };
 template <>
@@ -178,7 +211,7 @@ __device__ __forceinline__ void load_chunk(const bf16* src, bool vec, float* x) 
     for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(src[i]);
   }
 }
-__device__ __forceinline__ void store_chunk(float* dst, const float* x) {  // rows padded by a word
+__device__ __forceinline__ void store_chunk(float* dst, const float* x) {  // float32 pre-pass
 #pragma unroll
   for (int e = 0; e < 4; ++e) dst[e] = x[e];
 }
@@ -215,10 +248,6 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long lon
   }
 }
 
-__device__ __forceinline__ void put2(float* p, float x0, float x1) {
-  p[0] = x0;
-  p[1] = x1;
-}
 __device__ __forceinline__ void put2(bf16* p, float x0, float x1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
@@ -269,26 +298,6 @@ __device__ __forceinline__ void prod_nt(float (&c)[NT][4], const bf16* A, const 
     }
   }
 }
-template <int NT>
-__device__ __forceinline__ void prod_nt(float (&c)[NT][4], const float* A, const float* B,
-                                        int ld, int K, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* a_lo = A + g * ld;
-  const float* a_hi = a_lo + 8 * ld;
-  const float* b_p = B + 2 * t * ld;
-  for (int k = 0; k < K; ++k) {
-    const float a0 = a_lo[k], a1 = a_hi[k];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b0 = b_p[8 * j * ld + k], b1 = b_p[(8 * j + 1) * ld + k];
-      c[j][0] = fmaf(a0, b0, c[j][0]);
-      c[j][1] = fmaf(a0, b1, c[j][1]);
-      c[j][2] = fmaf(a1, b0, c[j][2]);
-      c[j][3] = fmaf(a1, b1, c[j][3]);
-    }
-  }
-}
-
 // c[j] += A (16 rows x K, stride lda) . B (K rows, stride ldb), c[j] over
 // B's columns 8 j .. 8 j + 7, for j < n_valid (a warp-uniform count).
 template <int NT, int K>
@@ -312,29 +321,6 @@ __device__ __forceinline__ void prod_nn(float (&c)[NT][4], const bf16* A, int ld
     }
   }
 }
-template <int NT, int K>
-__device__ __forceinline__ void prod_nn(float (&c)[NT][4], const float* A, int lda,
-                                        const float* B, int ldb, int n_valid, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* a_lo = A + g * lda;
-  const float* a_hi = a_lo + 8 * lda;
-  const float* b_p = B + 2 * t;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float a0 = a_lo[k], a1 = a_hi[k];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < n_valid) {
-        const float b0 = b_p[k * ldb + 8 * j], b1 = b_p[k * ldb + 8 * j + 1];
-        c[j][0] = fmaf(a0, b0, c[j][0]);
-        c[j][1] = fmaf(a0, b1, c[j][1]);
-        c[j][2] = fmaf(a1, b0, c[j][2]);
-        c[j][3] = fmaf(a1, b1, c[j][3]);
-      }
-    }
-  }
-}
-
 template <int NT>
 __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 #pragma unroll
@@ -369,7 +355,7 @@ struct Shape {
 // route) it also writes the row's qs = round_T(q * scale) into the
 // contiguous (B, H, Lq, D) scratch and copies its lse into lse_pad; rows
 // Lq .. pitch - 1 get D = 0 and lse = +inf, so that a q block past Lq
-// reads them as the mma_sync route's loads set them.
+// reads them as the other routes' loads set them.
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -661,6 +647,308 @@ attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 }
+
+// ---- the tf32x3 route (float32 at every bucket) -------------------------------
+
+namespace x3 {
+
+// dK/dV pass: NW warps of 16 kv rows each (with SPLIT, pairs of warps on 16
+// rows: the even warp sums dV, the odd one dK), q blocks of BM rows.
+template <int DM, int NW, bool SPLIT, int BM_>
+struct DkvShape {
+  static constexpr int BM = BM_, BN = 16 * (SPLIT ? NW / 2 : NW), LD = Row<DM>::LD;
+  static constexpr int THREADS = 32 * NW, QT = BM * LD;  // floats of a q-side tile
+  // K and V raw; q and dO landing; qs hi, qs lo, dO hi, dO lo; the step's lse
+  // and D; with SPLIT, each pair's p^T (its 16 x BM piece, lane by lane)
+  static constexpr int PAIR_P = SPLIT ? (NW / 2) * 16 * BM : 0;
+  static constexpr int SMEM = ((2 * BN + 6 * BM) * LD + 2 * BM + PAIR_P) * 4;
+  static_assert(BM % 8 == 0 && (!SPLIT || NW % 2 == 0), "warp pieces");
+};
+
+template <int DM, int NW, bool SPLIT, int BM>
+__global__ void __launch_bounds__(32 * NW, 1)
+attention_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         float* __restrict__ dk_part, float* __restrict__ dv_part, Strides qs,
+                         Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+                         const int* __restrict__ plan, int group, int Lq, int Lk, int D,
+                         int causal, int window, float scale, int vec) {
+  using Sh = DkvShape<DM, NW, SPLIT, BM>;
+  constexpr int BN = Sh::BN, LD = Sh::LD, THREADS = Sh::THREADS, QT = Sh::QT, NT = BM / 8;
+  constexpr int NA = SPLIT ? 1 : 2;  // output accumulators a warp holds
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + BN * LD;
+  float* rawQ = sV + BN * LD;
+  float* rawD = rawQ + QT;
+  float* work = rawD + QT;  // qs hi, qs lo, dO hi, dO lo
+  float* sL = work + 4 * QT;
+  float* sD = sL + BM;
+  float* pair_p = sD + BM;
+
+  // plan row: kv tile, first and end q block, first and end block without a mask
+  const int* pr = plan + 5 * blockIdx.z;
+  const int kb = pr[0], qb0 = pr[1], qb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
+  const int H = gridDim.x, h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int c0 = kb * BN, n = qb1 - qb0;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * Lq;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* dop = dout + b * dos.b + h * dos.h;
+
+  copy_tile<BN, THREADS>(sK, LD, k + b * ks.b + hk * ks.h, ks.l, c0, Lk, D, vec & 2);
+  copy_tile<BN, THREADS>(sV, LD, v + b * vs.b + hk * vs.h, vs.l, c0, Lk, D, vec & 4);
+  // step i: q block qb0 + i (q and dO raw)
+  auto issue = [&](int i) {
+    if (i < n) {
+      copy_tile<BM, THREADS>(rawQ, LD, qp, qs.l, (qb0 + i) * BM, Lq, D, vec & 1);
+      copy_tile<BM, THREADS>(rawD, LD, dop, dos.l, (qb0 + i) * BM, Lq, D, vec & 8);
+    }
+    cp_commit();
+  };
+  issue(0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int unit = SPLIT ? warp >> 1 : warp;
+  const bool do_dv = !SPLIT || (warp & 1) == 0, do_dk = !SPLIT || (warp & 1) == 1;
+  const int j0 = c0 + unit * 16 + g;  // this lane's kv rows: j0 and j0 + 8
+  const float* ka = sK + (unit * 16 + g) * LD + t;
+  const float* va = sV + (unit * 16 + g) * LD + t;
+  float acc[NA][DM / 8][4];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) zero(acc[a]);
+  float s[NT][4], dp[NT][4];
+
+  const uint32_t* qh = reinterpret_cast<const uint32_t*>(work);
+  const uint32_t* ql = qh + QT;
+  const uint32_t* dh = qh + 2 * QT;
+  const uint32_t* dl = qh + 3 * QT;
+  for (int i = 0; i < n; ++i) {
+    cp_wait_all();
+    __syncthreads();  // step i (and K, V) landed; every warp is done with step i - 1
+    const int qb = qb0 + i, q0 = qb * BM;
+    split_tile<BM, THREADS>(rawQ, work, work + QT, LD, D, scale);  // qs = q scale
+    split_tile<BM, THREADS>(rawD, work + 2 * QT, work + 3 * QT, LD, D, 1.f);
+    for (int r = threadIdx.x; r < BM; r += THREADS) {
+      const bool in = q0 + r < Lq;
+      sL[r] = in ? lse[row_bh + q0 + r] : INFINITY;
+      sD[r] = in ? delta[row_bh + q0 + r] : 0.f;
+    }
+    __syncthreads();  // the landing tiles are free: step i + 1 lands while step i runs
+    issue(i + 1);
+
+    // s^T = K qs^T and dp^T = V dO^T (16 kv rows x BM q columns), then p^T
+    // and ds^T in place: element e of n-tile j is kv row j0 + 8 (e / 2), q
+    // column 8 j + 2 t + e % 2. Without SPLIT a warp issues both products'
+    // chains interleaved (at D 128 and 80 the pass took 5-12% longer with
+    // one product after the other); with SPLIT, the pair's dV warp computes
+    // s^T and hands p^T over in shared memory (a fragment a lane) while its
+    // dK warp computes dp^T.
+    const bool partial = qb < fb0 || qb >= fb1;
+    zero(s);
+    zero(dp);
+    if (!SPLIT)
+      mma3_kdim2<NT>(s, ka, qh, ql, dp, va, dh, dl, LD, g * LD + t, LD, D);
+    else if (do_dv)
+      mma3_kdim<NT>(s, ka, LD, qh, ql, g * LD + t, LD, D);
+    else
+      mma3_kdim<NT>(dp, va, LD, dh, dl, g * LD + t, LD, D);
+    if (do_dv) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          float p = expf(s[j][e] - sL[col]);
+          if (partial && !visible(q0 + col, j0 + 8 * (e >> 1), Lq, Lk, causal, window)) p = 0.f;
+          s[j][e] = p;
+        }
+    }
+    if constexpr (SPLIT) {
+      float* pp = pair_p + (unit * 32 + lane) * (BM / 2);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (do_dv) pp[4 * j + e] = s[j][e];
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + unit) : "memory");  // the pair's p^T
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (do_dk) s[j][e] = pp[4 * j + e];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (do_dk) dp[j][e] = s[j][e] * (dp[j][e] - sD[8 * j + 2 * t + (e & 1)]);
+    // dV += p^T dO and dK += ds^T qs read dO's and qs's rows 2t and 2t + 1
+    // of each 8-row k-step
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      const int base = (8 * jj + 2 * t) * LD + g;
+      uint32_t ph[4], pl[4];
+      if (!SPLIT) {
+        uint32_t dsh[4], dsl[4];
+        a_from_acc(ph, pl, s[jj]);
+        a_from_acc(dsh, dsl, dp[jj]);
+        mma3_rows2<DM>(acc[0], ph, pl, dh, dl, acc[NA - 1], dsh, dsl, qh, ql, base, LD, D);
+      } else if (do_dv) {
+        a_from_acc(ph, pl, s[jj]);
+        mma3_rows<DM>(acc[0], ph, pl, dh, dl, base, LD, D);
+      } else {
+        a_from_acc(ph, pl, dp[jj]);
+        mma3_rows<DM>(acc[0], ph, pl, qh, ql, base, LD, D);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const bool is_dk = SPLIT ? (warp & 1) == 1 : a == 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = j0 + 8 * r;
+      if (row >= Lk) continue;
+#pragma unroll
+      for (int c = 0; c < DM / 8; ++c) {
+        const int col = 8 * c + 2 * t;
+        if (col >= D) continue;
+        float* o;
+        if (dk_part != nullptr)  // a query head's share; the reduce kernel sums the group
+          o = (is_dk ? dk_part : dv_part) +
+              ((static_cast<long long>(b) * H + h) * Lk + row) * D + col;
+        else
+          o = is_dk ? dk + b * dks.b + hk * dks.h + row * dks.l + col
+                    : dv + b * dvs.b + hk * dvs.h + row * dvs.l + col;
+        o[0] = acc[a][c][2 * r];
+        o[1] = acc[a][c][2 * r + 1];
+      }
+    }
+  }
+}
+
+// dQ pass: NW warps of 16 q rows each, kv tiles of BN rows.
+template <int DM, int NW, int BN_>
+struct DqShape {
+  static constexpr int BM = 16 * NW, BN = BN_, LD = Row<DM>::LD, THREADS = 32 * NW;
+  static constexpr int TILE = BN * LD;  // floats of a kv tile
+  // qs and dO raw, the landing tile and the hi and lo tiles, the block's lse and D
+  static constexpr int SMEM = (2 * BM * LD + 3 * TILE + 2 * BM) * 4;
+  static_assert(BN % 8 == 0, "8-column n-tiles");
+};
+
+template <int DM, int NW, int BN>
+__global__ void __launch_bounds__(32 * NW, 1)
+attention_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, Strides qs, Strides ks, Strides vs, Strides dos,
+                        Strides dqs, const int* __restrict__ plan, int group, int Lq, int Lk,
+                        int D, int causal, int window, float scale, int vec) {
+  using Sh = DqShape<DM, NW, BN>;
+  constexpr int BM = Sh::BM, LD = Sh::LD, THREADS = Sh::THREADS, NT = BN / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BM * LD;
+  float* raw = sdO + BM * LD;
+  float* hi = raw + Sh::TILE;
+  float* lo = hi + Sh::TILE;
+  float* sL = lo + Sh::TILE;
+  float* sD = sL + BM;
+
+  // plan row: q block, first and end kv tile, first and end tile without a mask
+  const int* pr = plan + 5 * blockIdx.z;
+  const int qb = pr[0], kb0 = pr[1], kb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
+  const int H = gridDim.x, h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int q0 = qb * BM;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * Lq;
+  const float* kp = k + b * ks.b + hk * ks.h;
+  const float* vp = v + b * vs.b + hk * vs.h;
+
+  // item i: V (i even) or K (i odd) of kv tile kb0 + i / 2
+  const int n_items = 2 * (kb1 - kb0);
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      const bool is_k = i & 1;
+      copy_tile<BN, THREADS>(raw, LD, is_k ? kp : vp, is_k ? ks.l : vs.l, (kb0 + i / 2) * BN,
+                             Lk, D, vec & (is_k ? 2 : 4));
+    }
+    cp_commit();
+  };
+  issue(0);
+  load_scaled<BM, THREADS>(sQ, LD, q + b * qs.b + h * qs.h, qs.l, q0, Lq, D, vec & 1, scale);
+  load_scaled<BM, THREADS>(sdO, LD, dout + b * dos.b + h * dos.h, dos.l, q0, Lq, D, vec & 8,
+                           1.f);
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    const bool in = q0 + r < Lq;
+    sL[r] = in ? lse[row_bh + q0 + r] : INFINITY;
+    sD[r] = in ? delta[row_bh + q0 + r] : 0.f;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;  // this lane's rows of the block: r0 and r0 + 8
+  const float* qa = sQ + r0 * LD + t;
+  const float* da = sdO + r0 * LD + t;
+  float acc[DM / 8][4], s[NT][4], dp[NT][4];
+  zero(acc);
+  zero(dp);
+
+  const uint32_t* bh = reinterpret_cast<const uint32_t*>(hi);
+  const uint32_t* bl = reinterpret_cast<const uint32_t*>(lo);
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1's hi and lo
+    split_tile<BN, THREADS>(raw, hi, lo, LD, D, 1.f);
+    __syncthreads();  // the landing tile is free: item i + 1 lands while item i is used
+    issue(i + 1);
+    const int kb = kb0 + i / 2;
+
+    if ((i & 1) == 0) {  // V: dp = dO V^T
+      zero(dp);
+      mma3_kdim<NT>(dp, da, LD, bh, bl, g * LD + t, LD, D);
+      continue;
+    }
+    // K: s = qs K^T, ds in place of s, dQ += ds K
+    zero(s);
+    mma3_kdim<NT>(s, qa, LD, bh, bl, g * LD + t, LD, D);
+    const bool partial = kb < fb0 || kb >= fb1;
+    const int c0 = kb * BN;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+        float p = expf(s[j][e] - sL[r]);
+        if (partial && !visible(q0 + r, c0 + col, Lq, Lk, causal, window)) p = 0.f;
+        s[j][e] = p * (dp[j][e] - sD[r]);
+      }
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      uint32_t ah[4], al[4];
+      a_from_acc(ah, al, s[jj]);
+      mma3_rows<DM>(acc, ah, al, bh, bl, (8 * jj + 2 * t) * LD + g, LD, D);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= Lq) continue;
+    float* out = dq + b * dqs.b + h * dqs.h + row * dqs.l;
+#pragma unroll
+    for (int c = 0; c < DM / 8; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col >= D) continue;
+      out[col] = scale * acc[c][2 * r];
+      out[col + 1] = scale * acc[c][2 * r + 1];
+    }
+  }
+}
+
+}  // namespace x3
 
 // ---- the wgmma route (bfloat16, D_pad 64 and 128) ----------------------------
 
@@ -1073,7 +1361,7 @@ int allow_smem(K kernel, int bytes, uint64_t* done) {
 }
 
 // The pre-pass over B * H rows of `pitch` (>= Lq); q_scaled and lse_pad null
-// on the mma_sync route.
+// on the mma_sync and tf32x3 routes.
 template <typename T>
 int launch_delta(const Args& a, int pitch, cudaStream_t st) {
   const long long n_rows = static_cast<long long>(a.B) * a.H * pitch;
@@ -1150,6 +1438,50 @@ int run(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tf32x3 route's two passes at bucket DM: the dK/dV pass's warps, warp
+// pairs and q block; the dQ pass's warps and kv tile.
+template <int DM, int KV_NW, bool SPLIT, int KV_BM, int Q_NW, int Q_BN>
+int run_tf32x3(const Args& a, cudaStream_t st) {
+  using Kv = x3::DkvShape<DM, KV_NW, SPLIT, KV_BM>;
+  using Qd = x3::DqShape<DM, Q_NW, Q_BN>;
+  const int group = a.H / a.Hkv;
+  if (a.d_pad != DM || !plans_ok(a, Qd::BM, Qd::BN, Kv::BM, Kv::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  int err = launch_delta<float>(a, a.Lq, st);
+  if (err != 0) return err;
+  if (a.dk != nullptr) {
+    static uint64_t done = 0;
+    err = allow_smem(x3::attention_bwd_dkv_tf32x3<DM, KV_NW, SPLIT, KV_BM>, Kv::SMEM, &done);
+    if (err != 0) return err;
+    x3::attention_bwd_dkv_tf32x3<DM, KV_NW, SPLIT, KV_BM>
+        <<<dim3(a.H, a.B, a.n_dkv_plan), Kv::THREADS, Kv::SMEM, st>>>(
+            q, k, v, dout, lse, delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+            group > 1 ? static_cast<float*>(a.dk_part) : nullptr,
+            group > 1 ? static_cast<float*>(a.dv_part) : nullptr, a.qs, a.ks, a.vs, a.dos,
+            a.dks, a.dvs, a.dkv_plan, group, a.Lq, a.Lk, a.D, a.causal, a.window, a.scale,
+            a.vec);
+    err = static_cast<int>(cudaGetLastError());
+    if (err == 0 && group > 1) err = launch_reduce<float>(a, st);
+    if (err != 0) return err;
+  }
+  if (a.dq != nullptr) {
+    static uint64_t done = 0;
+    err = allow_smem(x3::attention_bwd_dq_tf32x3<DM, Q_NW, Q_BN>, Qd::SMEM, &done);
+    if (err != 0) return err;
+    x3::attention_bwd_dq_tf32x3<DM, Q_NW, Q_BN>
+        <<<dim3(a.H, a.B, a.n_dq_plan), Qd::THREADS, Qd::SMEM, st>>>(
+            q, k, v, dout, lse, delta, static_cast<float*>(a.dq), a.qs, a.ks, a.vs, a.dos,
+            a.dqs, a.dq_plan, group, a.Lq, a.Lk, a.D, a.causal, a.window, a.scale, a.vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bf16 pairs can be stored at every even column of every row
 bool pairs_ok(const void* p, Strides s) {
   return reinterpret_cast<uintptr_t>(p) % 4 == 0 && s.l % 2 == 0 && s.h % 2 == 0 &&
@@ -1220,8 +1552,9 @@ int run_wgmma(const Args& a, cudaStream_t st) {
 // together); with H > Hkv the dK/dV pass needs both partials. D is a
 // multiple of 16 in [16, 320], H a multiple of Hkv. route (from
 // kernels/flash_attention.py:bwd_route, with d_pad and each pass's q block
-// and kv tile rows): 0 mma_sync (delta (B, H, Lq); q_scaled, lse_pad and
-// lq_pad unused), 1 wgmma (bfloat16, d_pad 64 or 128; delta and lse_pad
+// and kv tile rows): 0 mma_sync (bfloat16, d_pad 256 or 320) and 2 tf32x3
+// (float32) (delta (B, H, Lq); q_scaled, lse_pad and lq_pad unused), 1 wgmma
+// (bfloat16, d_pad 64 or 128; delta and lse_pad
 // (B, H, lq_pad) with lq_pad the multiple of 128 at or above Lq, q_scaled
 // (B, H, Lq, D) contiguous bf16 scratch; q, k, v and dout 16-byte aligned in
 // base and strides). vec has bit 0 for q, 1 for k, 2 for v, 3 for dout and
@@ -1260,17 +1593,14 @@ extern "C" int nebula_flash_attention_backward(
     if (d_pad == 128) return run_wgmma<128, 8>(a, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    if (D <= 256 && D > 128) return run<bf16, 256, 64, 32>(a, st);
-    if (D > 256) return run<bf16, 320, 64, 32>(a, st);
-    return static_cast<int>(cudaErrorInvalidValue);  // the wgmma route's head dims
+  if (dtype == 0 && route == 2) {
+    if (D <= 64) return run_tf32x3<64, 8, false, 32, 8, 64>(a, st);
+    if (D <= 128) return run_tf32x3<128, 8, false, 16, 8, 32>(a, st);
+    if (D <= 256) return run_tf32x3<256, 8, true, 8, 4, 16>(a, st);
+    return run_tf32x3<320, 8, true, 8, 4, 16>(a, st);
   }
-  if (dtype == 0) {
-    if (D <= 64) return run<float, 64, 64, 64>(a, st);
-    if (D <= 128) return run<float, 128, 64, 64>(a, st);
-    if (D <= 256) return run<float, 256, 64, 32>(a, st);
-    return run<float, 320, 32, 32>(a, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 || route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 256 && D > 128) return run<bf16, 256, 64, 32>(a, st);
+  if (D > 256) return run<bf16, 320, 64, 32>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);  // the wgmma route's head dims
 }

@@ -16,14 +16,17 @@ reads kv head h // (H / Hkv). The kernel takes any strides with a
 contiguous last axis, so `models.attention` hands it (B, S, H, D) tensors
 as transposed views, and the output has q's layout.
 
-bfloat16 runs on the tensor cores (wgmma, fed by TMA), float32 on the FMA
-units (csrc/flash_attention.cu says why). The host decides what the
-bf16 kernel is given, in plain functions the CPU tests reach:
-`padded_head_dim` and `tc_blocks` (the head dim the kernel is built for
-and its q-block and kv-tile rows), `kv_tile_plan` (the kv tiles each q
-block visits, the ones among them that need no mask, and the launch
-order) and `check_tma_layout` (the 16-byte alignment TMA needs; nothing is
-copied to meet it).
+bfloat16 runs on the tensor cores (wgmma, fed by TMA), float32 on them too
+as three TF32 products a float32 product (`mma.sync`; csrc/tf32x3.cuh says
+why that keeps the float32 contract). The host decides what each kernel
+is given, in plain functions the CPU tests reach: `fwd_route` (by type
+and head dim, the route — `wgmma` for bf16, `tf32x3` for float32 — with
+the head dim its kernel is built for and its q-block and kv-tile rows:
+`padded_head_dim` and `tc_blocks` for bf16, `f32_blocks` for float32),
+`tf32x3_smem` (the float32 kernels' shared memory, the backward's too),
+`kv_tile_plan` (the kv tiles each q block visits, the ones among them
+that need no mask, and the launch order) and `check_tma_layout` (the
+16-byte alignment TMA needs; nothing is copied to meet it).
 
 Gradients. When grad is on and an input requires it, `flash_attention`
 launches K7 inside `FlashAttentionFn`: the forward is the kernel, which
@@ -37,8 +40,9 @@ backward kernel: the JAX package trains through its plain
 through K7's forward, so its gradient is this kernel's on the card. The
 backward's host side is plain code the CPU tests reach: `bwd_route` (by
 type and head dim, the route — `wgmma` for bf16 up to head dim 128, where
-q, k, v and dout must pass `check_tma_layout`, else the `mma_sync`
-kernels — its padded head dim and each pass's q and kv block rows),
+q, k, v and dout must pass `check_tma_layout`, `mma_sync` for bf16 above,
+`tf32x3` for float32 — its padded head dim and each pass's q and kv block
+rows),
 `bwd_wgmma_smem` (the wgmma passes' shared memory), `kv_tile_plan` at the
 dQ pass's blocks and `q_tile_plan` (the q blocks that see each kv tile)
 at the dK/dV pass's. Under `torch.utils.checkpoint` (non-reentrant,
@@ -68,7 +72,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TC_BLOCKS = {64: (128, 128), 128: (128, 128), 192: (128, 64), 256: (64, 64),
               320: (64, 64)}
 TMA_ALIGN = 16           # bytes: base addresses and strides of TMA's tensors
-# the backward's head-dim buckets; bf16 at the first two runs on wgmma
+# the backward's head-dim buckets (and the float32 forward's); bf16 at the first two
+# runs on wgmma
 _BWD_BUCKETS = (64, 128, 256, 320)
 _BWD_WGMMA_BUCKETS = (64, 128)
 # the wgmma route's (q block rows, kv tile rows) and ring stages of each pass,
@@ -77,10 +82,16 @@ _BWD_WGMMA_BUCKETS = (64, 128)
 _BWD_WGMMA_DQ, _BWD_WGMMA_DKV = (128, 64), (64, 128)
 _BWD_WGMMA_STAGES = 4
 LQ_PAD = 128
-# the mma_sync route's (q block rows, kv tile rows), both passes alike
-_BWD_MMA_BLOCKS = {torch.bfloat16: {256: (64, 32), 320: (64, 32)},
-                   torch.float32: {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (32, 32)}}
+# the mma_sync route's (q block rows, kv tile rows), both passes alike (bf16)
+_BWD_MMA_BLOCKS = {256: (64, 32), 320: (64, 32)}
+# float32 (three TF32 products, csrc/tf32x3.cuh) by head-dim bucket: the
+# forward's (q block rows, kv tile rows); the backward's dQ pass's and dK/dV
+# pass's (q block rows, kv tile rows)
+_F32_FWD = {64: (128, 64), 128: (128, 64), 256: (128, 24), 320: (128, 16)}
+_BWD_TF32X3 = {64: ((128, 64), (32, 128)), 128: ((128, 32), (16, 128)),
+               256: ((64, 16), (8, 64)), 320: ((64, 16), (8, 64))}
 SMEM_LIMIT = 232_448     # bytes of shared memory a block can take on the H100
+_BWD_ROUTE_CODE = {"mma_sync": 0, "wgmma": 1, "tf32x3": 2}
 
 
 def padded_head_dim(d: int) -> int:
@@ -95,6 +106,57 @@ def padded_head_dim(d: int) -> int:
 def tc_blocks(d: int) -> tuple:
     """(q block rows, kv tile rows) of the bf16 kernel at head dim `d`."""
     return _TC_BLOCKS[padded_head_dim(d)]
+
+
+def _bucket(d: int) -> int:
+    bucket = next((b for b in _BWD_BUCKETS if d <= b), None)
+    if bucket is None:
+        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+    return bucket
+
+
+def f32_blocks(d: int) -> tuple:
+    """(head-dim bucket, (q block rows, kv tile rows)) of the float32
+    forward kernel at head dim `d` (csrc/flash_attention.cu instantiates
+    the same)."""
+    bucket = _bucket(d)
+    return bucket, _F32_FWD[bucket]
+
+
+class FwdRoute(NamedTuple):
+    """How the forward kernel runs at a (head dim, type): `route` "wgmma"
+    (bf16: TMA, wgmma) or "tf32x3" (float32: three TF32 `mma.sync`
+    products a float32 product); the head dim `d_pad` its kernel is built
+    for (bf16's padded head dim, float32's bucket); (q block rows, kv tile
+    rows)."""
+    route: str
+    d_pad: int
+    blocks: tuple
+
+
+def fwd_route(d: int, dtype: torch.dtype) -> FwdRoute:
+    """The forward kernel's route, head dim and blocks at head dim `d` in
+    `dtype` (csrc/flash_attention.cu dispatches the same)."""
+    if dtype == torch.bfloat16:
+        return FwdRoute("wgmma", padded_head_dim(d), tc_blocks(d))
+    return FwdRoute("tf32x3", *f32_blocks(d))
+
+
+def tf32x3_smem(bucket: int) -> dict:
+    """Shared memory (bytes) a block of each float32 kernel takes at a
+    head-dim bucket, as the kernels lay it out: tiles of rows of (bucket +
+    4) float32 words. fwd: the scaled Q block, a kv tile's landing tile
+    and its hi and lo tiles; dkv: K and V, q's and dO's landing tiles, qs
+    and dO hi and lo, the step's lse and Δ, and above bucket 128 (two warps
+    a 16 kv rows) each pair's p; dq: qs and dO, a kv tile's landing, hi and
+    lo tiles, the block's lse and Δ."""
+    ld = 4 * (bucket + 4)
+    bq, bk = _F32_FWD[bucket]
+    (dq_bq, dq_bk), (kv_bq, kv_bk) = _BWD_TF32X3[bucket]
+    return {"fwd": (bq + 3 * bk) * ld,
+            "dkv": (2 * kv_bk + 6 * kv_bq) * ld + 2 * kv_bq * 4
+            + (kv_bk * kv_bq * 4 if bucket > 128 else 0),
+            "dq": (2 * dq_bq + 3 * dq_bk) * ld + 2 * dq_bq * 4}
 
 
 def kv_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
@@ -162,9 +224,10 @@ def q_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
 
 class BwdRoute(NamedTuple):
     """How the backward kernel runs at a (head dim, type): `route` "wgmma"
-    (bf16 at buckets 64 and 128: TMA into a 4-stage ring, wgmma) or
-    "mma_sync" (`mma.sync` in bf16 at buckets 256 and 320, FMA in float32
-    at every bucket); the head-dim bucket `d_pad` it is built for; (q block
+    (bf16 at buckets 64 and 128: TMA into a 4-stage ring, wgmma),
+    "mma_sync" (bf16 at buckets 256 and 320: `mma.sync` m16n8k16) or
+    "tf32x3" (float32 at every bucket: three TF32 `mma.sync` products a
+    float32 product); the head-dim bucket `d_pad` it is built for; (q block
     rows, kv tile rows) of the dQ pass and of the dK/dV pass."""
     route: str
     d_pad: int
@@ -175,12 +238,12 @@ class BwdRoute(NamedTuple):
 def bwd_route(d: int, dtype: torch.dtype) -> BwdRoute:
     """The backward kernel's route, padded head dim and blocks at head dim
     `d` in `dtype` (csrc/flash_attention_bwd.cu instantiates the same)."""
-    bucket = next((b for b in _BWD_BUCKETS if d <= b), None)
-    if bucket is None:
-        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
-    if dtype == torch.bfloat16 and bucket in _BWD_WGMMA_BUCKETS:
+    bucket = _bucket(d)
+    if dtype == torch.float32:
+        return BwdRoute("tf32x3", bucket, *_BWD_TF32X3[bucket])
+    if bucket in _BWD_WGMMA_BUCKETS:
         return BwdRoute("wgmma", bucket, _BWD_WGMMA_DQ, _BWD_WGMMA_DKV)
-    blocks = _BWD_MMA_BLOCKS[dtype][bucket]
+    blocks = _BWD_MMA_BLOCKS[bucket]
     return BwdRoute("mma_sync", bucket, blocks, blocks)
 
 
@@ -359,14 +422,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    plan_ptr, n_plan, d_pad, block_q, block_k = None, 0, 0, 0, 0
-    if q.dtype == torch.bfloat16:
+    rt = fwd_route(d, q.dtype)
+    if rt.route == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, t)
-        d_pad = padded_head_dim(d)
-        block_q, block_k = tc_blocks(d)
-        plan = _device_plan(lq, lk, block_q, block_k, bool(causal), int(window), dev)
-        plan_ptr, n_plan = plan.data_ptr(), plan.shape[0]
+    d_pad, (block_q, block_k) = rt.d_pad, rt.blocks
+    plan = _device_plan(lq, lk, block_q, block_k, bool(causal), int(window), dev)
     if lse is not None and (lse.shape != (b, h, lq) or lse.dtype != torch.float32
                             or lse.device != dev or not lse.is_contiguous()):
         raise ValueError("flash_attention: lse must be a contiguous float32 (B, H, Lq) "
@@ -377,7 +438,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     err = lib.nebula_flash_attention(
         p(q), p(k), p(v), p(out), None if lse is None else p(lse), _DTYPE_CODE[q.dtype],
         b, h, hkv, lq, lk, d, *st,
-        int(bool(causal)), int(window), float(_scale(d, q.dtype)), plan_ptr, n_plan,
+        int(bool(causal)), int(window), float(_scale(d, q.dtype)), p(plan), plan.shape[0],
         d_pad, block_q, block_k, _build.stream_handle(dev))
     _build.check(err, "nebula_flash_attention")
     flash_attention.launches += 1
@@ -443,7 +504,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         opt(parts[0]), opt(parts[1]), opt(q_scaled), opt(lse_pad), _DTYPE_CODE[q.dtype],
         b, h, hkv, lq, lk, d, *st, int(bool(causal)), int(window), float(_scale(d, q.dtype)),
         opt(dq_plan), 0 if dq_plan is None else dq_plan.shape[0], opt(dkv_plan),
-        0 if dkv_plan is None else dkv_plan.shape[0], int(wgmma), rt.d_pad, *rt.dq_blocks,
+        0 if dkv_plan is None else dkv_plan.shape[0], _BWD_ROUTE_CODE[rt.route], rt.d_pad,
+        *rt.dq_blocks,
         *rt.dkv_blocks, lq_pad, vec, _build.stream_handle(dev))
     _build.check(err, "nebula_flash_attention_backward")
     flash_attention_backward.launches += 1

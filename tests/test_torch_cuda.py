@@ -629,6 +629,8 @@ def test_recovery_on_card_matches_cpu(scene, tmp_path):
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0), (False, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_flash_attention(dev, b, h, hkv, lq, lk, d, causal, window, dtype):
+    assert flash_attention.fwd_route(d, dtype).route == (
+        "wgmma" if dtype == torch.bfloat16 else "tf32x3")
     g = torch.Generator(device=dev).manual_seed(lq * d + window)
     q = torch.randn((b, h, lq, d), generator=g, device=dev).to(dtype)
     k = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dtype)
@@ -824,20 +826,44 @@ def test_k7_backward_matches_its_plain_version(dev, b, h, hkv, lq, lk, d, causal
     assert (got[0][empty] == 0).all()
 
 
+def _route(d, dtype):
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "wgmma" if d <= 128 else "mma_sync"
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
-                                     (torch.bfloat16, 80), (torch.bfloat16, 256)])
+                                     (torch.bfloat16, 80), (torch.bfloat16, 256),
+                                     (torch.float32, 64), (torch.float32, 80),
+                                     (torch.float32, 256), (torch.float32, 320)])
 def test_k7_backward_is_deterministic(dev, dtype, d):
     """Two backward runs on the same inputs give the same bits (no atomics:
-    a GQA group's dk and dv are summed over its heads in order), on both
-    routes: bf16 at 128 and 80 on wgmma, float32 and bf16 at 256 on
-    mma_sync."""
-    assert flash_attention.bwd_route(d, dtype).route == (
-        "wgmma" if dtype == torch.bfloat16 and d <= 128 else "mma_sync")
+    a GQA group's dk and dv are summed over its heads in order), on every
+    route: bf16 at 128 and 80 on wgmma, bf16 at 256 on mma_sync, float32
+    at every bucket (80 inside 128) on tf32x3."""
+    assert flash_attention.bwd_route(d, dtype).route == _route(d, dtype)
     q, k, v, dout = _bwd_inputs(dev, 2, 8, 2, 333, 333, d, dtype, 3)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     out = flash_attention._launch(q, k, v, True, 0, lse)
     runs = [flash_attention.flash_attention_backward(q, k, v, out, lse, dout, causal=True)
             for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 256, 320])
+def test_k7_float32_forward_is_deterministic(dev, d):
+    """Two runs of the float32 forward (three TF32 products, at every
+    head-dim bucket) on the same inputs give the same output and lse bits."""
+    assert flash_attention.fwd_route(d, torch.float32).route == "tf32x3"
+    assert flash_attention.fwd_route(d, torch.float32).d_pad == \
+        flash_attention.bwd_route(d, torch.float32).d_pad
+    q, k, v, _ = _bwd_inputs(dev, 2, 8, 2, 333, 333, d, torch.float32, 4)
+    runs = []
+    for _ in range(2):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        runs.append((flash_attention._launch(q, k, v, True, 40, lse), lse))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)

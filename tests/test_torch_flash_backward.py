@@ -205,16 +205,17 @@ BF16, F32 = torch.bfloat16, torch.float32
     (128, BF16, ("wgmma", 128, (128, 64), (64, 128))),
     (192, BF16, ("mma_sync", 256, (64, 32), (64, 32))),
     (320, BF16, ("mma_sync", 320, (64, 32), (64, 32))),
-    (64, F32, ("mma_sync", 64, (64, 64), (64, 64))),
-    (256, F32, ("mma_sync", 256, (64, 32), (64, 32))),
-    (320, F32, ("mma_sync", 320, (32, 32), (32, 32))),
+    (64, F32, ("tf32x3", 64, (128, 64), (32, 128))),
+    (256, F32, ("tf32x3", 256, (64, 16), (8, 64))),
+    (320, F32, ("tf32x3", 320, (64, 16), (8, 64))),
     (64, BF16, ("wgmma", 64, (128, 64), (64, 128))),
-    (80, F32, ("mma_sync", 128, (64, 64), (64, 64)))])
+    (80, F32, ("tf32x3", 128, (128, 32), (16, 128)))])
 def test_bwd_blocks(d, dtype, blocks):
     """`bwd_route`: the backward's route, head-dim bucket and (q block, kv
     tile) rows of the dQ and dK/dV passes by type and head dim, as
     `csrc/flash_attention_bwd.cu` instantiates them: bf16 up to 128 (head
-    dim 80 in bucket 128) on wgmma, the rest on the mma_sync kernels."""
+    dim 80 in bucket 128) on wgmma, bf16 above on the mma_sync kernels,
+    float32 on the tf32x3 kernels."""
     assert tuple(fa.bwd_route(d, dtype)) == blocks
     with pytest.raises(ValueError, match="head dim 336"):
         fa.bwd_route(336, dtype)
