@@ -56,24 +56,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      32/32 heads of 80, which the bf16 kernel pads to 128, also timed at
      head dim 128 to show what the padding costs) and phase 15 (a)'s
      training forward (1 x 16/2 heads of 128 over 4096, causal; bf16, and
-     float32 as phase 15 (b) runs it), each shape
+     float32 as phase 15 (b) runs it) and phase 15 (d)'s two (gemma3-4b's
+     local and global layers, 1 x 8/4 heads of 320 over 4096, window 1024
+     and causal; bf16), each shape
      taken from its config, and time each beside its bound and
      `scaled_dot_product_attention` (K7's share of its bound, and its time
      over the library call's); then K7's backward kernel, in bf16 and
      float32, at phase 15 (a)'s training shape, at the family patterns
      phase 15 (c) trains through K7 (granite-moe's 16/8 heads of 64,
-     seamless's non-causal encoder over 512 frames, zamba2's head dim 80)
-     and at gemma3-4b's local layer (batch 1, head dim 320, window 1024),
-     each against `flash_attention_backward_plain` and against the plain
-     version's autograd gradient within `K7_BWD_TOL` (1e-5 float32, 2e-2
-     bf16) of each gradient's largest |value|, timed beside its bound, the
-     plain version, the route it replaced (autograd through the plain
-     version) and `scaled_dot_product_attention`'s backward, with the
-     kernel's route (`wgmma` for bf16 up to head dim 128, `mma_sync` for
-     bf16 above, `tf32x3` for float32) and each pass's blocks logged,
-     zamba2's head dim 80 also timed at its bucket's 128; every float32 row
-     (forward and backward) takes its bound at three TF32 products a
-     product (495 / 3 TFLOP/s), the float32 units' bound beside it;
+     seamless's non-causal encoder over 512 frames, zamba2's head dim 80),
+     at gemma3-4b's local layer (batch 1, head dim 320, window 1024), at
+     paligemma-3b's heads (batch 1, 8/1 heads of 256, causal) and at phase
+     15 (d)'s two (gemma3-4b's local and global layers over 4096), each against
+     `flash_attention_backward_plain` and against the plain version's
+     autograd gradient within `K7_BWD_TOL` (1e-5 float32, 2e-2 bf16) of
+     each gradient's largest |value|, two runs equal bit for bit, timed
+     beside its bound, the plain version, the route it replaced (autograd
+     through the plain version) and `scaled_dot_product_attention`'s
+     backward, with the kernel's route (`wgmma` for bf16, `tf32x3` for
+     float32) and each pass's blocks logged, zamba2's head dim 80 also
+     timed at its bucket's 128; every float32 row (forward and backward)
+     takes its bound at three TF32 products a product (495 / 3 TFLOP/s),
+     the float32 units' bound beside it. Every row's device time (forward
+     and backward) comes from the profiler in a process of its own
+     (`--k7-device-ms`), started after the rows: in a whole run the
+     profiler recorded none of this phase's forward launches;
  11. (run after phase 8, on phase 7's scene, before the LM phases free it)
      the ragged fleet, with the counters set to 0 first: a pooled service of
      8 clients at capacity 8 (max_clients 16, bandwidth tiers phone /
@@ -186,11 +193,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      profiled step over the median unprofiled step) and the backward
      kernel's share of that device time, read from the same trace. (Phase
      10 holds K7 and its backward against their plain versions at this
-     training shape.) (b) In float32 at full width and 4 layers, the loss
-     and every parameter's gradient with K7 (forward and backward kernels,
-     the backward launched 4 times) against the model with
-     `attention_plain` substituted, within 1e-4 of each leaf's largest
-     |grad|. (c) Every family at `reduced` float32 size
+     training shape.) (d) gemma3-4b as published (34 layers, d_model 2560,
+     8/4 heads of 320, vocab 262,144, window 1024 on 5 of each 6 layers)
+     likewise, after (a)'s model is freed: one warm-up step and 3 timed
+     steps, K7's forward and backward at head dim 320 on `wgmma` (the
+     backward 34 times a step); all 34 layers fit the card (a peak of
+     65.05 GiB on an H100 80GB), so no depth is cut. (b) In float32 at
+     full width and 4 layers, the loss and every parameter's gradient with
+     K7 (forward and backward kernels, the backward launched 4 times)
+     against the model with `attention_plain` substituted, within 1e-4 of
+     each leaf's largest |grad|. (c) Every family at `reduced` float32 size
      (qwen2.5-3b, granite-moe, seamless, paligemma, zamba2, xlstm at 7
      blocks) takes 20 steps through the `Trainer` (zamba2 with int8
      gradients), with a checkpoint every 10 steps and a fault injected at
@@ -408,7 +420,10 @@ def device_ms(torch, fn, key: str, n: int = 10, per_call: int = 1):
            if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key]
     total, count = sum(ev.self_device_time_total for ev in evs), sum(ev.count for ev in evs)
     if count != n * per_call:
-        log(f"[profile] {key}: the profiler recorded {count} of {n * per_call} launches")
+        seen = {ev.key[:60]: ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA}
+        log(f"[profile] {key}: the profiler recorded {count} of {n * per_call} launches; "
+            f"its device events: {seen}")
     return total / 1e3 / count * per_call if total > 0 else None
 
 
@@ -2127,7 +2142,8 @@ def k7_case_list() -> list:
     # phase 14's call patterns: the two MoE prefills (GQA groups 2 and 16), an
     # enc-dec's encoder layer over the stub frames and its causal decoder
     # self-attention, Zamba2's shared block (head dim 80); phase 15 (a)'s
-    # training forward (batch 1, twice phase 9's length)
+    # training forward (batch 1, twice phase 9's length), and phase 15 (d)'s:
+    # gemma3-4b's local and global layers
     gm, qm, enc, zb = (get_arch(n) for n in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
                                              "seamless-m4t-medium", "zamba2-2.7b"))
     tr = get_arch(TRAIN_ARCH)
@@ -2150,7 +2166,15 @@ def k7_case_list() -> list:
             (f"{tr.name} train", TRAIN_BATCH, tr.n_heads, tr.n_kv_heads, TRAIN_SEQ, tr.hd,
              tr.dtype, True, tr.sliding_window),
             (f"{tr.name} train f32", TRAIN_BATCH, tr.n_heads, tr.n_kv_heads, TRAIN_SEQ, tr.hd,
-             "float32", True, tr.sliding_window)]
+             "float32", True, tr.sliding_window),
+            *((f"{wa.name} train {kind}", TRAIN_BATCH, wa.n_heads, wa.n_kv_heads, TRAIN_SEQ,
+               wa.hd, wa.dtype, True, window) for kind, window in gemma3_train_layers(wa))]
+
+
+def gemma3_train_layers(wa) -> tuple:
+    """The attention layers of phase 15 (d)'s step, (kind, window): the
+    local layer's window and the global layer's none."""
+    return (("local", wa.sliding_window), ("global", 0))
 
 
 def k7_bound(dtype_name: str, t_bytes: float, ops: float) -> dict:
@@ -2184,8 +2208,9 @@ def attention_f64(torch, q, k, v, causal: bool, window: int):
 
 def k7_cases(torch, dev) -> list:
     """Phase 10: K7 against its plain version at the LM shapes, each timed
-    beside its bound (float32 at both rates, `k7_bound`) and
-    `scaled_dot_product_attention` (a yardstick only), with its route."""
+    by events beside its bound (float32 at both rates, `k7_bound`) and
+    `scaled_dot_product_attention` (a yardstick only), with its route; the
+    device time comes later, from a fresh process (`fill_k7_device_ms`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
@@ -2222,8 +2247,6 @@ def k7_cases(torch, dev) -> list:
         row = dict(case=name, shape=[b, h, hkv, length, d], dtype=dtype_name, route=rt.route,
                    causal=causal, window=window, max_abs_err=err, tolerance=tol,
                    ms=cuda_ms(torch, lambda: FA.flash_attention(q, k, v, **kw), REPS),
-                   device_ms=device_ms(torch, lambda: FA.flash_attention(q, k, v, **kw),
-                                       "flash_attention"),
                    plain_ms=cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v, **kw), 3),
                    library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                        q, k, v, enable_gqa=True, **lib_kw), REPS),
@@ -2253,7 +2276,7 @@ def k7_cases(torch, dev) -> list:
         fma = (f", at the FMA rate {row['bound_ms_fma']:.4f} ms" if "bound_ms_fma" in row
                else "")
         log(f"[K7] {name} {row['shape']} {row['dtype']} route {row['route']} causal={causal} "
-            f"window={window}: {row['ms']:.4f} ms, device {fmt_ms(row['device_ms'])}, plain "
+            f"window={window}: {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.3f} ms, sdpa {row['library_ms']:.4f} ms (K7 / sdpa "
             f"{row['vs_library']:.3f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
             f"share {row['bound_share']:.4f}){fma}, max |err| {err:.3g}{f64}")
@@ -2271,14 +2294,16 @@ def k7_backward_case_list() -> list:
     each in bf16 and float32: phase 15 (a)'s training shape, the family
     patterns phase 15 (c) trains through K7 (granite-moe's GQA group 2 at
     head dim 64, seamless's non-causal encoder over the stub frames,
-    zamba2's shared block at head dim 80) at phase 10's forward shapes, and
+    zamba2's shared block at head dim 80) at phase 10's forward shapes,
     gemma3-4b's local layer (window 1024, head dim 320), the widest input K7
-    takes."""
+    takes, paligemma-3b's heads (8/1 of 256, causal: bucket 256), and
+    phase 15 (d)'s two: gemma3-4b's local and global layers at its training
+    shape (1 x 8/4 of 320 over TRAIN_SEQ)."""
     from repro_torch.configs import get_arch
 
-    tr, gm, enc, zb, wa = (get_arch(n) for n in (TRAIN_ARCH, "granite-moe-1b-a400m",
-                                                 "seamless-m4t-medium", "zamba2-2.7b",
-                                                 WINDOW_ARCH))
+    tr, gm, enc, zb, wa, pg = (get_arch(n) for n in (TRAIN_ARCH, "granite-moe-1b-a400m",
+                                                     "seamless-m4t-medium", "zamba2-2.7b",
+                                                     WINDOW_ARCH, "paligemma-3b"))
     return [(f"{tr.name} train", TRAIN_BATCH, tr.n_heads, tr.n_kv_heads, TRAIN_SEQ, tr.hd, True,
              tr.sliding_window),
             (f"{gm.name} prefill", LM_BATCH, gm.n_heads, gm.n_kv_heads, LM_PROMPT, gm.hd, True,
@@ -2288,7 +2313,11 @@ def k7_backward_case_list() -> list:
             (f"{zb.name} shared block", LM_BATCH, zb.n_heads, zb.n_kv_heads, LM_PROMPT, zb.hd,
              True, 0),
             (f"{wa.name} local layer", 1, wa.n_heads, wa.n_kv_heads, LM_PROMPT, wa.hd, True,
-             wa.sliding_window)]
+             wa.sliding_window),
+            (f"{pg.name} head dim {pg.hd}", 1, pg.n_heads, pg.n_kv_heads, LM_PROMPT, pg.hd, True,
+             0),
+            *((f"{wa.name} train {kind}", TRAIN_BATCH, wa.n_heads, wa.n_kv_heads, TRAIN_SEQ,
+               wa.hd, True, window) for kind, window in gemma3_train_layers(wa))]
 
 
 def k7_backward_cases(torch, dev) -> list:
@@ -2297,10 +2326,11 @@ def k7_backward_cases(torch, dev) -> list:
     seeded (B, L, H, D) views and output gradient, held against
     `flash_attention_backward_plain` on the same (out, lse) and against the
     autograd gradient of `flash_attention_plain`, each gradient within
-    `K7_BWD_TOL` of its largest |value|; timed by events and device time
-    beside its bound, the plain version, the route it replaced (autograd
-    through the plain version, forward included) and the backward of
-    `scaled_dot_product_attention` (a yardstick only)."""
+    `K7_BWD_TOL` of its largest |value|, and two runs equal bit for bit;
+    timed by events beside its bound, the plain version, the route it
+    replaced (autograd through the plain version, forward included) and the
+    backward of `scaled_dot_product_attention` (a yardstick only). The
+    device time comes later, from a fresh process (`fill_k7_device_ms`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
@@ -2315,6 +2345,7 @@ def k7_backward_cases(torch, dev) -> list:
             lse = torch.empty((b, h, length), dtype=torch.float32, device=dev)
             out = FA._launch(q, k, v, causal, window, lse)
             got = FA.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            again = FA.flash_attention_backward(q, k, v, out, lse, dout, **kw)
             plain = FA.flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             auto = torch.autograd.grad(FA.flash_attention_plain(*leaves, **kw), leaves, dout)
@@ -2327,6 +2358,9 @@ def k7_backward_cases(torch, dev) -> list:
                 raise AssertionError(f"K7 backward {name} {dtype_name}: {err_plain:.3g} of scale "
                                      f"from its plain version, {err_auto:.3g} from the plain "
                                      f"autograd gradient (tolerance {tol})")
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):   # no atomics
+                raise AssertionError(f"K7 backward {name} {dtype_name}: two runs differ")
+            del again
             f64 = {}
             if dtype == torch.float32:   # how close each float32 version comes to float64
                 leaves64 = [t.detach().double().requires_grad_() for t in (q, k, v)]
@@ -2355,11 +2389,10 @@ def k7_backward_cases(torch, dev) -> list:
                 return torch.autograd.grad(FA.flash_attention_plain(*leaves, **kw), leaves, dout)
 
             row = dict(case=name, shape=[b, h, hkv, length, d], dtype=dtype_name, causal=causal,
-                       window=window, max_abs_err=abs_err, rel_err_vs_plain=err_plain,
+                       window=window, deterministic=True, max_abs_err=abs_err,
+                       rel_err_vs_plain=err_plain,
                        rel_err_vs_autograd=err_auto, tolerance=tol, **f64,
                        ms=cuda_ms(torch, kernel, REPS),
-                       device_ms=device_ms(torch, kernel, "attention_bwd",
-                                           per_call=3 + (h > hkv)),
                        plain_ms=cuda_ms(torch, lambda: FA.flash_attention_backward_plain(
                            q, k, v, out, lse, dout, **kw), 3),
                        plain_autograd_ms=cuda_ms(torch, old_route, 3),
@@ -2401,7 +2434,7 @@ def k7_backward_cases(torch, dev) -> list:
             log(f"[K7 bwd] {name} {dtype_name}: route {rt.route}, head dim {d} in bucket "
                 f"{rt.d_pad}, dQ pass blocks {rt.dq_blocks}, dK/dV pass blocks {rt.dkv_blocks}")
             log(f"[K7 bwd] {name} {row['shape']} {dtype_name} causal={causal} window={window}: "
-                f"{row['ms']:.4f} ms, device {fmt_ms(row['device_ms'])}, plain "
+                f"{row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.3f} ms, plain autograd {row['plain_autograd_ms']:.3f} ms, "
                 f"sdpa backward {fmt_ms(row['library_ms'])} (kernel / sdpa "
                 f"{row['vs_library'] if row.get('vs_library') else float('nan'):.3f}), bound "
@@ -2416,6 +2449,67 @@ def k7_backward_cases(torch, dev) -> list:
             del q, k, v, dout, out, lse, got, leaves
             torch.cuda.empty_cache()
     return rows
+
+
+def k7_device_times(torch, dev) -> dict:
+    """`--k7-device-ms`: phase 10's K7 device times, forward and backward at
+    each of its shapes, on the same seeded inputs, by `device_ms` in this
+    process, which has run nothing else. (In a whole run the profiler
+    recorded none of phase 10's forward launches and 33 of 40 backward
+    ones; a fresh process records them all.) Keys "fwd|case|dtype" and
+    "bwd|case|dtype"."""
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    for name, b, h, hkv, length, d, dtype_name, causal, window in k7_case_list():
+        gen = torch.Generator(device=dev).manual_seed(length + d)
+        q, k, v = (torch.randn((b, length, n, d), generator=gen, device=dev)
+                   .to(getattr(torch, dtype_name)).transpose(1, 2) for n in (h, hkv, hkv))
+        out[f"fwd|{name}|{dtype_name}"] = device_ms(
+            torch, lambda: FA.flash_attention(q, k, v, causal=causal, window=window),
+            "flash_attention")
+        del q, k, v
+    for name, b, h, hkv, length, d, causal, window in k7_backward_case_list():
+        for dtype_name in ("bfloat16", "float32"):
+            gen = torch.Generator(device=dev).manual_seed(7 * length + d)
+            q, k, v, dout = (torch.randn((b, length, n, d), generator=gen, device=dev)
+                             .to(getattr(torch, dtype_name)).transpose(1, 2)
+                             for n in (h, hkv, hkv, h))
+            lse = torch.empty((b, h, length), dtype=torch.float32, device=dev)
+            o = FA._launch(q, k, v, causal, window, lse)
+            out[f"bwd|{name}|{dtype_name}"] = device_ms(
+                torch, lambda: FA.flash_attention_backward(q, k, v, o, lse, dout, causal=causal,
+                                                           window=window),
+                "attention_bwd", per_call=3 + (h > hkv))
+            del q, k, v, dout, lse, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def fill_k7_device_ms(k7: list, k7b: list) -> None:
+    """Phase 10's device ms, from `chip_smoke.py --k7-device-ms` in a
+    process of its own (`k7_device_times`), into each row; fails if a row
+    gets none."""
+    import shutil
+    import tempfile
+    path = Path(tempfile.mkdtemp(prefix="nebula_k7dev_")) / "k7_device_ms.json"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k7-device-ms",
+                          str(path)], capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise RuntimeError(f"--k7-device-ms: exit {run.returncode}: {run.stderr[-3000:]}")
+    times = json.loads(path.read_text())
+    shutil.rmtree(path.parent, ignore_errors=True)
+    for kind, rows in (("fwd", k7), ("bwd", k7b)):
+        for row in rows:
+            row["device_ms"] = times.get(f"{kind}|{row['case']}|{row['dtype']}")
+            log(f"[K7{' bwd' if kind == 'bwd' else ''}] {row['case']} {row['dtype']}: device "
+                f"{fmt_ms(row['device_ms'])} (a fresh process), {row['ms']:.4f} ms by events")
+            if row["device_ms"] is None:
+                raise AssertionError(f"phase 10: no device time for {kind} {row['case']} "
+                                     f"{row['dtype']}")
+    log(f"[K7] phase 10's device times in a fresh process: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def stub_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
@@ -2694,6 +2788,8 @@ TRAIN_BATCH = 1              # ... at batch 1 (train_4k's global batch is 256)
 TRAIN_STEPS = 5              # (a): timed steps, after one warm-up step
 TRAIN_LR = 3e-4              # (a): AdamW's peak rate, no warmup
 TRAIN_CHECK_LAYERS = 4       # (b): float32 depth at full width
+GEMMA_TRAIN_ARCH = "gemma3-4b"   # (d): as published (head dim 320), bf16, remat on, (a)'s tokens
+GEMMA_TRAIN_STEPS = 3        # (d): timed steps, after one warm-up step
 TRAIN_REL_TOL = 1e-4         # (b): of each leaf's largest |grad|
 # (c): every family at reduced float32 size through the Trainer
 TRAIN_FAMILIES = (("qwen2.5-3b", {}), ("granite-moe-1b-a400m", {}),
@@ -2731,29 +2827,21 @@ def grad_check(torch, n_params: int, out: list):
         yield
 
 
-def lm_train(torch, dev, card: str) -> dict:
-    """Phase 15: training on the card. (a) qwen2.5-3b as published through
-    `make_train_step`; (b) float32 gradients at full width, K7 against
-    `attention_plain`; (c) every family at reduced size through the
-    `Trainer`, one injected fault each. Returns the phase's report, with the
-    launch counts of (a)'s timed steps and (c)'s runs under "counts"."""
-    import shutil
-    import tempfile
+def train_full(torch, dev, card: str, cfg, steps: int, label: str, counts_into: dict) -> dict:
+    """Phase 15 (a) or (d): `cfg` at full width through `make_train_step`
+    with AdamW, bf16 and remat as configured, TRAIN_BATCH x TRAIN_SEQ tokens:
+    a warm-up step with every gradient checked finite and non-zero, `steps`
+    timed steps (the losses must fall; K7 and its backward launched the
+    config's count each step) and one profiled step (the device's busy and
+    idle share, the attention backward's share). Adds the timed steps'
+    launch counts to `counts_into`; returns the record."""
     from repro_torch import kernels as K
-    from repro_torch.configs import get_arch
     from repro_torch.data.tokens import DataConfig, SyntheticTokens
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models import attention as MA
     from repro_torch.models import model_zoo
-    from repro_torch.models.config import reduced
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import make_train_step
-    from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    out, path_counts = {}, {name: 0 for name in K.launch_counts()}
-
-    # (a) full width ---------------------------------------------------------------
-    cfg = get_arch(TRAIN_ARCH)
     bundle = model_zoo.get_model(cfg)
     t0 = time.perf_counter()
     model = bundle.init(seed=0, device=dev)
@@ -2761,8 +2849,8 @@ def lm_train(torch, dev, card: str) -> dict:
     flops = model_flops(cfg, n_params, model.embed.numel(), TRAIN_BATCH, TRAIN_SEQ)
     want = model_zoo.k7_train_launches(cfg)
     want_bwd = model_zoo.k7_backward_launches(cfg)
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
-        f"{cfg.dtype}, remat {cfg.remat}; {n_params} parameters from seed 0 in "
+    log(f"[train] ({label}) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params} parameters from seed 0 in "
         f"{time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; "
         f"model FLOPs a step {flops:.4g}")
     source = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
@@ -2777,14 +2865,14 @@ def lm_train(torch, dev, card: str) -> dict:
     with grad_check(torch, n_tensors, flags):   # the warm-up step: every gradient checked
         model, state, _e, met = step(model, state, None, source.batch(0))
         losses.append(float(met["loss"]))
-    log(f"[train] warm-up step (every gradient checked) done at "
+    log(f"[train] ({label}) warm-up step (every gradient checked) done at "
         f"{time.perf_counter() - t0:.1f} s")
     bad = [n for (n, _p), ok in zip(model.named_parameters(), flags[0]) if not ok]
     if bad:
         raise AssertionError(f"{cfg.name}: {len(bad)} parameters got a zero or non-finite "
                              f"gradient, e.g. {bad[:5]}")
     K.reset_launch_counts()
-    for i in range(1, TRAIN_STEPS + 1):
+    for i in range(1, steps + 1):
         batch = source.batch(i)
         before = (FA.flash_attention.launches, FA.flash_attention_backward.launches)
         torch.cuda.synchronize()
@@ -2797,26 +2885,28 @@ def lm_train(torch, dev, card: str) -> dict:
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for key, n in counts.items():
-        path_counts[key] += n
+        counts_into[key] += n
     med = statistics.median(step_ms)
-    log(f"[train] losses {[round(x, 4) for x in losses]}; K7 launches a step {per_step}, "
+    log(f"[train] ({label}) losses {[round(x, 4) for x in losses]}; K7 launches a step "
+        f"{per_step}, "
         f"its backward's {bwd_per_step}")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name}: losses {losses} not finite or not falling")
-    if per_step != [want] * TRAIN_STEPS:
+    if per_step != [want] * steps:
         raise AssertionError(f"K7 launched {per_step} times a step, not {want}")
-    if bwd_per_step != [want_bwd] * TRAIN_STEPS:
+    if bwd_per_step != [want_bwd] * steps:
         raise AssertionError(f"K7's backward launched {bwd_per_step} times a step, not "
                              f"{want_bwd}")
-    out["full"] = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
-                       params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
-                       step_ms=step_ms, step_ms_median=med,
-                       tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
-                       model_flops=flops, mfu=flops / (med * 1e-3) / BF16_OPS_PER_S,
-                       peak_bytes=peak, k7_launches_per_step=per_step,
-                       k7_backward_launches_per_step=bwd_per_step, card=card)
-    log(f"[train] step median {med:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
-        f"{out['full']['tokens_per_s']:.0f} tokens/s; MFU {out['full']['mfu']:.4f} of "
+    full = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
+                params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                step_ms=step_ms, step_ms_median=med,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+                model_flops=flops, mfu=flops / (med * 1e-3) / BF16_OPS_PER_S,
+                peak_bytes=peak, k7_launches_per_step=per_step,
+                k7_backward_launches_per_step=bwd_per_step, card=card)
+    log(f"[train] ({label}) step median {med:.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}); "
+        f"{full['tokens_per_s']:.0f} tokens/s; MFU {full['mfu']:.4f} of "
         f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; peak memory {peak / 2**30:.2f} GiB | {card}")
 
     # one profiled step (kernels only: a step launches about 10^5 of them, and
@@ -2826,7 +2916,7 @@ def lm_train(torch, dev, card: str) -> dict:
     # is read from the same trace
     from torch.profiler import ProfilerActivity, profile
     t1 = time.perf_counter()
-    batch = source.batch(TRAIN_STEPS + 1)
+    batch = source.batch(steps + 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t2 = time.perf_counter()
@@ -2840,14 +2930,13 @@ def lm_train(torch, dev, card: str) -> dict:
     bwd = {key: t for key, t in kernels.items() if "attention_bwd" in key}
     fwd = {key: t for key, t in kernels.items() if "flash_attention_" in key}
     bwd_ms, fwd_ms = sum(bwd.values()), sum(fwd.values())
-    full = out["full"]
     full["profile"] = dict(wall_ms=wall, device_busy_ms=busy, top=top,
                            attention_backward_ms=bwd_ms, attention_backward_kernels=bwd,
                            attention_backward_calls=want_bwd, attention_forward_ms=fwd_ms,
                            seconds=time.perf_counter() - t1)
     full["idle_share"] = 1 - busy / med if busy > 0 else None
     full["attention_backward_share"] = bwd_ms / busy if busy > 0 else None
-    log(f"[train] profiled step: device busy {busy:.2f} ms (wall {wall:.2f} ms with the "
+    log(f"[train] ({label}) profiled step: device busy {busy:.2f} ms (wall {wall:.2f} ms with the "
         f"profiler on); idle share of the unprofiled median step "
         f"{fmt_share(full['idle_share'])}; the attention backward's kernels "
         f"{bwd_ms:.2f} device ms in {want_bwd} calls ({bwd_ms / want_bwd:.3f} a call), share "
@@ -2856,13 +2945,60 @@ def lm_train(torch, dev, card: str) -> dict:
     for name, t in top:
         log(f"[profile]   {t:9.3f} ms  {name[:90]}")
     if busy > 0 and not bwd:
-        raise AssertionError("phase 15 (a): the profiled step shows no backward kernel")
+        raise AssertionError(f"phase 15 ({label}): the profiled step shows no backward "
+                             f"kernel")
     del model, state, met, prof
     gc.collect()
     torch.cuda.empty_cache()
 
-    out["full"]["seconds"] = time.perf_counter() - t0
-    log(f"[train] (a) took {out['full']['seconds']:.1f} s")
+    full["seconds"] = time.perf_counter() - t0
+    log(f"[train] ({label}) took {full['seconds']:.1f} s")
+    return full
+
+
+def lm_train(torch, dev, card: str) -> dict:
+    """Phase 15: training on the card. (a) qwen2.5-3b as published through
+    `make_train_step`; (d) gemma3-4b likewise (K7 and its backward at head
+    dim 320 on wgmma); (b) float32 gradients at full width, K7 against
+    `attention_plain`; (c) every family at reduced size through the
+    `Trainer`, one injected fault each. Returns the phase's report, with the
+    launch counts of (a)'s and (d)'s timed steps and (c)'s runs under
+    "counts"."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import DataConfig, SyntheticTokens
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model_zoo
+    from repro_torch.models.config import reduced
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    out, path_counts = {}, {name: 0 for name in K.launch_counts()}
+
+    # (a) full width ---------------------------------------------------------------
+    out["full"] = train_full(torch, dev, card, get_arch(TRAIN_ARCH), TRAIN_STEPS, "a",
+                             path_counts)
+
+    # (d) gemma3-4b at full width: K7's backward at head dim 320 on the step ----------
+    gcfg = get_arch(GEMMA_TRAIN_ARCH)
+    rt = FA.bwd_route(gcfg.hd, torch.bfloat16)
+    log(f"[train] (d) {gcfg.name}: K7's backward at head dim {gcfg.hd} on route {rt.route}, "
+        f"bucket {rt.d_pad}, dQ pass blocks {rt.dq_blocks}, dK/dV pass blocks "
+        f"{rt.dkv_blocks}")
+    ft = FA.fwd_route(gcfg.hd, torch.bfloat16)
+    if (rt.route, rt.d_pad, ft.route, ft.d_pad) != ("wgmma", 320, "wgmma", 320):
+        raise AssertionError(f"phase 15 (d): K7 at head dim {gcfg.hd} on {ft}, its backward "
+                             f"on {rt}")
+    out["gemma3"] = train_full(torch, dev, card, gcfg, GEMMA_TRAIN_STEPS, "d", path_counts)
+    out["gemma3"].update(k7_backward_route=rt.route,
+                         k7_backward_d_pad=rt.d_pad,
+                         k7_forward_route=ft.route, k7_forward_d_pad=ft.d_pad)
+    cfg = get_arch(TRAIN_ARCH)
+    source = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
     t0 = time.perf_counter()
 
     # (b) float32 at full width, TRAIN_CHECK_LAYERS layers: K7 vs attention_plain --
@@ -3311,6 +3447,9 @@ def main() -> int:
     ap.add_argument("--mesh-dir", type=str, default=None, help="phase 13's shared directory")
     ap.add_argument("--lm-mesh-only", action="store_true",
                     help="build the kernels and run phase 16 alone (a quick check of it)")
+    ap.add_argument("--k7-device-ms", type=str, default=None, metavar="FILE",
+                    help="write phase 10's K7 device times, measured in this process alone, "
+                         "to FILE (phase 10 starts it)")
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank, args.mesh_dir)
@@ -3357,6 +3496,9 @@ def main() -> int:
     b = _build.build()
     _build.library()
     log(f"[build] {b['seconds']:.1f} s, rebuilt={b['rebuilt']} -> {b['path']}")
+    if args.k7_device_ms:
+        Path(args.k7_device_ms).write_text(json.dumps(k7_device_times(torch, dev)))
+        return 0
     report["ptxas"] = ptxas_report(b["ptxas"])
     for k in report["ptxas"]:
         log(f"[build] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} B static "
@@ -4158,6 +4300,7 @@ def main() -> int:
     k7 = k7_cases(torch, dev)
     report["k7_cases"] = k7
     k7b = k7_backward_cases(torch, dev)
+    fill_k7_device_ms(k7, k7b)
     report["k7_backward_cases"] = k7b
     report["phases"]["lm_s"] = t_k7 - t_lm
     report["phases"]["k7_cases_s"] = time.perf_counter() - t_k7

@@ -42,44 +42,55 @@
 //   dQ pass: one block per (q block of BM rows, head, batch); it loads its
 //     qs, dO, lse and D once and walks the kv tiles it sees (kv_tile_plan,
 //     the forward's plan at these blocks).
-// Three routes, chosen by the host (kernels/flash_attention.py:bwd_route):
+// Two routes, chosen by the host (kernels/flash_attention.py:bwd_route):
 //
-// wgmma — bfloat16 at head dims up to 128 (buckets 64 and 128), the
+// wgmma — bfloat16 at every head dim (buckets 64, 128, 256 and 320), the
 // training path's. The forward's machinery (sm90.cuh) applied to both
 // passes. The pre-pass also writes qs = round_bf16(q * scale) once into a
 // contiguous (B, H, Lq, D) scratch, and lse and D into (B, H, Lq_pad)
 // buffers whose rows Lq .. Lq_pad - 1 (Lq_pad = Lq rounded up to 128) hold
 // lse = +inf and D = 0: TMA's zero fill would give lse 0 there. Each pass
-// is a block of two consumer warpgroups (256 threads), each 64 rows of the
-// block's tile, fed by TMA into 128-byte-swizzled shared memory (4-D
-// tensor maps, boxes of 64 columns; head-dim columns past D arrive as
-// zeros, add 0 to every score and are never stored). The block's first
-// thread issues every load: the block's fixed operands once, then a ring
-// of 4 stages, each with its own full and empty mbarriers as the forward's,
-// filled 2 steps ahead (a refill waits on the step two back, so neither
+// is a block of two consumer warpgroups (256 threads), fed by TMA into
+// 128-byte-swizzled shared memory (4-D tensor maps, boxes of 64 columns;
+// head-dim columns past D arrive as zeros, a box wholly past D included,
+// add 0 to every score and are never stored). The block's first thread
+// issues every load: the block's fixed operands once, then a ring of S
+// stages, each with its own full and empty mbarriers as the forward's,
+// filled S - 2 steps ahead (a refill waits on the step two back, so neither
 // warpgroup waits on the other's current step). No producer warp: with 9
 // or 12 warps a block ptxas holds every thread to 168 registers (one
 // sub-partition's 16,384 over 3 warps), whatever setmaxnreg asks at run
 // time, and the dK/dV pass takes 226 (ptxas); with a producer warp or
 // warpgroup it spilled 4.3 KB.
-//   dK/dV pass (attention_bwd_dkv_wgmma): BN 128 kv rows; K and V once,
-//     then stages of (qs block of 64 rows, dO block, their 64 lse and D
-//     values by bulk copy). A step: s^T = K qs^T and dp^T = V dO^T by wgmma
-//     (A and B from shared memory, K-major), p^T and ds^T in registers (the
-//     mask only on the blocks the plan marks partial), then dV += p^T dO
-//     and dK += ds^T qs by wgmma with A from registers: the m64nNk16
-//     accumulator layout of s^T is the register-A layout, as the forward
-//     feeds P, so p and ds never touch shared memory; the B operand is the
-//     same dO or qs tile read MN-major. The dV and dK accumulators (64 + 64
-//     floats a thread at D_pad 128) and s^T and dp^T (32 + 32).
-//   dQ pass (attention_bwd_dq_wgmma): BM 128 q rows; qs and dO once, then
-//     stages of (K tile, V tile) of BN 64 rows. A step: s = qs K^T and
+//   dK/dV pass (attention_bwd_dkv_wgmma): K and V of the kv tile once, then
+//     stages of (qs block, dO block, their lse and D values by bulk copy).
+//     A step: s^T = K qs^T and dp^T = V dO^T by wgmma (A and B from shared
+//     memory, K-major), p^T and ds^T (the mask only on the blocks the plan
+//     marks partial), then dV += p^T dO and dK += ds^T qs by wgmma with A
+//     from registers: the m64nNk16 accumulator layout of s^T is the
+//     register-A layout, as the forward feeds P; the B operand is the same
+//     dO or qs tile read MN-major. At buckets 64 and 128 each warpgroup
+//     takes 64 of the tile's 128 kv rows and does all four products (the dV
+//     and dK accumulators 64 + 64 floats a thread at D_pad 128, s^T and dp^T
+//     32 + 32), p and ds never touching shared memory. At 256 and 320 one
+//     accumulator of 64 x D_pad is D_pad / 2 floats a thread (160 at 320),
+//     so the two warpgroups share one tile of 64 kv rows: warpgroup 0 computes
+//     s^T, p^T and dV, warpgroup 1 dp^T, ds^T and dK, two D-long products
+//     each a step. Warpgroup 0 hands p^T over in float32 through two shared
+//     buffers (a thread's values where the thread of the same rank in the
+//     other warpgroup holds the same elements of dp^T), behind a pair of
+//     named barriers a buffer (full, empty), so it may run a step ahead.
+//     Output products wider than 256 columns (wgmma's widest) run as 256 +
+//     64.
+//   dQ pass (attention_bwd_dq_wgmma): BM 128 q rows, 64 a warpgroup; qs and
+//     dO once, then stages of (K tile, V tile). A step: s = qs K^T and
 //     dp = dO V^T (shared, K-major), ds in registers, then dQ += ds K (A
 //     from registers, K read MN-major) is issued behind the next step's s
 //     and dp and runs while that step's ds is computed (ds double-buffered
-//     in registers, 204 in all); dq is scaled once at the end. Run after
-//     its step instead, the pass took 0.29 ms at the training shape
-//     against 0.21.
+//     in registers, 204 in all at D_pad 128); dq is scaled once at the end.
+//     Run after its step instead, the pass took 0.29 ms at the training
+//     shape against 0.21. At 256 and 320 qs and dO of 128 rows take 128 or
+//     160 KB, so the kv tiles shrink to 32 and 16 rows, 3 stages.
 //   The s and dp products of a step are committed together and waited for
 //   before p and ds are computed, into registers of their own: a write to
 //   an accumulator while another product is in flight makes ptxas
@@ -88,38 +99,19 @@
 //   whose last three would hold only zero fill; the output products are
 //   16 NK columns wide (m64n80k16 at D 80, the second box read for its
 //   first 16 columns), so D 80 does 5/8 of D 128's work.
-//   pass     D_pad   q block   kv tile   shared memory (4 stages)
-//   dK/dV    64      64        128       99 KB
-//   dK/dV    128     64        128       195 KB
-//   dQ       64      128       64        97 KB
-//   dQ       128     128       64        193 KB
+//   pass     D_pad   kv tile   q block   stages   shared memory
+//   dK/dV    64      128       64        4        101,504 B
+//   dK/dV    128     128       64        4        199,808 B
+//   dK/dV    256     64        32        4        215,168 B (pair)
+//   dK/dV    320     64        32        3        223,104 B (pair)
+//   dQ       64      64        128       4        99,456 B
+//   dQ       128     64        128       4        197,760 B
+//   dQ       256     32        128       3        230,528 B
+//   dQ       320     16        128       3        226,432 B
+//   (static_asserts after DqLayout hold the layouts to the table's bytes.)
 //   TMA needs 16-byte aligned bases and strides of q, k, v and dout; the
 //   host checks them and raises, and the entry point refuses anything
-//   else: nothing is copied, nothing falls back to the other route.
-//
-// mma_sync — bfloat16 at buckets 256 and 320 (the first kernels, kept: at
-// gemma3's local layer, D 320, the bf16 kernel takes 1.14 ms against sdpa's
-// 2.73, and two wgmma accumulators of D_pad / 2 floats a thread do not fit
-// there). Both passes run in two phases a step, 8 warps each:
-//   A. the score tile (16-row pieces a warp): s and dp from shared memory,
-//      then p and ds in registers (the mask only on the tiles the plan
-//      marks partial), written to shared memory in T (p and ds in the
-//      dK/dV pass, ds in the dQ pass);
-//   B. the outputs' products from shared memory into float32 accumulators
-//      held in registers for the whole block (16-row pieces of the output;
-//      in the dK/dV pass warps 0-3 take dV and 4-7 dK).
-// mma.sync m16n8k16 (float32 sums): A fragments and the K-major B fragments
-// are 32-bit shared loads, the row-major B operand of phase B (dO, qs, K)
-// comes by ldmatrix .trans. Rows are padded by 16 bytes, so (row stride /
-// 4 B) % 8 == 4: the 32-bit fragment loads of 8 rows x 4 lanes and
-// ldmatrix's 8 rows of 16 bytes fall in distinct banks. Output columns past
-// D are skipped a whole 8-column tile at a time:
-//   bucket   BM   BN   shared memory (dK/dV pass, dQ pass)
-//   256      64   32   108 KB, 104 KB
-//   320      64   32   132 KB, 128 KB
-// The accumulators take at most 80 float32 registers a thread (bucket 320).
-// Global loads are 16 bytes a thread where the host says a tensor is
-// 16-byte aligned (base and strides), else element by element.
+//   else: nothing is copied, nothing falls back to another route.
 //
 // tf32x3 — float32 at every head dim, on the tensor cores as three TF32
 // products (tf32x3.cuh: x = hi + lo, a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi
@@ -162,8 +154,8 @@
 //   256      8 (pairs), 64, 8                 4, 64, 16                     185,152 B, 183,552 B
 //   320      8 (pairs), 64, 8                 4, 64, 16                     230,208 B, 228,608 B
 //   (kernels/flash_attention.py:tf32x3_smem mirrors the table.)
-// The Δ pre-pass and the GQA reduce are the mma_sync route's kernels, in
-// float32.
+// The Δ pre-pass and the GQA reduce serve both routes (the tf32x3 route's
+// pre-pass writes D alone).
 
 #include <math.h>
 
@@ -177,16 +169,15 @@ constexpr int kThreads = 32 * kWarps;
 
 typedef __nv_bfloat16 bf16;
 
+// the GQA reduce's store
 template <typename T>
 struct Elem;
 template <>
-struct Elem<float> {  // the float32 GQA reduce's store
+struct Elem<float> {
   static __device__ __forceinline__ float put(float x) { return x; }
 };
 template <>
 struct Elem<bf16> {
-  static constexpr int kPad = 8;  // 16 bytes
-  static __device__ __forceinline__ float get(bf16 x) { return __bfloat162float(x); }
   static __device__ __forceinline__ bf16 put(float x) { return __float2bfloat16_rn(x); }
 };
 
@@ -223,130 +214,9 @@ __device__ __forceinline__ void store_chunk(bf16* dst, const float* x) {  // 16-
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
-// Rows r0 .. r0 + ROWS - 1 of an (L, D) slice with row stride sl into a
-// ROWS x ld shared tile; rows >= L are zeros. With `scaled`, each value is
-// multiplied by `scale` in float32 and rounded to T (the forward's qs).
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long sl, int r0,
-                                          int L, int D, bool vec, bool scaled, float scale) {
-  constexpr int E = 16 / sizeof(T);
-  const int cpr = D / E;
-  for (int i = threadIdx.x; i < ROWS * cpr; i += kThreads) {
-    const int r = i / cpr, c = (i - r * cpr) * E;
-    float x[E];
-    if (r0 + r < L) {
-      load_chunk(src + static_cast<long long>(r0 + r) * sl + c, vec, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) x[e] = 0.f;
-    }
-    if (scaled) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) x[e] *= scale;
-    }
-    store_chunk(dst + r * ld + c, x);
-  }
-}
-
-__device__ __forceinline__ void put2(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-// ---- products on a warp's 16-row piece ----------------------------------
-// Accumulator layout (mma.sync m16n8, float32), the same for both types:
-// lane (g = lane / 4, t = lane % 4) holds c[j][0..1] at row g, columns
-// 8 j + 2 t (+ 1) and c[j][2..3] at row g + 8.
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment (16 x 8) of a row-major K x N operand at p (lanes 0-15
-// point at its rows 0-15, column 0 of the fragment).
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr)
-               : "memory");
-}
-
-// c[j] += A (16 rows, stride ld) . B^T over K columns; B's rows 8 j .. 8 j + 7
-// (stride ld) give c[j]'s columns.
-template <int NT>
-__device__ __forceinline__ void prod_nt(float (&c)[NT][4], const bf16* A, const bf16* B, int ld,
-                                        int K, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* a_lo = A + g * ld + 2 * t;
-  const bf16* a_hi = a_lo + 8 * ld;
-  const bf16* b_p = B + g * ld + 2 * t;
-  for (int kk = 0; kk < K; kk += 16) {
-    const uint32_t a[4] = {ld32(a_lo + kk), ld32(a_hi + kk), ld32(a_lo + kk + 8),
-                           ld32(a_hi + kk + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* bp = b_p + 8 * j * ld + kk;
-      mma16816(c[j], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-// c[j] += A (16 rows x K, stride lda) . B (K rows, stride ldb), c[j] over
-// B's columns 8 j .. 8 j + 7, for j < n_valid (a warp-uniform count).
-template <int NT, int K>
-__device__ __forceinline__ void prod_nn(float (&c)[NT][4], const bf16* A, int lda, const bf16* B,
-                                        int ldb, int n_valid, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* a_lo = A + g * lda + 2 * t;
-  const bf16* a_hi = a_lo + 8 * lda;
-  const bf16* b_row = B + (lane & 15) * ldb;
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    const uint32_t a[4] = {ld32(a_lo + kk), ld32(a_hi + kk), ld32(a_lo + kk + 8),
-                           ld32(a_hi + kk + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < n_valid) {
-        uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, b_row + kk * ldb + 8 * j);
-        mma16816(c[j], a, b0, b1);
-      }
-    }
-  }
-}
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-}
-
 __device__ __forceinline__ bool visible(int row, int col, int Lq, int Lk, int causal, int window) {
   return row < Lq && col < Lk && (!causal || col <= row) && (window <= 0 || col > row - window);
 }
-
-// ---- shapes ---------------------------------------------------------------
-
-template <typename T, int DM, int BM_, int BN_>
-struct Shape {
-  static constexpr int BM = BM_, BN = BN_;
-  static constexpr int LD = DM + Elem<T>::kPad;      // Q, dO, K, V tiles
-  static constexpr int LDP_KV = BM + Elem<T>::kPad;  // p and ds of the dK/dV pass (BN x BM)
-  static constexpr int LDP_Q = BN + Elem<T>::kPad;   // ds of the dQ pass (BM x BN)
-  static constexpr int SMEM_KV = static_cast<int>(
-      ((2 * BN + 2 * BM) * LD + 2 * BN * LDP_KV) * sizeof(T) + 2 * BM * sizeof(float));
-  static constexpr int SMEM_Q = static_cast<int>(
-      ((2 * BM + 2 * BN) * LD + BM * LDP_Q) * sizeof(T) + 2 * BM * sizeof(float));
-  static_assert(BM % 16 == 0 && BN % 16 == 0 && DM % 16 == 0, "16-row pieces");
-};
 
 // ---- the pre-pass: D_i = sum_d dO_id O_id ----------------------------------
 // A row of the (B, H, pitch) row space to each group of lpr lanes (a power
@@ -404,121 +274,6 @@ attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const T
   }
 }
 
-// ---- the dK/dV pass ---------------------------------------------------------
-
-template <typename T, int DM, int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-attention_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                  float* __restrict__ dk_part, float* __restrict__ dv_part, Strides qs,
-                  Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-                  const int* __restrict__ plan, int group, int Lq, int Lk, int D, int causal,
-                  int window, float scale, int vec) {
-  using S = Shape<T, DM, BM, BN>;
-  constexpr int LD = S::LD, LDP = S::LDP_KV;
-  // phase A: 16 x WA pieces of the BN x BM tile of p and ds
-  constexpr int RGA = BN / 16, CPA = kWarps / RGA, WA = BM / CPA, NTA = WA / 8;
-  // phase B: warps 0-3 dV, 4-7 dK, each a 16 x WB piece of the BN x D output
-  constexpr int RGB = BN / 16, CPB = (kWarps / 2) / RGB, WB = DM / CPB, NTB = WB / 8;
-  static_assert(RGA * CPA == kWarps && WA % 8 == 0 && RGB * CPB == kWarps / 2 && WB % 8 == 0,
-                "warp pieces");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + BN * LD;
-  T* sQ = sV + BN * LD;
-  T* sdO = sQ + BM * LD;
-  T* sP = sdO + BM * LD;
-  T* sdS = sP + BN * LDP;
-  float* sL = reinterpret_cast<float*>(sdS + BN * LDP);
-  float* sD = sL + BM;
-
-  // plan row: kv tile, first and end q block, first and end block without a mask
-  const int* pr = plan + 5 * blockIdx.z;
-  const int kb = pr[0], qb0 = pr[1], qb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
-  const int H = gridDim.x, h = blockIdx.x, b = blockIdx.y, hk = h / group;
-  const int c0 = kb * BN;
-  const long long row_bh = (static_cast<long long>(b) * H + h) * Lq;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* dop = dout + b * dos.b + h * dos.h;
-  load_tile<T, BN>(sK, LD, k + b * ks.b + hk * ks.h, ks.l, c0, Lk, D, vec & 2, false, 1.f);
-  load_tile<T, BN>(sV, LD, v + b * vs.b + hk * vs.h, vs.l, c0, Lk, D, vec & 4, false, 1.f);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ra = (warp % RGA) * 16, ca = (warp / RGA) * WA;
-  const int which = warp / (kWarps / 2), wb = warp % (kWarps / 2);  // which: 0 dV, 1 dK
-  const int rb = (wb % RGB) * 16, cb = (wb / RGB) * WB;
-  const int n_valid = max(0, min(NTB, (D - cb) / 8));
-  float acc[NTB][4];
-  zero(acc);
-
-  for (int qb = qb0; qb < qb1; ++qb) {
-    const int q0 = qb * BM;
-    __syncthreads();  // the last step's readers of sQ, sdO, sP, sdS are done
-    load_tile<T, BM>(sQ, LD, qp, qs.l, q0, Lq, D, vec & 1, true, scale);
-    load_tile<T, BM>(sdO, LD, dop, dos.l, q0, Lq, D, vec & 8, false, 1.f);
-    for (int i = threadIdx.x; i < BM; i += kThreads) {
-      const bool in = q0 + i < Lq;
-      sL[i] = in ? lse[row_bh + q0 + i] : INFINITY;
-      sD[i] = in ? delta[row_bh + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // A: s^T = K qs^T and dp^T = V dO^T on rows ra.. (kv) x columns ca.. (q)
-    float s[NTA][4], dp[NTA][4];
-    zero(s);
-    zero(dp);
-    prod_nt<NTA>(s, sK + ra * LD, sQ + ca * LD, LD, D, lane);
-    prod_nt<NTA>(dp, sV + ra * LD, sdO + ca * LD, LD, D, lane);
-    const bool full = qb >= fb0 && qb < fb1;
-#pragma unroll
-    for (int j = 0; j < NTA; ++j)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int r = ra + g + 8 * hi, cc = ca + 8 * j + 2 * t;
-        float pv[2], dsv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p = expf(s[j][2 * hi + e] - sL[cc + e]);
-          if (!full && !visible(q0 + cc + e, c0 + r, Lq, Lk, causal, window)) p = 0.f;
-          pv[e] = p;
-          dsv[e] = p * (dp[j][2 * hi + e] - sD[cc + e]);
-        }
-        put2(sP + r * LDP + cc, pv[0], pv[1]);
-        put2(sdS + r * LDP + cc, dsv[0], dsv[1]);
-      }
-    __syncthreads();
-
-    // B: dV += p^T dO, dK += ds^T qs on rows rb.. x columns cb..
-    if (which == 0)
-      prod_nn<NTB, BM>(acc, sP + rb * LDP, LDP, sdO + cb, LD, n_valid, lane);
-    else
-      prod_nn<NTB, BM>(acc, sdS + rb * LDP, LDP, sQ + cb, LD, n_valid, lane);
-  }
-
-#pragma unroll
-  for (int j = 0; j < NTB; ++j) {
-    if (j >= n_valid) continue;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = c0 + rb + g + 8 * hi, col = cb + 8 * j + 2 * t;
-      if (row >= Lk) continue;
-      if (dk_part != nullptr) {  // a query head's share; the reduce kernel sums the group
-        float* o = (which ? dk_part : dv_part) +
-                   ((static_cast<long long>(b) * H + h) * Lk + row) * D + col;
-        o[0] = acc[j][2 * hi];
-        o[1] = acc[j][2 * hi + 1];
-      } else {
-        T* o = which ? dk + b * dks.b + hk * dks.h + row * dks.l + col
-                     : dv + b * dvs.b + hk * dvs.h + row * dvs.l + col;
-        o[0] = Elem<T>::put(acc[j][2 * hi]);
-        o[1] = Elem<T>::put(acc[j][2 * hi + 1]);
-      }
-    }
-  }
-}
-
 // dk and dv of a kv head: its group's float32 partials summed in head order
 // (blockIdx.y: 0 dv, 1 dk), 4 columns a thread (D is a multiple of 16).
 template <typename T>
@@ -547,105 +302,6 @@ attention_bwd_reduce(const float* __restrict__ dk_part, const float* __restrict_
   o[1] = Elem<T>::put(s.y);
   o[2] = Elem<T>::put(s.z);
   o[3] = Elem<T>::put(s.w);
-}
-
-// ---- the dQ pass ---------------------------------------------------------------
-
-template <typename T, int DM, int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, Strides qs, Strides ks,
-                 Strides vs, Strides dos, Strides dqs, const int* __restrict__ plan, int group,
-                 int Lq, int Lk, int D, int causal, int window, float scale, int vec) {
-  using S = Shape<T, DM, BM, BN>;
-  constexpr int LD = S::LD, LDP = S::LDP_Q;
-  // phase A: 16 x WA pieces of the BM x BN tile of ds
-  constexpr int RGA = BM / 16, CPA = kWarps / RGA, WA = BN / CPA, NTA = WA / 8;
-  // phase B: 16 x WB pieces of the BM x D output
-  constexpr int RGB = BM / 16, CPB = kWarps / RGB, WB = DM / CPB, NTB = WB / 8;
-  static_assert(RGA * CPA == kWarps && WA % 8 == 0 && RGB * CPB == kWarps && WB % 8 == 0,
-                "warp pieces");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + BM * LD;
-  T* sK = sdO + BM * LD;
-  T* sV = sK + BN * LD;
-  T* sdS = sV + BN * LD;
-  float* sL = reinterpret_cast<float*>(sdS + BM * LDP);
-  float* sD = sL + BM;
-
-  // plan row: q block, first and end kv tile, first and end tile without a mask
-  const int* pr = plan + 5 * blockIdx.z;
-  const int qb = pr[0], kb0 = pr[1], kb1 = pr[2], fb0 = pr[3], fb1 = pr[4];
-  const int H = gridDim.x, h = blockIdx.x, b = blockIdx.y, hk = h / group;
-  const int q0 = qb * BM;
-  const long long row_bh = (static_cast<long long>(b) * H + h) * Lq;
-  const T* kp = k + b * ks.b + hk * ks.h;
-  const T* vp = v + b * vs.b + hk * vs.h;
-  load_tile<T, BM>(sQ, LD, q + b * qs.b + h * qs.h, qs.l, q0, Lq, D, vec & 1, true, scale);
-  load_tile<T, BM>(sdO, LD, dout + b * dos.b + h * dos.h, dos.l, q0, Lq, D, vec & 8, false,
-                   1.f);
-  for (int i = threadIdx.x; i < BM; i += kThreads) {
-    const bool in = q0 + i < Lq;
-    sL[i] = in ? lse[row_bh + q0 + i] : INFINITY;
-    sD[i] = in ? delta[row_bh + q0 + i] : 0.f;
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ra = (warp % RGA) * 16, ca = (warp / RGA) * WA;
-  const int rb = (warp % RGB) * 16, cb = (warp / RGB) * WB;
-  const int n_valid = max(0, min(NTB, (D - cb) / 8));
-  float acc[NTB][4];
-  zero(acc);
-
-  for (int kb = kb0; kb < kb1; ++kb) {
-    const int c0 = kb * BN;
-    __syncthreads();  // the last step's readers of sK, sV, sdS are done
-    load_tile<T, BN>(sK, LD, kp, ks.l, c0, Lk, D, vec & 2, false, 1.f);
-    load_tile<T, BN>(sV, LD, vp, vs.l, c0, Lk, D, vec & 4, false, 1.f);
-    __syncthreads();
-
-    // A: s = qs K^T and dp = dO V^T on rows ra.. (q) x columns ca.. (kv)
-    float s[NTA][4], dp[NTA][4];
-    zero(s);
-    zero(dp);
-    prod_nt<NTA>(s, sQ + ra * LD, sK + ca * LD, LD, D, lane);
-    prod_nt<NTA>(dp, sdO + ra * LD, sV + ca * LD, LD, D, lane);
-    const bool full = kb >= fb0 && kb < fb1;
-#pragma unroll
-    for (int j = 0; j < NTA; ++j)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int r = ra + g + 8 * hi, cc = ca + 8 * j + 2 * t;
-        float dsv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p = expf(s[j][2 * hi + e] - sL[r]);
-          if (!full && !visible(q0 + r, c0 + cc + e, Lq, Lk, causal, window)) p = 0.f;
-          dsv[e] = p * (dp[j][2 * hi + e] - sD[r]);
-        }
-        put2(sdS + r * LDP + cc, dsv[0], dsv[1]);
-      }
-    __syncthreads();
-
-    // B: dQ += ds K on rows rb.. x columns cb..
-    prod_nn<NTB, BN>(acc, sdS + rb * LDP, LDP, sK + cb, LD, n_valid, lane);
-  }
-
-#pragma unroll
-  for (int j = 0; j < NTB; ++j) {
-    if (j >= n_valid) continue;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = q0 + rb + g + 8 * hi, col = cb + 8 * j + 2 * t;
-      if (row >= Lq) continue;
-      T* o = dq + b * dqs.b + h * dqs.h + row * dqs.l + col;
-      o[0] = Elem<T>::put(scale * acc[j][2 * hi]);
-      o[1] = Elem<T>::put(scale * acc[j][2 * hi + 1]);
-    }
-  }
 }
 
 // ---- the tf32x3 route (float32 at every bucket) -------------------------------
@@ -950,37 +606,76 @@ attention_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k
 
 }  // namespace x3
 
-// ---- the wgmma route (bfloat16, D_pad 64 and 128) ----------------------------
+// ---- the wgmma route (bfloat16 at every bucket) -------------------------------
 
 namespace tc {
 
-constexpr int kBarBytes = 128;  // room for the mbarriers
+constexpr int kBarBytes = 128;     // room for the mbarriers
+constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
 
 // Both passes: 256 threads, two consumer warpgroups, and the first thread
-// fills a ring of kStages stages kAhead steps ahead. ptxas gives every
-// thread at most 168 registers when a block has 9 or 12 warps (one
-// sub-partition's 16,384 registers over 3 warps), whatever setmaxnreg asks
-// at run time; the dK/dV pass at D_pad 128 takes 226 and spilled 4.3 KB
-// with a producer warp or warpgroup.
-constexpr int kStages = 4;
-constexpr int kAhead = 2;  // <= kStages - 2: a refill waits on a step two back
+// fills a ring of S stages S - 2 steps ahead (a refill waits on the step two
+// back). ptxas gives every thread at most 168 registers when a block has 9
+// or 12 warps (one sub-partition's 16,384 registers over 3 warps), whatever
+// setmaxnreg asks at run time; the dK/dV pass at D_pad 128 takes 226 and
+// spilled 4.3 KB with a producer warp or warpgroup.
+//
+// The blocks at a head-dim bucket DP: the dK/dV pass's kv tile (KV_BN) and q
+// block (KV_BM) rows and stages (KV_S), and whether its two warpgroups share
+// the kv tile, one summing dV and the other dK (PAIR: at 256 and 320 a
+// warpgroup holding both would need D_pad floats a thread); the dQ pass's q
+// block (Q_BM) and kv tile (Q_BN) rows and stages (Q_S). Shared memory sets
+// the rows above 128 (kernels/flash_attention.py:_BWD_WGMMA mirrors the
+// blocks).
+template <int DP>
+struct Blocks;
+template <>
+struct Blocks<64> {
+  static constexpr bool PAIR = false;
+  static constexpr int KV_BN = 128, KV_BM = 64, KV_S = 4, Q_BM = 128, Q_BN = 64, Q_S = 4;
+};
+template <>
+struct Blocks<128> {
+  static constexpr bool PAIR = false;
+  static constexpr int KV_BN = 128, KV_BM = 64, KV_S = 4, Q_BM = 128, Q_BN = 64, Q_S = 4;
+};
+template <>
+struct Blocks<256> {
+  static constexpr bool PAIR = true;
+  static constexpr int KV_BN = 64, KV_BM = 32, KV_S = 4, Q_BM = 128, Q_BN = 32, Q_S = 3;
+};
+template <>
+struct Blocks<320> {
+  static constexpr bool PAIR = true;
+  static constexpr int KV_BN = 64, KV_BM = 32, KV_S = 3, Q_BM = 128, Q_BN = 16, Q_S = 3;
+};
 
-// dK/dV pass: BN kv rows (two consumer warpgroups of 64), q blocks of BM.
+// dK/dV pass: BN kv rows (two consumer warpgroups of 64, or with PAIR both
+// on the same 64), q blocks of BM rows in a ring of S stages.
 template <int DP>
 struct DkvLayout {
-  static constexpr int BN = 128, BM = 64, NWG = 2, NBOX = DP / kBox;
+  static constexpr bool PAIR = Blocks<DP>::PAIR;
+  static constexpr int BN = Blocks<DP>::KV_BN, BM = Blocks<DP>::KV_BM, S = Blocks<DP>::KV_S;
+  static constexpr int AHEAD = S - 2, NWG = 2, NBOX = DP / kBox;
   static constexpr int KV_BYTES = BN * DP * 2;  // K or V: NBOX boxes of BN rows x 128 bytes
   static constexpr int Q_BYTES = BM * DP * 2;   // qs or dO of a stage
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = K_OFF + KV_BYTES;
   static constexpr int QS_OFF = V_OFF + KV_BYTES;
-  static constexpr int DO_OFF = QS_OFF + kStages * Q_BYTES;
-  static constexpr int L_OFF = DO_OFF + kStages * Q_BYTES;  // lse of a stage's BM rows
-  static constexpr int D_OFF = L_OFF + kStages * BM * 4;    // and their D
-  static constexpr int BAR_OFF = D_OFF + kStages * BM * 4;
+  static constexpr int DO_OFF = QS_OFF + S * Q_BYTES;
+  static constexpr int L_OFF = DO_OFF + S * Q_BYTES;  // lse of a stage's BM rows
+  static constexpr int D_OFF = L_OFF + S * BM * 4;    // and their D
+  static constexpr int P_OFF = D_OFF + S * BM * 4;    // PAIR: p^T, two BN x BM float32 buffers
+  static constexpr int BAR_OFF = P_OFF + (PAIR ? 2 * BN * BM * 4 : 0);
   static constexpr int SMEM = BAR_OFF + kBarBytes + 1024;  // slack to align to 1024
   static constexpr int THREADS = NWG * kWarpgroup;
+  static_assert(!PAIR || BN == 64, "a pair's warpgroups share one 64-row kv tile");
+  static_assert(SMEM <= kSmemLimit, "the dK/dV pass's shared memory");
 };
+
+// the PAIR hand-over of p^T: named barriers of the two warpgroups (256
+// threads), one full and one empty for each of the two buffers
+constexpr int kPFull = 1, kPEmpty = 3;
 
 // acc (64 x N) = A (64 rows of a K-major tile at a) . B (N rows of a K-major
 // tile at b)^T over the first NK k-steps of the head dim (the rest hold
@@ -1003,14 +698,22 @@ __device__ __forceinline__ void product_kmajor(float* acc, uint32_t a, int a_row
 // acc (64 x N) += P (64 x K, registers: K / 16 groups of 4 packed bf16
 // pairs, the accumulator layout of a 64 x K product) . B (K rows x N columns
 // of an MN-major tile at b, boxes of b_rows rows x 128 bytes: N = 80 reads
-// the first 16 columns of the second box)
+// the first 16 columns of the second box). Above 256 columns (wgmma's
+// widest) the product runs as 256 + the rest, the rest from box 4 on into
+// acc + 128, as the forward's O += P V.
 template <int K, int N>
 __device__ __forceinline__ void product_rs(float* acc, const uint32_t* pk, uint32_t b,
                                            int b_rows) {
+  constexpr int N0 = N > 256 ? 256 : N;
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-    WgmmaRS<N>::run(acc, &pk[4 * kk],
+  for (int kk = 0; kk < K / 16; ++kk) {
+    WgmmaRS<N0>::run(acc, &pk[4 * kk],
                      sw128_desc(b + kk * 16 * kRowBytes, b_rows * kRowBytes, 8 * kRowBytes));
+    if constexpr (N > 256)
+      WgmmaRS<N - 256>::run(acc + N0 / 2, &pk[4 * kk],
+                            sw128_desc(b + 4 * b_rows * kRowBytes + kk * 16 * kRowBytes,
+                                       b_rows * kRowBytes, 8 * kRowBytes));
+  }
 }
 
 template <int DP, int NK>
@@ -1026,12 +729,12 @@ attention_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tqs,
                         int lq_pad, int D, int causal, int window) {
   using Lt = DkvLayout<DP>;
   constexpr int BN = Lt::BN, BM = Lt::BM, NWG = Lt::NWG, NBOX = Lt::NBOX;
-  constexpr int S = kStages;
+  constexpr int S = Lt::S;
   constexpr int NO = 16 * NK;  // output columns: D_pad, or 80 at D 80
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;  // swizzle atoms are 1024 bytes
-  const uint8_t* smem = smem_raw + pad;
+  uint8_t* smem = smem_raw + pad;
   const uint32_t base = raw + pad;
   const uint32_t s_k = base + Lt::K_OFF, s_v = base + Lt::V_OFF;
   const uint32_t bar = base + Lt::BAR_OFF;
@@ -1078,112 +781,225 @@ attention_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tqs,
       tma_load(s_k + c * BN * kRowBytes, &tk, kv_full, c * kBox, c0, hk, b);
       tma_load(s_v + c * BN * kRowBytes, &tv, kv_full, c * kBox, c0, hk, b);
     }
-    for (int i = 0; i < kAhead && i < n; ++i) load(i);
+    for (int i = 0; i < Lt::AHEAD && i < n; ++i) load(i);
   }
 
-  // ---- consumers: 64 kv rows per warpgroup ----
   const int t = threadIdx.x - wg * kWarpgroup;
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, c4 = lane & 3;
-  const int j0 = c0 + wg * 64 + warp * 16 + g;  // this lane's kv rows: j0 and j0 + 8
-  const uint32_t a_k = s_k + wg * 64 * kRowBytes, a_v = s_v + wg * 64 * kRowBytes;
+  if constexpr (!Lt::PAIR) {
+    // ---- consumers: 64 kv rows per warpgroup, each summing dV and dK ----
+    const int j0 = c0 + wg * 64 + warp * 16 + g;  // this lane's kv rows: j0 and j0 + 8
+    const uint32_t a_k = s_k + wg * 64 * kRowBytes, a_v = s_v + wg * 64 * kRowBytes;
 
-  float dv_acc[NO / 2], dk_acc[NO / 2];
+    float dv_acc[NO / 2], dk_acc[NO / 2];
 #pragma unroll
-  for (int i = 0; i < NO / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
-  float s[BM / 2], dp[BM / 2];
-  uint32_t pk[BM / 4], dsk[BM / 4];
+    for (int i = 0; i < NO / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+    float s[BM / 2], dp[BM / 2];
+    uint32_t pk[BM / 4], dsk[BM / 4];
 
-  mbar_wait(kv_full, 0);
-  for (int i = 0; i < n; ++i) {
-    if (loader && i + kAhead < n) load(i + kAhead);
-    const int st = i % S, ph = (i / S) & 1, qb = qb0 + i;
-    const uint32_t sq = base + Lt::QS_OFF + st * Lt::Q_BYTES;
-    const uint32_t sdo = base + Lt::DO_OFF + st * Lt::Q_BYTES;
-    const float* sL = reinterpret_cast<const float*>(smem + Lt::L_OFF) + st * BM;
-    const float* sD = reinterpret_cast<const float*>(smem + Lt::D_OFF) + st * BM;
-    const int q0 = qb * BM;
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n; ++i) {
+      if (loader && i + Lt::AHEAD < n) load(i + Lt::AHEAD);
+      const int st = i % S, ph = (i / S) & 1, qb = qb0 + i;
+      const uint32_t sq = base + Lt::QS_OFF + st * Lt::Q_BYTES;
+      const uint32_t sdo = base + Lt::DO_OFF + st * Lt::Q_BYTES;
+      const float* sL = reinterpret_cast<const float*>(smem + Lt::L_OFF) + st * BM;
+      const float* sD = reinterpret_cast<const float*>(smem + Lt::D_OFF) + st * BM;
+      const int q0 = qb * BM;
 
-    mbar_wait(full(st), ph);
-    wg_fence();
-    product_kmajor<BM, NK>(s, a_k, BN, sq, BM);  // s^T = K qs^T
-    product_kmajor<BM, NK>(dp, a_v, BN, sdo, BM);  // dp^T = V dO^T
-    wg_commit();
-    wg_wait<0>();
-    reg_fence<BM / 2>(s);
-    reg_fence<BM / 2>(dp);
+      mbar_wait(full(st), ph);
+      wg_fence();
+      product_kmajor<BM, NK>(s, a_k, BN, sq, BM);  // s^T = K qs^T
+      product_kmajor<BM, NK>(dp, a_v, BN, sdo, BM);  // dp^T = V dO^T
+      wg_commit();
+      wg_wait<0>();
+      reg_fence<BM / 2>(s);
+      reg_fence<BM / 2>(dp);
 
-    // element 4 jj + e is kv row j0 + 8 (e / 2), q column 8 jj + 2 c4 + e % 2;
-    // p and ds rounded to bf16 as wgmma's register A operand, a k-step (16 q
-    // columns) in 4 registers, as the forward feeds P
-    const bool partial = qb < fb0 || qb >= fb1;
+      // element 4 jj + e is kv row j0 + 8 (e / 2), q column 8 jj + 2 c4 + e % 2;
+      // p and ds rounded to bf16 as wgmma's register A operand, a k-step (16 q
+      // columns) in 4 registers, as the forward feeds P
+      const bool partial = qb < fb0 || qb >= fb1;
 #pragma unroll
-    for (int jj = 0; jj < BM / 8; ++jj) {
-      float p[4], ds[4];
+      for (int jj = 0; jj < BM / 8; ++jj) {
+        float p[4], ds[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * jj + 2 * c4 + (e & 1);
-        p[e] = expf(s[4 * jj + e] - sL[col]);
-        if (partial && !visible(q0 + col, j0 + 8 * (e >> 1), Lq, Lk, causal, window)) p[e] = 0.f;
-        ds[e] = p[e] * (dp[4 * jj + e] - sD[col]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * jj + 2 * c4 + (e & 1);
+          p[e] = expf(s[4 * jj + e] - sL[col]);
+          if (partial && !visible(q0 + col, j0 + 8 * (e >> 1), Lq, Lk, causal, window)) p[e] = 0.f;
+          ds[e] = p[e] * (dp[4 * jj + e] - sD[col]);
+        }
+        pk[2 * jj] = pack_bf16(p[0], p[1]);
+        pk[2 * jj + 1] = pack_bf16(p[2], p[3]);
+        dsk[2 * jj] = pack_bf16(ds[0], ds[1]);
+        dsk[2 * jj + 1] = pack_bf16(ds[2], ds[3]);
       }
-      pk[2 * jj] = pack_bf16(p[0], p[1]);
-      pk[2 * jj + 1] = pack_bf16(p[2], p[3]);
-      dsk[2 * jj] = pack_bf16(ds[0], ds[1]);
-      dsk[2 * jj + 1] = pack_bf16(ds[2], ds[3]);
+
+      reg_fence<NO / 2>(dv_acc);
+      reg_fence<NO / 2>(dk_acc);
+      wg_fence();
+      product_rs<BM, NO>(dv_acc, pk, sdo, BM);   // dV += p^T dO
+      product_rs<BM, NO>(dk_acc, dsk, sq, BM);   // dK += ds^T qs
+      wg_commit();
+      wg_wait<0>();
+      reg_fence<NO / 2>(dv_acc);
+      reg_fence<NO / 2>(dk_acc);
+      if (lane == 0) mbar_arrive(empty(st));
     }
 
-    reg_fence<NO / 2>(dv_acc);
-    reg_fence<NO / 2>(dk_acc);
-    wg_fence();
-    product_rs<BM, NO>(dv_acc, pk, sdo, BM);   // dV += p^T dO
-    product_rs<BM, NO>(dk_acc, dsk, sq, BM);   // dK += ds^T qs
-    wg_commit();
-    wg_wait<0>();
-    reg_fence<NO / 2>(dv_acc);
-    reg_fence<NO / 2>(dk_acc);
-    if (lane == 0) mbar_arrive(empty(st));
-  }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = j0 + 8 * r;
+      if (row >= Lk) continue;
+#pragma unroll
+      for (int jj = 0; jj < NO / 8; ++jj) {
+        const int col = 8 * jj + 2 * c4;
+        if (col >= D) continue;
+        const float v0 = dv_acc[4 * jj + 2 * r], v1 = dv_acc[4 * jj + 2 * r + 1];
+        const float k0 = dk_acc[4 * jj + 2 * r], k1 = dk_acc[4 * jj + 2 * r + 1];
+        if (dk_part != nullptr) {  // a query head's share; the reduce kernel sums the group
+          const long long o = ((static_cast<long long>(b) * H + h) * Lk + row) * D + col;
+          *reinterpret_cast<float2*>(dv_part + o) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(dk_part + o) = make_float2(k0, k1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + hk * dvs.h + row * dvs.l + col) =
+              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + hk * dks.h + row * dks.l + col) =
+              __floats2bfloat162_rn(k0, k1);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: the tile's 64 kv rows in both warpgroups; warpgroup 0
+    // computes s^T = K qs^T, p^T and dV += p^T dO, warpgroup 1 dp^T = V dO^T,
+    // ds^T = p^T (dp^T - D) and dK += ds^T qs, with p^T handed over in
+    // float32 through two shared buffers (each thread's 4 BM / 8 values where
+    // its namesake in the other warpgroup holds the same elements of dp^T):
+    // two D-long products a warpgroup a step
+    const int j0 = c0 + warp * 16 + g;  // this lane's kv rows: j0 and j0 + 8
+    const uint32_t a_op = wg ? s_v : s_k;
 
+    float acc[NO / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = j0 + 8 * r;
-    if (row >= Lk) continue;
+    for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
+    float s[BM / 2];    // s^T, then p^T (0); dp^T (1)
+    uint32_t pk[BM / 4];  // p^T (0) or ds^T (1) in bf16: the output product's A
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n; ++i) {
+      if (loader && i + Lt::AHEAD < n) load(i + Lt::AHEAD);
+      const int st = i % S, ph = (i / S) & 1, qb = qb0 + i;
+      const uint32_t sq = base + Lt::QS_OFF + st * Lt::Q_BYTES;
+      const uint32_t sdo = base + Lt::DO_OFF + st * Lt::Q_BYTES;
+      const float* sL = reinterpret_cast<const float*>(smem + Lt::L_OFF) + st * BM;
+      const float* sD = reinterpret_cast<const float*>(smem + Lt::D_OFF) + st * BM;
+      float4* pbuf = reinterpret_cast<float4*>(smem + Lt::P_OFF) + (i & 1) * (BN * BM / 4) + t;
+      const int q0 = qb * BM;
+
+      mbar_wait(full(st), ph);
+      wg_fence();
+      product_kmajor<BM, NK>(s, a_op, BN, wg ? sdo : sq, BM);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence<BM / 2>(s);
+
+      // element 4 jj + e is kv row j0 + 8 (e / 2), q column 8 jj + 2 c4 + e % 2
+      if (wg == 0) {
+        const bool partial = qb < fb0 || qb >= fb1;
 #pragma unroll
-    for (int jj = 0; jj < NO / 8; ++jj) {
-      const int col = 8 * jj + 2 * c4;
-      if (col >= D) continue;
-      const float v0 = dv_acc[4 * jj + 2 * r], v1 = dv_acc[4 * jj + 2 * r + 1];
-      const float k0 = dk_acc[4 * jj + 2 * r], k1 = dk_acc[4 * jj + 2 * r + 1];
-      if (dk_part != nullptr) {  // a query head's share; the reduce kernel sums the group
-        const long long o = ((static_cast<long long>(b) * H + h) * Lk + row) * D + col;
-        *reinterpret_cast<float2*>(dv_part + o) = make_float2(v0, v1);
-        *reinterpret_cast<float2*>(dk_part + o) = make_float2(k0, k1);
+        for (int jj = 0; jj < BM / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * jj + 2 * c4 + (e & 1);
+            float p = expf(s[4 * jj + e] - sL[col]);
+            if (partial && !visible(q0 + col, j0 + 8 * (e >> 1), Lq, Lk, causal, window)) p = 0.f;
+            s[4 * jj + e] = p;
+          }
+          pk[2 * jj] = pack_bf16(s[4 * jj], s[4 * jj + 1]);
+          pk[2 * jj + 1] = pack_bf16(s[4 * jj + 2], s[4 * jj + 3]);
+        }
+        if (i >= 2) named_sync(kPEmpty + (i & 1), 2 * kWarpgroup);  // step i - 2 read it
+#pragma unroll
+        for (int jj = 0; jj < BM / 8; ++jj)
+          pbuf[jj * kWarpgroup] =
+              make_float4(s[4 * jj], s[4 * jj + 1], s[4 * jj + 2], s[4 * jj + 3]);
+        __threadfence_block();
+        named_arrive(kPFull + (i & 1), 2 * kWarpgroup);
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + hk * dvs.h + row * dvs.l + col) =
-            __floats2bfloat162_rn(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + hk * dks.h + row * dks.l + col) =
-            __floats2bfloat162_rn(k0, k1);
+        named_sync(kPFull + (i & 1), 2 * kWarpgroup);
+#pragma unroll
+        for (int jj = 0; jj < BM / 8; ++jj) {
+          const float4 p = pbuf[jj * kWarpgroup];
+          const int col = 8 * jj + 2 * c4;
+          pk[2 * jj] = pack_bf16(p.x * (s[4 * jj] - sD[col]), p.y * (s[4 * jj + 1] - sD[col + 1]));
+          pk[2 * jj + 1] =
+              pack_bf16(p.z * (s[4 * jj + 2] - sD[col]), p.w * (s[4 * jj + 3] - sD[col + 1]));
+        }
+        if (i + 2 < n) named_arrive(kPEmpty + (i & 1), 2 * kWarpgroup);
+      }
+
+      reg_fence<NO / 2>(acc);
+      wg_fence();
+      product_rs<BM, NO>(acc, pk, wg ? sq : sdo, BM);  // dV += p^T dO, or dK += ds^T qs
+      wg_commit();
+      wg_wait<0>();
+      reg_fence<NO / 2>(acc);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    float* part = wg ? dk_part : dv_part;
+    bf16* o = wg ? dk : dv;
+    const Strides os = wg ? dks : dvs;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = j0 + 8 * r;
+      if (row >= Lk) continue;
+#pragma unroll
+      for (int jj = 0; jj < NO / 8; ++jj) {
+        const int col = 8 * jj + 2 * c4;
+        if (col >= D) continue;
+        const float x0 = acc[4 * jj + 2 * r], x1 = acc[4 * jj + 2 * r + 1];
+        if (part != nullptr)  // a query head's share; the reduce kernel sums the group
+          *reinterpret_cast<float2*>(part +
+                                     ((static_cast<long long>(b) * H + h) * Lk + row) * D + col) =
+              make_float2(x0, x1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(o + b * os.b + hk * os.h + row * os.l + col) =
+              __floats2bfloat162_rn(x0, x1);
       }
     }
   }
 }
 
 // dQ pass: BM q rows (two consumer warpgroups of 64), kv tiles of BN rows
-// in a ring of kStages stages filled kAhead tiles ahead by the first
-// consumer thread, as the dK/dV pass's.
+// in a ring of S stages filled S - 2 tiles ahead by the first consumer
+// thread, as the dK/dV pass's.
 template <int DP>
 struct DqLayout {
-  static constexpr int BM = 128, BN = 64, NWG = 2, NBOX = DP / kBox;
+  static constexpr int BM = Blocks<DP>::Q_BM, BN = Blocks<DP>::Q_BN, S = Blocks<DP>::Q_S;
+  static constexpr int AHEAD = S - 2, NWG = 2, NBOX = DP / kBox;
   static constexpr int Q_BYTES = BM * DP * 2;   // qs or dO
   static constexpr int KV_BYTES = BN * DP * 2;  // K or V of a stage
   static constexpr int QS_OFF = 0;
   static constexpr int DO_OFF = QS_OFF + Q_BYTES;
   static constexpr int K_OFF = DO_OFF + Q_BYTES;
-  static constexpr int V_OFF = K_OFF + kStages * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
+  static constexpr int V_OFF = K_OFF + S * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + S * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + kBarBytes + 1024;
   static constexpr int THREADS = NWG * kWarpgroup;
+  static_assert(SMEM <= kSmemLimit, "the dQ pass's shared memory");
 };
+
+// the header's table
+static_assert(DkvLayout<64>::SMEM == 101504, "dK/dV 64");
+static_assert(DkvLayout<128>::SMEM == 199808, "dK/dV 128");
+static_assert(DkvLayout<256>::SMEM == 215168, "dK/dV 256");
+static_assert(DkvLayout<320>::SMEM == 223104, "dK/dV 320");
+static_assert(DqLayout<64>::SMEM == 99456, "dQ 64");
+static_assert(DqLayout<128>::SMEM == 197760, "dQ 128");
+static_assert(DqLayout<256>::SMEM == 230528, "dQ 256");
+static_assert(DqLayout<320>::SMEM == 226432, "dQ 320");
 
 template <int DP, int NK>
 __global__ void __launch_bounds__(DqLayout<DP>::THREADS, 1)
@@ -1198,7 +1014,7 @@ attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tqs,
   using Lt = DqLayout<DP>;
   constexpr int BN = Lt::BN, BM = Lt::BM, NWG = Lt::NWG, NBOX = Lt::NBOX;
   constexpr int NO = 16 * NK;  // output columns: D_pad, or 80 at D 80
-  constexpr int S = kStages;
+  constexpr int S = Lt::S;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
@@ -1243,7 +1059,7 @@ attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tqs,
       tma_load(s_qs + c * BM * kRowBytes, &tqs, q_full, c * kBox, q0, h, b);
       tma_load(s_do + c * BM * kRowBytes, &tdo, q_full, c * kBox, q0, h, b);
     }
-    for (int i = 0; i < kAhead && i < n; ++i) load(i);
+    for (int i = 0; i < Lt::AHEAD && i < n; ++i) load(i);
   }
 
   const int t = threadIdx.x - wg * kWarpgroup;
@@ -1262,7 +1078,7 @@ attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tqs,
 
   mbar_wait(q_full, 0);
   for (int i = 0; i < n; ++i) {
-    if (loader && i + kAhead < n) load(i + kAhead);
+    if (loader && i + Lt::AHEAD < n) load(i + Lt::AHEAD);
     const int st = i % S, ph = (i / S) & 1, kb = kb0 + i;
     const uint32_t sk = base + Lt::K_OFF + st * Lt::KV_BYTES;
     const uint32_t sv = base + Lt::V_OFF + st * Lt::KV_BYTES;
@@ -1333,6 +1149,7 @@ attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tqs,
 
 }  // namespace tc
 
+
 // ---- host side ---------------------------------------------------------------
 
 struct Args {
@@ -1361,7 +1178,7 @@ int allow_smem(K kernel, int bytes, uint64_t* done) {
 }
 
 // The pre-pass over B * H rows of `pitch` (>= Lq); q_scaled and lse_pad null
-// on the mma_sync and tf32x3 routes.
+// on the tf32x3 route.
 template <typename T>
 int launch_delta(const Args& a, int pitch, cudaStream_t st) {
   const long long n_rows = static_cast<long long>(a.B) * a.H * pitch;
@@ -1396,46 +1213,6 @@ bool plans_ok(const Args& a, int dq_bq, int dq_bk, int dkv_bq, int dkv_bk) {
          (a.dk == nullptr || a.n_dkv_plan == (a.Lk + dkv_bk - 1) / dkv_bk) &&
          a.n_dq_plan <= 65535 && a.n_dkv_plan <= 65535 &&
          (a.dk == nullptr || a.H == a.Hkv || (a.dk_part != nullptr && a.dv_part != nullptr));
-}
-
-template <typename T, int DM, int BM, int BN>
-int run(const Args& a, cudaStream_t st) {
-  using S = Shape<T, DM, BM, BN>;
-  const int group = a.H / a.Hkv;
-  if (a.d_pad != DM || !plans_ok(a, BM, BN, BM, BN))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  float* delta = static_cast<float*>(a.delta);
-
-  int err = launch_delta<T>(a, a.Lq, st);
-  if (err != 0) return err;
-  if (a.dk != nullptr) {
-    static uint64_t done = 0;
-    err = allow_smem(attention_bwd_dkv<T, DM, BM, BN>, S::SMEM_KV, &done);
-    if (err != 0) return err;
-    float* dk_part = group > 1 ? static_cast<float*>(a.dk_part) : nullptr;
-    float* dv_part = group > 1 ? static_cast<float*>(a.dv_part) : nullptr;
-    attention_bwd_dkv<T, DM, BM, BN><<<dim3(a.H, a.B, a.n_dkv_plan), kThreads, S::SMEM_KV, st>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), dk_part,
-        dv_part, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.dkv_plan, group, a.Lq, a.Lk, a.D,
-        a.causal, a.window, a.scale, a.vec);
-    err = static_cast<int>(cudaGetLastError());
-    if (err == 0 && group > 1) err = launch_reduce<T>(a, st);
-    if (err != 0) return err;
-  }
-  if (a.dq != nullptr) {
-    static uint64_t done = 0;
-    err = allow_smem(attention_bwd_dq<T, DM, BM, BN>, S::SMEM_Q, &done);
-    if (err != 0) return err;
-    attention_bwd_dq<T, DM, BM, BN><<<dim3(a.H, a.B, a.n_dq_plan), kThreads, S::SMEM_Q, st>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
-        a.dq_plan, group, a.Lq, a.Lk, a.D, a.causal, a.window, a.scale, a.vec);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The tf32x3 route's two passes at bucket DM: the dK/dV pass's warps, warp
@@ -1550,17 +1327,16 @@ int run_wgmma(const Args& a, cudaStream_t st) {
 // contiguous; lse is (B, H, Lq) and the partials (B, H, Lk, D), contiguous.
 // dq == null skips the dQ pass, dk == null the dK/dV pass (dk and dv come
 // together); with H > Hkv the dK/dV pass needs both partials. D is a
-// multiple of 16 in [16, 320], H a multiple of Hkv. route (from
-// kernels/flash_attention.py:bwd_route, with d_pad and each pass's q block
-// and kv tile rows): 0 mma_sync (bfloat16, d_pad 256 or 320) and 2 tf32x3
-// (float32) (delta (B, H, Lq); q_scaled, lse_pad and lq_pad unused), 1 wgmma
-// (bfloat16, d_pad 64 or 128; delta and lse_pad
-// (B, H, lq_pad) with lq_pad the multiple of 128 at or above Lq, q_scaled
-// (B, H, Lq, D) contiguous bf16 scratch; q, k, v and dout 16-byte aligned in
-// base and strides). vec has bit 0 for q, 1 for k, 2 for v, 3 for dout and
-// 4 for o where the tensor may be read 16 bytes at a time. The plans (device int32, five
-// columns a row) come from kv_tile_plan (dQ pass) and q_tile_plan (dK/dV
-// pass) at those blocks.
+// multiple of 16 in [16, 320], H a multiple of Hkv; d_pad is D's bucket (64,
+// 128, 256 or 320). route (from kernels/flash_attention.py:bwd_route, with
+// d_pad and each pass's q block and kv tile rows): 1 wgmma (bfloat16; delta
+// and lse_pad (B, H, lq_pad) with lq_pad the multiple of 128 at or above Lq,
+// q_scaled (B, H, Lq, D) contiguous bf16 scratch; q, k, v and dout 16-byte
+// aligned in base and strides), 2 tf32x3 (float32; delta (B, H, Lq);
+// q_scaled, lse_pad and lq_pad unused); anything else is refused. vec has bit
+// 0 for q, 1 for k, 2 for v, 3 for dout and 4 for o where the tensor may be
+// read 16 bytes at a time. The plans (device int32, five columns a row) come
+// from kv_tile_plan (dQ pass) and q_tile_plan (dK/dV pass) at those blocks.
 extern "C" int nebula_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, void* dk, void* dv, void* delta, void* dk_part, void* dv_part,
@@ -1575,7 +1351,8 @@ extern "C" int nebula_flash_attention_backward(
   if (D < 16 || D > 320 || D % 16 != 0 || B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
       Lq < 1 || Lk < 1 || H > 65535 || B > 65535 || lse == nullptr || delta == nullptr ||
       (dk == nullptr) != (dv == nullptr) || (dq != nullptr && dq_plan == nullptr) ||
-      (dk != nullptr && dkv_plan == nullptr) || d_pad < D || d_pad - D >= 64)
+      (dk != nullptr && dkv_plan == nullptr) ||
+      d_pad != (D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 320))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, lse, dout, dq, dk, dv, delta, dk_part, dv_part, q_scaled, lse_pad,
                B, H, Hkv, Lq, Lk, D,
@@ -1591,7 +1368,8 @@ extern "C" int nebula_flash_attention_backward(
     if (d_pad == 64) return run_wgmma<64, 4>(a, st);
     if (d_pad == 128 && D == 80) return run_wgmma<128, 5>(a, st);
     if (d_pad == 128) return run_wgmma<128, 8>(a, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (d_pad == 256) return run_wgmma<256, 16>(a, st);
+    return run_wgmma<320, 20>(a, st);
   }
   if (dtype == 0 && route == 2) {
     if (D <= 64) return run_tf32x3<64, 8, false, 32, 8, 64>(a, st);
@@ -1599,8 +1377,5 @@ extern "C" int nebula_flash_attention_backward(
     if (D <= 256) return run_tf32x3<256, 8, true, 8, 4, 16>(a, st);
     return run_tf32x3<320, 8, true, 8, 4, 16>(a, st);
   }
-  if (dtype != 1 || route != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 256 && D > 128) return run<bf16, 256, 64, 32>(a, st);
-  if (D > 256) return run<bf16, 320, 64, 32>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);  // the wgmma route's head dims
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,11 +39,9 @@ backward kernel: the JAX package trains through its plain
 `models.attention.attention` and XLA derives the gradient; the port trains
 through K7's forward, so its gradient is this kernel's on the card. The
 backward's host side is plain code the CPU tests reach: `bwd_route` (by
-type and head dim, the route — `wgmma` for bf16 up to head dim 128, where
-q, k, v and dout must pass `check_tma_layout`, `mma_sync` for bf16 above,
-`tf32x3` for float32 — its padded head dim and each pass's q and kv block
-rows),
-`bwd_wgmma_smem` (the wgmma passes' shared memory), `kv_tile_plan` at the
+type and head dim, the route — `wgmma` for bf16, where q, k, v and dout
+must pass `check_tma_layout`, `tf32x3` for float32 — its padded head dim
+and each pass's q and kv block rows), `kv_tile_plan` at the
 dQ pass's blocks and `q_tile_plan` (the q blocks that see each kv tile)
 at the dK/dV pass's. Under `torch.utils.checkpoint` (non-reentrant,
 `models.layers.remat`) the recomputed forward saves its own lse. With no
@@ -72,18 +70,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TC_BLOCKS = {64: (128, 128), 128: (128, 128), 192: (128, 64), 256: (64, 64),
               320: (64, 64)}
 TMA_ALIGN = 16           # bytes: base addresses and strides of TMA's tensors
-# the backward's head-dim buckets (and the float32 forward's); bf16 at the first two
-# runs on wgmma
+# the backward's head-dim buckets (and the float32 forward's)
 _BWD_BUCKETS = (64, 128, 256, 320)
-_BWD_WGMMA_BUCKETS = (64, 128)
-# the wgmma route's (q block rows, kv tile rows) and ring stages of each pass,
-# and the rows of Lq's padding (csrc/flash_attention_bwd.cu: DqLayout,
-# DkvLayout, kStages)
-_BWD_WGMMA_DQ, _BWD_WGMMA_DKV = (128, 64), (64, 128)
-_BWD_WGMMA_STAGES = 4
+# the wgmma route (bf16) by bucket: the dQ pass's and the dK/dV pass's (q
+# block rows, kv tile rows), which the tile plans take
+# (csrc/flash_attention_bwd.cu: Blocks); the rows of Lq's padding
+_BWD_WGMMA = {64: ((128, 64), (64, 128)), 128: ((128, 64), (64, 128)),
+              256: ((128, 32), (32, 64)), 320: ((128, 16), (32, 64))}
 LQ_PAD = 128
-# the mma_sync route's (q block rows, kv tile rows), both passes alike (bf16)
-_BWD_MMA_BLOCKS = {256: (64, 32), 320: (64, 32)}
 # float32 (three TF32 products, csrc/tf32x3.cuh) by head-dim bucket: the
 # forward's (q block rows, kv tile rows); the backward's dQ pass's and dK/dV
 # pass's (q block rows, kv tile rows)
@@ -91,7 +85,7 @@ _F32_FWD = {64: (128, 64), 128: (128, 64), 256: (128, 24), 320: (128, 16)}
 _BWD_TF32X3 = {64: ((128, 64), (32, 128)), 128: ((128, 32), (16, 128)),
                256: ((64, 16), (8, 64)), 320: ((64, 16), (8, 64))}
 SMEM_LIMIT = 232_448     # bytes of shared memory a block can take on the H100
-_BWD_ROUTE_CODE = {"mma_sync": 0, "wgmma": 1, "tf32x3": 2}
+_BWD_ROUTE_CODE = {"wgmma": 1, "tf32x3": 2}
 
 
 def padded_head_dim(d: int) -> int:
@@ -224,11 +218,10 @@ def q_tile_plan(lq: int, lk: int, block_q: int, block_k: int, causal: bool,
 
 class BwdRoute(NamedTuple):
     """How the backward kernel runs at a (head dim, type): `route` "wgmma"
-    (bf16 at buckets 64 and 128: TMA into a 4-stage ring, wgmma),
-    "mma_sync" (bf16 at buckets 256 and 320: `mma.sync` m16n8k16) or
-    "tf32x3" (float32 at every bucket: three TF32 `mma.sync` products a
-    float32 product); the head-dim bucket `d_pad` it is built for; (q block
-    rows, kv tile rows) of the dQ pass and of the dK/dV pass."""
+    (bf16 at every bucket: TMA into a ring of stages, wgmma) or "tf32x3"
+    (float32 at every bucket: three TF32 `mma.sync` products a float32
+    product); the head-dim bucket `d_pad` it is built for; (q block rows,
+    kv tile rows) of the dQ pass and of the dK/dV pass."""
     route: str
     d_pad: int
     dq_blocks: tuple
@@ -241,22 +234,7 @@ def bwd_route(d: int, dtype: torch.dtype) -> BwdRoute:
     bucket = _bucket(d)
     if dtype == torch.float32:
         return BwdRoute("tf32x3", bucket, *_BWD_TF32X3[bucket])
-    if bucket in _BWD_WGMMA_BUCKETS:
-        return BwdRoute("wgmma", bucket, _BWD_WGMMA_DQ, _BWD_WGMMA_DKV)
-    blocks = _BWD_MMA_BLOCKS[bucket]
-    return BwdRoute("mma_sync", bucket, blocks, blocks)
-
-
-def bwd_wgmma_smem(d_pad: int) -> dict:
-    """Shared memory (bytes) a block of each wgmma pass takes at `d_pad`,
-    as the kernel lays it out: 128-byte-swizzled tiles (2 bytes an
-    element), the ring's stages, 128 bytes of mbarriers and 1024 of slack
-    to align the tiles. dK/dV: K and V once, a stage of qs, dO and the
-    block's lse and Δ; dQ: qs and dO once, a stage of K and V."""
-    (dq_bq, dq_bk), (kv_bq, kv_bk) = _BWD_WGMMA_DQ, _BWD_WGMMA_DKV
-    st, tail = _BWD_WGMMA_STAGES, 128 + 1024
-    return {"dkv": 2 * kv_bk * d_pad * 2 + st * (2 * kv_bq * d_pad * 2 + 2 * kv_bq * 4) + tail,
-            "dq": 2 * dq_bq * d_pad * 2 + st * 2 * dq_bk * d_pad * 2 + tail}
+    return BwdRoute("wgmma", bucket, *_BWD_WGMMA[bucket])
 
 
 @functools.lru_cache(maxsize=64)

@@ -781,10 +781,12 @@ def _bwd_inputs(dev, b, h, hkv, lq, lk, d, dtype, seed):
             for n_l, n in ((lq, h), (lk, hkv), (lk, hkv), (lq, h))]
 
 
-# every head-dim bucket of the backward (80 padded inside 128) on both
-# routes (bf16 up to 128 on wgmma), GQA groups 1, 4 and 8, lengths off the
-# blocks, Lq != Lk, rows with no visible column (causal, window 48, Lq 300 >
-# Lk 100), qwen2.5-3b's training shape and a head-dim-80 GQA group
+# every head-dim bucket of the backward (80 padded inside 128, 192 inside
+# 256: a TMA box wholly past D) on both routes, GQA groups 1, 2, 4 and 8,
+# lengths off the blocks (333: ragged at every block size), Lq != Lk, rows
+# with no visible column (causal, window 48, Lq 300 > Lk 100), qwen2.5-3b's
+# training shape and a head-dim-80 GQA group; at buckets 256 and 320 (the
+# wgmma passes whose warpgroups split dV and dK) groups 1, 2 and 8 each
 @pytest.mark.parametrize("b,h,hkv,lq,lk,d", [
     (1, 8, 2, 257, 257, 64),
     (2, 4, 4, 130, 130, 80),
@@ -795,6 +797,12 @@ def _bwd_inputs(dev, b, h, hkv, lq, lk, d, dtype, seed):
     (1, 4, 2, 300, 100, 64),
     (1, 16, 2, 4096, 4096, 128),
     (1, 8, 2, 300, 300, 80),
+    (1, 4, 4, 333, 333, 256),
+    (1, 8, 1, 333, 333, 256),
+    (1, 4, 4, 333, 333, 320),
+    (1, 8, 4, 333, 333, 320),
+    (1, 8, 1, 333, 333, 320),
+    (1, 4, 2, 333, 333, 192),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -827,20 +835,19 @@ def test_k7_backward_matches_its_plain_version(dev, b, h, hkv, lq, lk, d, causal
 
 
 def _route(d, dtype):
-    if dtype == torch.float32:
-        return "tf32x3"
-    return "wgmma" if d <= 128 else "mma_sync"
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
                                      (torch.bfloat16, 80), (torch.bfloat16, 256),
                                      (torch.float32, 64), (torch.float32, 80),
-                                     (torch.float32, 256), (torch.float32, 320)])
+                                     (torch.float32, 256), (torch.float32, 320),
+                                     (torch.bfloat16, 320), (torch.bfloat16, 192)])
 def test_k7_backward_is_deterministic(dev, dtype, d):
     """Two backward runs on the same inputs give the same bits (no atomics:
     a GQA group's dk and dv are summed over its heads in order), on every
-    route: bf16 at 128 and 80 on wgmma, bf16 at 256 on mma_sync, float32
-    at every bucket (80 inside 128) on tf32x3."""
+    route: bf16 on wgmma at every bucket (80 inside 128, 192 inside 256),
+    float32 at every bucket (80 inside 128) on tf32x3."""
     assert flash_attention.bwd_route(d, dtype).route == _route(d, dtype)
     q, k, v, dout = _bwd_inputs(dev, 2, 8, 2, 333, 333, d, dtype, 3)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
@@ -895,13 +902,14 @@ def test_k7_backward_needs_and_raises_on_what_it_cannot_take(dev):
         bwd(q, k, v, out, lse, dout.transpose(2, 3).contiguous().transpose(2, 3))
 
 
-def test_k7_backward_wgmma_route_raises_on_a_misaligned_tensor(dev):
-    """bf16 at head dim up to 128 takes the wgmma route, whose TMA reads q,
-    k, v and dout as they lie: a base 2 bytes off 16 raises (nothing is
-    copied, and nothing falls back to the mma_sync kernels), as does a head
-    stride that is not a multiple of 16 bytes; the aligned call runs."""
-    q, k, v, dout = _bwd_inputs(dev, 1, 4, 2, 64, 64, 64, torch.bfloat16, 2)
-    assert flash_attention.bwd_route(64, torch.bfloat16).route == "wgmma"
+@pytest.mark.parametrize("d", [64, 256, 320])
+def test_k7_backward_wgmma_route_raises_on_a_misaligned_tensor(dev, d):
+    """bf16 takes the wgmma route at every bucket, whose TMA reads q, k, v
+    and dout as they lie: a base 2 bytes off 16 raises (nothing is copied,
+    and nothing falls back to another route), as does a head stride that is
+    not a multiple of 16 bytes; the aligned call runs."""
+    q, k, v, dout = _bwd_inputs(dev, 1, 4, 2, 64, 64, d, torch.bfloat16, 2)
+    assert flash_attention.bwd_route(d, torch.bfloat16).route == "wgmma"
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     out = flash_attention._launch(q, k, v, True, 0, lse)
     bwd = flash_attention.flash_attention_backward
@@ -910,9 +918,9 @@ def test_k7_backward_wgmma_route_raises_on_a_misaligned_tensor(dev):
     shifted = shifted.view(dout.shape).copy_(dout)
     with pytest.raises(ValueError, match="reads dout by TMA.*base address"):
         bwd(q, k, v, out, lse, shifted)
-    wide = torch.zeros((1, 64, 4, 68), dtype=dout.dtype, device=dev)[..., :64]
+    wide = torch.zeros((1, 64, 4, d + 4), dtype=dout.dtype, device=dev)[..., :d]
     wide.copy_(dout.transpose(1, 2))
-    with pytest.raises(ValueError, match="reads dout by TMA.*head stride 136 B"):
+    with pytest.raises(ValueError, match=f"reads dout by TMA.*head stride {2 * (d + 4)} B"):
         bwd(q, k, v, out, lse, wide.transpose(1, 2))
     assert bwd.launches == before
     bwd(q, k, v, out, lse, dout)

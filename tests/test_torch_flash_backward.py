@@ -15,6 +15,8 @@ round p and ds at different points; at most 6.3e-3); against JAX 1e-5
 The JAX gradients are computed once, in a module fixture: `jax.grad` of
 the chunked attention runs op by op and takes seconds a case."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,33 +205,85 @@ BF16, F32 = torch.bfloat16, torch.float32
     (16, BF16, ("wgmma", 64, (128, 64), (64, 128))),
     (80, BF16, ("wgmma", 128, (128, 64), (64, 128))),
     (128, BF16, ("wgmma", 128, (128, 64), (64, 128))),
-    (192, BF16, ("mma_sync", 256, (64, 32), (64, 32))),
-    (320, BF16, ("mma_sync", 320, (64, 32), (64, 32))),
+    (192, BF16, ("wgmma", 256, (128, 32), (32, 64))),
+    (320, BF16, ("wgmma", 320, (128, 16), (32, 64))),
     (64, F32, ("tf32x3", 64, (128, 64), (32, 128))),
     (256, F32, ("tf32x3", 256, (64, 16), (8, 64))),
     (320, F32, ("tf32x3", 320, (64, 16), (8, 64))),
     (64, BF16, ("wgmma", 64, (128, 64), (64, 128))),
-    (80, F32, ("tf32x3", 128, (128, 32), (16, 128)))])
+    (80, F32, ("tf32x3", 128, (128, 32), (16, 128))),
+    (256, BF16, ("wgmma", 256, (128, 32), (32, 64)))])
 def test_bwd_blocks(d, dtype, blocks):
     """`bwd_route`: the backward's route, head-dim bucket and (q block, kv
     tile) rows of the dQ and dK/dV passes by type and head dim, as
-    `csrc/flash_attention_bwd.cu` instantiates them: bf16 up to 128 (head
-    dim 80 in bucket 128) on wgmma, bf16 above on the mma_sync kernels,
+    `csrc/flash_attention_bwd.cu` instantiates them: bf16 on the wgmma
+    kernels at every bucket (head dim 80 in bucket 128, 192 in 256),
     float32 on the tf32x3 kernels."""
     assert tuple(fa.bwd_route(d, dtype)) == blocks
     with pytest.raises(ValueError, match="head dim 336"):
         fa.bwd_route(336, dtype)
 
 
-@pytest.mark.parametrize("d_pad,kib", [(64, (99, 97)), (128, (195, 193))])
-def test_wgmma_backward_shared_memory_fits(d_pad, kib):
-    """Each wgmma pass's shared memory (the kernel's layout, mirrored by
-    `bwd_wgmma_smem`) fits the 232,448 bytes a block can take, at every
-    bucket the route serves; the figures are the source's table's."""
-    assert d_pad in fa._BWD_WGMMA_BUCKETS
-    smem = fa.bwd_wgmma_smem(d_pad)
-    assert max(smem.values()) <= fa.SMEM_LIMIT == 232_448
-    assert (smem["dkv"] // 1024, smem["dq"] // 1024) == kib
+def _bwd_source() -> str:
+    return (Path(fa.__file__).parent / "csrc" / "flash_attention_bwd.cu").read_text()
+
+
+def _source_smem_table() -> dict:
+    """The wgmma route's shared-memory table in the source's header:
+    (pass, D_pad) -> (kv tile, q block, stages, bytes)."""
+    import re
+    rows = re.findall(r"^//\s+(dK/dV|dQ)\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)\s+([\d,]+) B",
+                      _bwd_source(), flags=re.M)
+    return {("dkv" if p == "dK/dV" else "dq", int(d)): (int(kv), int(q), int(st),
+                                                        int(b.replace(",", "")))
+            for p, d, kv, q, st, b in rows}
+
+
+def _source_blocks() -> dict:
+    """`tc::Blocks<D_pad>` as the source instantiates it: D_pad -> (pass ->
+    (kv tile, q block, stages))."""
+    import re
+    rows = re.findall(r"struct Blocks<(\d+)> \{[^}]*KV_BN = (\d+), KV_BM = (\d+), "
+                      r"KV_S = (\d+), Q_BM = (\d+), Q_BN = (\d+), Q_S = (\d+);", _bwd_source())
+    return {int(d): {"dkv": (int(kb), int(kq), int(ks)), "dq": (int(qb), int(qq), int(qs))}
+            for d, kb, kq, ks, qq, qb, qs in rows}
+
+
+def _source_smem_asserts() -> dict:
+    """The bytes the source's static_asserts hold each layout to at build
+    time: (pass, D_pad) -> bytes."""
+    import re
+    rows = re.findall(r"static_assert\((DkvLayout|DqLayout)<(\d+)>::SMEM == (\d+),",
+                      _bwd_source())
+    return {("dkv" if p == "DkvLayout" else "dq", int(d)): int(b) for p, d, b in rows}
+
+
+@pytest.mark.parametrize("d_pad,nbytes", [(64, (101_504, 99_456)), (128, (199_808, 197_760)),
+                                          (256, (215_168, 230_528)),
+                                          (320, (223_104, 226_432))])
+def test_wgmma_backward_shared_memory_fits(d_pad, nbytes):
+    """Each wgmma pass's shared memory fits the 232,448 bytes a block can
+    take, at every bucket the route serves: the source's table gives the
+    bytes, its static_asserts hold the kernel's layouts (`DkvLayout`,
+    `DqLayout`) to them at build time, and the table's blocks and stages
+    are `tc::Blocks`'s, whose blocks `bwd_route` plans with."""
+    assert tuple(fa._BWD_WGMMA) == fa._BWD_BUCKETS
+    table, blocks, asserted = _source_smem_table(), _source_blocks(), _source_smem_asserts()
+    assert max(nbytes) <= fa.SMEM_LIMIT == 232_448
+    for pass_, n, (q_block, kv_tile) in zip(("dkv", "dq"), nbytes, fa._BWD_WGMMA[d_pad][::-1]):
+        assert table[(pass_, d_pad)] == (*blocks[d_pad][pass_], n)
+        assert asserted[(pass_, d_pad)] == n
+        assert blocks[d_pad][pass_][:2] == (kv_tile, q_block)
+
+
+def test_bf16_backward_has_one_route():
+    """The bf16 backward runs on the wgmma kernels at every head dim the
+    kernel takes: no route code for the retired `mma_sync` kernels, and
+    `bwd_route` gives `wgmma` from 16 to 320."""
+    assert set(fa._BWD_ROUTE_CODE) == {"wgmma", "tf32x3"}
+    assert 0 not in fa._BWD_ROUTE_CODE.values()
+    routes = {fa.bwd_route(d, BF16).route for d in range(16, fa.MAX_HEAD_DIM + 1, 16)}
+    assert routes == {"wgmma"}
 
 
 def test_build_stamp_covers_headers(tmp_path):

@@ -167,6 +167,26 @@ def test_dense_and_vlm_loss_and_grads_match_jax(name):
     check_family(family_case(name))
 
 
+# gemma3-4b as the train step's K7 sees it: head dim 320 (K7's widest
+# bucket), 7 layers (one group of 5 local + 1 global and a local
+# remainder), the window cut to 16 so that it bites at SEQ 32
+GEMMA3_320 = dict(n_layers=7, head_dim=320, sliding_window=16)
+
+
+@pytest.fixture(scope="module")
+def gemma3_case():
+    return family_case("gemma3-4b", GEMMA3_320)
+
+
+def test_gemma3_head_dim_320_loss_and_grads_match_jax(gemma3_case):
+    """gemma3-4b's loss and every gradient at head dim 320 with its 5:1
+    local/global pattern (local layers windowed), against JAX's: the path
+    of the full-width train step, through K7's plain versions here."""
+    cfg = gemma3_case["cfg"]
+    assert cfg.hd == 320 and cfg.sliding_window == 16 < SEQ
+    check_family(gemma3_case)
+
+
 def test_moe_loss_and_grads_match_jax(moe_case):
     check_family(moe_case)
 

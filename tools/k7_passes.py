@@ -7,49 +7,55 @@ more source trees in turns.
 Each tree (default: this checkout; a parent commit unpacked with `git
 archive` into a directory that .gitignore lists) runs in a process of its
 own, which builds that tree's kernels into the tree's own `build/` and
-times, at phase 10's shapes (`chip_smoke.k7_backward_case_list` and the
-float32 prefill of `k7_case_list`) and at paligemma-3b's head dim 256 (1 x
-8/1 heads over 2048, causal): the forward with lse, the whole
-backward, the backward with only the dQ pass (`need_dkv=False`) and with
-only the dK/dV pass (`need_dq=False`), by CUDA events over runs of
-back-to-back calls (`chip_smoke.cuda_ms`), and the forward's and the
-whole backward's device time (`chip_smoke.device_ms`, the profiler in a
-fresh process). Trees go in turns, A B B A for
-two, `--rounds` times, so that two versions are compared on one card.
-Prints a line a (tree, case) and the card's name and power limit, and
-writes every row to `--out` as JSON."""
+times, at phase 10's shapes (`chip_smoke.k7_backward_case_list`, which
+ends with gemma3-4b's local layer, paligemma-3b's heads and gemma3-4b's
+local and global layers at its training shape, and the float32 prefill of
+`k7_case_list`), in each `--dtype` asked for (float32
+by default; repeatable): the forward with lse, the whole backward, the
+backward with only the dQ pass (`need_dkv=False`) and with only the dK/dV
+pass (`need_dq=False`), by CUDA events over runs of back-to-back calls
+(`chip_smoke.cuda_ms`), and the forward's and the whole backward's device
+time (`chip_smoke.device_ms`, the profiler in a fresh process). Each row
+also holds the sha256 of the forward's output and lse and of the
+backward's dq, dk and dv on the case's seeded inputs, so that two trees'
+bits can be compared. Trees go in turns, A B B A for two, `--rounds`
+times, so that two versions are compared on one card (`_ab`). Prints a
+line a (tree, case) and the card's name and power limit, and writes every
+row to `--out` as JSON."""
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+import _ab
 
 
-def worker(tree: Path, dtype_name: str, reps: int) -> list:
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs                       # shapes and timing only
-    sys.path.insert(0, str(tree / "src"))
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as FA
-    assert Path(FA.__file__).resolve().is_relative_to(tree.resolve()), FA.__file__
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
-    _build.build()
+
+def worker(tree: Path, dtype_names: list, reps: int) -> list:
+    cs = _ab.enter_tree(tree)
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
     dev = torch.device("cuda")
-    dtype = getattr(torch, dtype_name)
     prefill = next(c for c in cs.k7_case_list() if c[6] == "float32")
-    pg = get_arch("paligemma-3b")             # the float32 kernels' bucket 256
-    cases = ([(prefill[0], *prefill[1:6], prefill[7], prefill[8])] + cs.k7_backward_case_list()
-             + [(f"{pg.name} head dim {pg.hd}", 1, pg.n_heads, pg.n_kv_heads, cs.LM_PROMPT,
-                 pg.hd, True, 0)])
+    cases = [(prefill[0], *prefill[1:6], prefill[7], prefill[8])] + cs.k7_backward_case_list()
     rows = []
-    for name, b, h, hkv, length, d, causal, window in cases:
+    for (name, b, h, hkv, length, d, causal, window), dtype_name in (
+            (c, t) for t in dtype_names for c in cases):
+        dtype = getattr(torch, dtype_name)
         gen = torch.Generator(device=dev).manual_seed(7 * length + d)
         q, k, v, dout = (torch.randn((b, length, n, d), generator=gen, device=dev)
                          .to(dtype).transpose(1, 2) for n in (h, hkv, hkv, h))
@@ -62,6 +68,9 @@ def worker(tree: Path, dtype_name: str, reps: int) -> list:
         def bwd(**need):
             return FA.flash_attention_backward(q, k, v, out, lse, dout, **kw, **need)
 
+        dq, dk, dv = bwd()
+        bits = {"forward_sha256": digest(out, lse), "backward_sha256": digest(dq, dk, dv)}
+        del dq, dk, dv
         ms = {"forward": cs.cuda_ms(torch, fwd, reps),
               "forward_device": cs.device_ms(torch, fwd, "flash_attention"),
               "backward_device": cs.device_ms(torch, bwd, "attention_bwd",
@@ -70,7 +79,8 @@ def worker(tree: Path, dtype_name: str, reps: int) -> list:
                            ("dkv_pass", dict(need_dq=False))):
             ms[part] = cs.cuda_ms(torch, lambda: bwd(**need), reps)
         rows.append(dict(tree=str(tree), case=name, shape=[b, h, hkv, length, d],
-                         dtype=dtype_name, causal=causal, window=window, **ms))
+                         dtype=dtype_name, causal=causal, window=window,
+                         backward_route=FA.bwd_route(d, dtype).route, **ms, **bits))
         del q, k, v, dout, lse, out
         torch.cuda.empty_cache()
     return rows
@@ -78,42 +88,45 @@ def worker(tree: Path, dtype_name: str, reps: int) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", action="append", default=None,
-                    help="a source tree to time (repeatable; default this checkout)")
-    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
-    ap.add_argument("--rounds", type=int, default=1, help="A B B A rounds")
+    _ab.add_args(ap)
+    ap.add_argument("--dtype", action="append", default=None, choices=("float32", "bfloat16"),
+                    help="a type to time (repeatable; default float32)")
     ap.add_argument("--reps", type=int, default=5, help="timed runs a case (median)")
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    dtypes = args.dtype or ["float32"]
     if args.worker:
-        print(json.dumps(worker(Path(args.worker), args.dtype, args.reps)))
+        print(json.dumps(worker(Path(args.worker), dtypes, args.reps)))
         return 0
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(_ab.ROOT))
     import chip_smoke as cs
 
-    trees = [Path(t).resolve() for t in (args.tree or [str(ROOT)])]
-    order = []
-    for _ in range(args.rounds):
-        order += trees + trees[::-1] if len(trees) > 1 else trees
-    rows = []
-    for tree in order:
-        out = subprocess.run([sys.executable, __file__, "--worker", str(tree), "--dtype",
-                              args.dtype, "--reps", str(args.reps)],
-                             capture_output=True, text=True, check=False)
-        if out.returncode != 0:
-            raise RuntimeError(f"{tree}: {out.stderr[-4000:]}")
-        for r in json.loads(out.stdout.strip().splitlines()[-1]):
+    rows, first = [], None
+    for tree, runs in _ab.run_in_turns(__file__, args.tree, args.rounds,
+                                       [*(a for t in dtypes for a in ("--dtype", t)),
+                                        "--reps", str(args.reps)]):
+        first = first or tree
+        for r in runs:
             print(f"{Path(r['tree']).name:>12} {r['case']:<36} {r['dtype']} "
                   f"fwd {r['forward']:.4f} ms (device {cs.fmt_ms(r['forward_device'])}), bwd "
                   f"{r['backward']:.4f} ms (device {cs.fmt_ms(r['backward_device'])}; dQ pass "
-                  f"{r['dq_pass']:.4f}, dK/dV pass {r['dkv_pass']:.4f})", flush=True)
+                  f"{r['dq_pass']:.4f}, dK/dV pass {r['dkv_pass']:.4f}; route "
+                  f"{r['backward_route']}; bits {r['forward_sha256'][:12]} "
+                  f"{r['backward_sha256'][:12]})", flush=True)
             rows.append(r)
-    card = cs.card_line()
-    print(card)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    ref, shown = {}, set()        # each case's bits in the first tree's first run
+    for r in rows:
+        if r["tree"] == str(first):
+            ref.setdefault((r["case"], r["dtype"]), r)
+    for r in rows:
+        key = (r["tree"], r["case"], r["dtype"])
+        if r["tree"] == str(first) or key in shown:
+            continue
+        shown.add(key)
+        a = ref[(r["case"], r["dtype"])]
+        same = [w for w in ("forward", "backward") if r[f"{w}_sha256"] == a[f"{w}_sha256"]]
+        print(f"bits of {Path(r['tree']).name} against {first.name}, {r['case']} "
+              f"{r['dtype']}: equal in {', '.join(same) or 'neither'}")
+    _ab.finish(args.out, "rows", rows)
     return 0
 
 
