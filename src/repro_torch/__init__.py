@@ -23,6 +23,8 @@ Layout:
   repro_torch.kernels  — hand-written Hopper kernels (CUDA C++, `csrc/`)
                          with their wrappers, launch counters and plain
                          PyTorch versions.
+  repro_torch.tracing  — spans and counters inside a session frame and a
+                         fleet sync, off by default.
 
 Dispatch is by device: a wrapper given CUDA tensors launches its kernel (or
 raises); given CPU tensors it runs the plain PyTorch version.

@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.projection import ALPHA_MIN, Splats
 from repro_torch.numerics import div_rn, sqrt_rn
 
@@ -89,57 +90,62 @@ def bin_tiles(mean2d: torch.Tensor, ext: torch.Tensor, ranks: torch.Tensor,
     n_tiles = tiles_x * tiles_y
     m = mean2d.shape[0]
 
-    x0, y0, span_w, span_h = pair_spans(mean2d, ext, visible, width, height, tile)
-    counts = span_w * span_h
+    with tracing.span("bin.expand"):
+        x0, y0, span_w, span_h = pair_spans(mean2d, ext, visible, width, height, tile)
+        counts = span_w * span_h
 
-    offsets = torch.cumsum(counts, 0)
-    total = offsets[-1] if m > 0 else torch.zeros((), dtype=torch.long, device=dev)
-    starts = offsets - counts
+        offsets = torch.cumsum(counts, 0)
+        total = offsets[-1] if m > 0 else torch.zeros((), dtype=torch.long, device=dev)
+        starts = offsets - counts
+        tracing.count("bin.pairs_needed", total)
+        tracing.count("bin.pairs_sorted", cfg.max_pairs)
 
-    p = torch.arange(cfg.max_pairs, dtype=torch.long, device=dev)
-    gid = torch.searchsorted(offsets, p, right=True)
-    gid_c = gid.clamp(0, max(m - 1, 0))
-    local = p - starts[gid_c]
-    w_g = torch.clamp_min(span_w[gid_c], 1)
-    tx = x0[gid_c].long() + local % w_g
-    ty = y0[gid_c].long() + local // w_g
-    pair_valid = (p < total) & (gid < m)
+        p = torch.arange(cfg.max_pairs, dtype=torch.long, device=dev)
+        gid = torch.searchsorted(offsets, p, right=True)
+        gid_c = gid.clamp(0, max(m - 1, 0))
+        local = p - starts[gid_c]
+        w_g = torch.clamp_min(span_w[gid_c], 1)
+        tx = x0[gid_c].long() + local % w_g
+        ty = y0[gid_c].long() + local // w_g
+        pair_valid = (p < total) & (gid < m)
 
-    if cfg.precise_cull and conic is not None and opacity is not None:
-        r2 = corner_r2(conic, opacity)
-        mx = mean2d[gid_c, 0]
-        my = mean2d[gid_c, 1]
-        cx0 = (tx * tile).to(torch.float32)
-        cy0 = (ty * tile).to(torch.float32)
-        dx = torch.clamp_min(torch.maximum(cx0 - mx, mx - (cx0 + tile)), 0.0)
-        dy = torch.clamp_min(torch.maximum(cy0 - my, my - (cy0 + tile)), 0.0)
-        pair_valid = pair_valid & (dx * dx + dy * dy <= r2[gid_c])
+        if cfg.precise_cull and conic is not None and opacity is not None:
+            r2 = corner_r2(conic, opacity)
+            mx = mean2d[gid_c, 0]
+            my = mean2d[gid_c, 1]
+            cx0 = (tx * tile).to(torch.float32)
+            cy0 = (ty * tile).to(torch.float32)
+            dx = torch.clamp_min(torch.maximum(cx0 - mx, mx - (cx0 + tile)), 0.0)
+            dy = torch.clamp_min(torch.maximum(cy0 - my, my - (cy0 + tile)), 0.0)
+            pair_valid = pair_valid & (dx * dx + dy * dy <= r2[gid_c])
 
-    tile_id = torch.where(pair_valid, ty * tiles_x + tx,
-                          torch.full_like(tx, n_tiles))  # n_tiles = trash
+        tile_id = torch.where(pair_valid, ty * tiles_x + tx,
+                              torch.full_like(tx, n_tiles))  # n_tiles = trash
+        rank_key = torch.where(pair_valid, ranks[gid_c].long(), torch.full_like(tx, m))
 
-    # sort pairs by (tile, depth-rank) via two stable passes
-    rank_key = torch.where(pair_valid, ranks[gid_c].long(), torch.full_like(tx, m))
-    order1 = torch.argsort(rank_key, stable=True)
-    order = order1[torch.argsort(tile_id[order1], stable=True)]
-    s_tile = tile_id[order]
-    s_gid = gid_c[order]
-    s_valid = pair_valid[order]
+    with tracing.span("bin.sort"):
+        # sort pairs by (tile, depth-rank) via two stable passes
+        order1 = torch.argsort(rank_key, stable=True)
+        order = order1[torch.argsort(tile_id[order1], stable=True)]
+        s_tile = tile_id[order]
+        s_gid = gid_c[order]
+        s_valid = pair_valid[order]
 
-    tile_start = torch.searchsorted(
-        s_tile, torch.arange(n_tiles + 1, dtype=torch.long, device=dev))
-    pos = p - tile_start[s_tile.clamp(0, n_tiles)]
-    in_list = s_valid & (pos < cfg.list_len)
+    with tracing.span("bin.lists"):
+        tile_start = torch.searchsorted(
+            s_tile, torch.arange(n_tiles + 1, dtype=torch.long, device=dev))
+        pos = p - tile_start[s_tile.clamp(0, n_tiles)]
+        in_list = s_valid & (pos < cfg.list_len)
 
-    flat = torch.where(in_list, s_tile * cfg.list_len + pos,
-                       torch.full_like(pos, n_tiles * cfg.list_len))
-    lists = torch.full((n_tiles * cfg.list_len + 1,), -1, dtype=torch.int32, device=dev)
-    lists[flat[in_list]] = s_gid[in_list].to(torch.int32)
-    lists = lists[:-1].reshape(n_tiles, cfg.list_len)
+        flat = torch.where(in_list, s_tile * cfg.list_len + pos,
+                           torch.full_like(pos, n_tiles * cfg.list_len))
+        lists = torch.full((n_tiles * cfg.list_len + 1,), -1, dtype=torch.int32, device=dev)
+        lists[flat[in_list]] = s_gid[in_list].to(torch.int32)
+        lists = lists[:-1].reshape(n_tiles, cfg.list_len)
 
-    per_tile = tile_start[1:] - tile_start[:-1]
-    tile_counts = torch.clamp_max(per_tile, cfg.list_len).to(torch.int32)
-    overflow = (total > cfg.max_pairs) | (per_tile > cfg.list_len).any()
+        per_tile = tile_start[1:] - tile_start[:-1]
+        tile_counts = torch.clamp_max(per_tile, cfg.list_len).to(torch.int32)
+        overflow = (total > cfg.max_pairs) | (per_tile > cfg.list_len).any()
     return TileLists(lists=lists, counts=tile_counts, overflow=overflow,
                      tiles_x=tiles_x, tiles_y=tiles_y)
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import render as rnd
+from repro_torch import tracing
 from repro_torch.core import compression as comp
 from repro_torch.core import lod_search as ls
 from repro_torch.core import manager as mgr
@@ -136,36 +137,41 @@ def cloud_sync_step(tree: LodTree, codec: comp.Codec, cfg: SessionConfig,
                     bytes_per_g: float) -> Tuple[SessionState, StepStats]:
     """One LoD sync: temporal-aware search → management sync → Δcut payload →
     client mirror + store update."""
-    cut, temporal = ls.temporal_search(tree, state.temporal, cam_pos, focal, cfg.tau)
-    mask = cut.mask(tree)
-    t = state.sync_index
-    mgr_state, plan = mgr.cloud_sync(state.mgr_state, mask, t, cfg.w_star)
-    # single-client unicast wire format (one stream, implicit Δ ids); the
-    # fleet service dedups it per sync through the same encode_rows
-    ids, n_delta = mgr.gather_payload(tree.gaussians, plan.delta_data, cfg.cut_budget)
-    if cfg.use_compression:
-        enc = comp.encode_rows(codec, tree.gaussians, ids)
-        dec = comp.decode(codec, enc, tree.gaussians.sh.shape[1])
-    else:
-        dec = tree.gaussians.slice_rows(ids.clamp_min(0))
-    client = mgr.client_sync(state.client, plan.delta_data, plan.cut_add,
-                             plan.cut_remove, t, cfg.w_star)
-    client_store = _apply_payload(state.client_store, ids, dec)
-    gids, count, _overflow = ls.cut_gids(cut, tree, cfg.cut_budget)
-    new_state = SessionState(
-        mgr_state=mgr_state, client=client, temporal=temporal,
-        client_store=client_store, cut_gids=gids,
-        sync_index=t + 1, frame_index=state.frame_index + 1)
-    dev = tree.device
-    stats = StepStats(
-        synced=torch.tensor(True, device=dev),
-        cut_size=count,
-        delta_size=n_delta,
-        sync_bytes=plan.wire_bytes(bytes_per_g),
-        nodes_touched=cut.nodes_touched,
-        resweeps=cut.resweep.sum().to(torch.int32),
-        client_resident=plan.n_resident)
-    return new_state, stats
+    with tracing.span("cloud_sync"):
+        with tracing.span("lod_search"):
+            cut, temporal = ls.temporal_search(tree, state.temporal, cam_pos, focal, cfg.tau)
+        t = state.sync_index
+        with tracing.span("manager"):
+            mask = cut.mask(tree)
+            mgr_state, plan = mgr.cloud_sync(state.mgr_state, mask, t, cfg.w_star)
+            # single-client unicast wire format (one stream, implicit Δ ids); the
+            # fleet service dedups it per sync through the same encode_rows
+            ids, n_delta = mgr.gather_payload(tree.gaussians, plan.delta_data, cfg.cut_budget)
+        with tracing.span("encode"):
+            if cfg.use_compression:
+                enc = comp.encode_rows(codec, tree.gaussians, ids)
+                dec = comp.decode(codec, enc, tree.gaussians.sh.shape[1])
+            else:
+                dec = tree.gaussians.slice_rows(ids.clamp_min(0))
+        with tracing.span("client_update"):
+            client = mgr.client_sync(state.client, plan.delta_data, plan.cut_add,
+                                     plan.cut_remove, t, cfg.w_star)
+            client_store = _apply_payload(state.client_store, ids, dec)
+            gids, count, _overflow = ls.cut_gids(cut, tree, cfg.cut_budget)
+        new_state = SessionState(
+            mgr_state=mgr_state, client=client, temporal=temporal,
+            client_store=client_store, cut_gids=gids,
+            sync_index=t + 1, frame_index=state.frame_index + 1)
+        dev = tree.device
+        stats = StepStats(
+            synced=torch.tensor(True, device=dev),
+            cut_size=count,
+            delta_size=n_delta,
+            sync_bytes=plan.wire_bytes(bytes_per_g),
+            nodes_touched=cut.nodes_touched,
+            resweeps=cut.resweep.sum().to(torch.int32),
+            client_resident=plan.n_resident)
+        return new_state, stats
 
 
 def idle_step(state: SessionState) -> Tuple[SessionState, StepStats]:
@@ -229,8 +235,9 @@ def _render_queue(store: Gaussians, gids: torch.Tensor) -> Gaussians:
 
 def client_render_step(cfg: SessionConfig, state: SessionState, rig: StereoRig):
     """Render the client's current queue from its store."""
-    return render_stereo(_render_queue(state.client_store, state.cut_gids), rig,
-                         tile=cfg.tile, list_len=cfg.list_len, max_pairs=cfg.max_pairs)
+    with tracing.span("client_render"):
+        return render_stereo(_render_queue(state.client_store, state.cut_gids), rig,
+                             tile=cfg.tile, list_len=cfg.list_len, max_pairs=cfg.max_pairs)
 
 
 def _apply_payload(store: Gaussians, ids: torch.Tensor, dec: Gaussians) -> Gaussians:
@@ -303,17 +310,20 @@ class CollaborativeSession:
     def step(self, rig: StereoRig, render: bool = True):
         """Advance one VR frame. LoD sync happens every cfg.w frames."""
         frame = self.state.frame_index
-        focal = float(np.float32(float(self.rig_template.left.focal)))
-        self.state, st = session_step(
-            self.tree, self.codec, self.cfg, self.state,
-            rig.left.pos.to(self.device), focal, self.bytes_per_g)
-        stats = FrameStats(
-            frame=frame, synced=bool(st.synced),
-            cut_size=int(st.cut_size), delta_size=int(st.delta_size),
-            sync_bytes=float(st.sync_bytes),
-            nodes_touched=int(st.nodes_touched), resweeps=int(st.resweeps),
-            client_resident=int(st.client_resident))
-        out = client_render_step(self.cfg, self.state, rig) if render else None
+        tracing.step("frame", frame)
+        with tracing.span("frame"):
+            focal = float(np.float32(float(self.rig_template.left.focal)))
+            self.state, st = session_step(
+                self.tree, self.codec, self.cfg, self.state,
+                rig.left.pos.to(self.device), focal, self.bytes_per_g)
+            with tracing.span("frame_stats"):
+                stats = FrameStats(
+                    frame=frame, synced=bool(st.synced),
+                    cut_size=int(st.cut_size), delta_size=int(st.delta_size),
+                    sync_bytes=float(st.sync_bytes),
+                    nodes_touched=int(st.nodes_touched), resweeps=int(st.resweeps),
+                    client_resident=int(st.client_resident))
+            out = client_render_step(self.cfg, self.state, rig) if render else None
         return stats, out
 
 
@@ -326,7 +336,8 @@ def render_stereo(queue: Gaussians, rig: StereoRig, *, tile: int = 16,
                                    max_pairs=max_pairs)
     plan = rnd.build_plan(queue, rig, cfg)
     img_l, img_r, hits = rnd.render_stereo(plan, cfg)
-    stats = alpha_skip_stats(plan.left, plan.right, hits, plan.splats)
+    with tracing.span("stereo_stats"):
+        stats = alpha_skip_stats(plan.left, plan.right, hits, plan.splats)
     return img_l, img_r, (plan.splats, plan.left, plan.right, stats)
 
 

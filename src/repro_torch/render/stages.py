@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import projection as proj
 from repro_torch.core import stereo
 from repro_torch.core.binning import TileLists, bin_left
@@ -103,20 +104,23 @@ def project(queue: Gaussians, rig: StereoRig, cfg: RenderConfig
             ) -> Tuple[Splats, torch.Tensor]:
     """Shared stereo preprocessing (K3): one projection on the widened-left
     plane + one depth sort serve both eyes. Returns (splats, ranks)."""
-    splats = proj.project(queue, rig, cfg.widened(rig.left))
-    return splats, depth_ranks(splats)
+    with tracing.span("project"):
+        splats = proj.project(queue, rig, cfg.widened(rig.left))
+        return splats, depth_ranks(splats)
 
 
 def bin_shared(splats: Splats, ranks: torch.Tensor, cfg: RenderConfig) -> TileLists:
     """Depth-ordered tile binning on the widened grid (left eye)."""
-    return bin_left(splats, cfg.wide_width, cfg.height, cfg.bin_config(), ranks)
+    with tracing.span("bin_shared"):
+        return bin_left(splats, cfg.wide_width, cfg.height, cfg.bin_config(), ranks)
 
 
 def stereo_merge(splats: Splats, ranks: torch.Tensor, left: TileLists,
                  cfg: RenderConfig) -> TileLists:
     """Right-eye lists via the SRU front end and the k-way merge (K4)."""
-    return stereo.stereo_merge(left, splats, ranks, tile=cfg.tile, width=cfg.width,
-                               n_cat=cfg.n_cat)
+    with tracing.span("stereo_merge"):
+        return stereo.stereo_merge(left, splats, ranks, tile=cfg.tile, width=cfg.width,
+                                   n_cat=cfg.n_cat)
 
 
 def build_plan(queue: Gaussians, rig: StereoRig, cfg: RenderConfig) -> RenderPlan:
@@ -137,9 +141,10 @@ def rasterize(plan: RenderPlan, cfg: RenderConfig
     are not used, so its tiles keep the cheaper contract."""
     kw = dict(width=cfg.width, height=cfg.height, tile=cfg.tile, eps_t=0.0,
               alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
-    img_l, hits = kraster.rasterize(plan.left, plan.splats, eye="left",
-                                    hits_past_stop=True, **kw)
-    img_r, _ = kraster.rasterize(plan.right, plan.splats, eye="right", **kw)
+    with tracing.span("rasterize"):
+        img_l, hits = kraster.rasterize(plan.left, plan.splats, eye="left",
+                                        hits_past_stop=True, **kw)
+        img_r, _ = kraster.rasterize(plan.right, plan.splats, eye="right", **kw)
     return img_l, img_r, hits
 
 

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch import render as rnd
+from repro_torch import tracing
 from repro_torch.core import compression as comp
 from repro_torch.core import lod_search as ls
 from repro_torch.core import manager as mgr
@@ -272,27 +273,29 @@ def _finish_sync(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     split of the shared rows and the first-requester counts, which reduce
     over `clients`."""
     dev = masks.device
-    eff = _effective_slots(state, participate)
-    masks = masks & eff[:, None]
-    new_mgr, plan = mgr.batched_cloud_sync(state.mgr, masks, state.sync_index, cfg.w_star)
-    new_mgr = flt.freeze_inactive(new_mgr, state.mgr, eff)
-    gids, counts = _batched_cut_gids(masks, cfg.cut_budget)
-    if participate is not None:
-        # a slot that sat out keeps its render queue (a free slot's is the
-        # fresh -1 row already)
-        gids = torch.where(eff[:, None], gids, state.cut_gids)
-    unicast = mgr.batched_wire_bytes(plan, bytes_per_g, active=eff)
-    batch = None
-    zeros_i = torch.zeros(counts.shape, dtype=torch.int32, device=dev)
+    with tracing.span("tables"):
+        eff = _effective_slots(state, participate)
+        masks = masks & eff[:, None]
+        new_mgr, plan = mgr.batched_cloud_sync(state.mgr, masks, state.sync_index, cfg.w_star)
+        new_mgr = flt.freeze_inactive(new_mgr, state.mgr, eff)
+        gids, counts = _batched_cut_gids(masks, cfg.cut_budget)
+        if participate is not None:
+            # a slot that sat out keeps its render queue (a free slot's is the
+            # fresh -1 row already)
+            gids = torch.where(eff[:, None], gids, state.cut_gids)
+        unicast = mgr.batched_wire_bytes(plan, bytes_per_g, active=eff)
+        batch = None
+        zeros_i = torch.zeros(counts.shape, dtype=torch.int32, device=dev)
     if dedup:
         if codec is None or delta_budget is None:
             raise ValueError("dedup sync needs a codec and a delta_budget")
         if priority is None:
             priority = tree.node_levels()
-        batch = dp.build_delta_batch(tree.gaussians, codec, plan.delta_data, delta_budget,
-                                     active=eff, pending=state.pending, priority=priority,
-                                     allowance=allowance, page_size=page_size, mesh=mesh,
-                                     n_shards=n_shards)
+        with tracing.span("union_and_encode"):
+            batch = dp.build_delta_batch(tree.gaussians, codec, plan.delta_data,
+                                         delta_budget, active=eff, pending=state.pending,
+                                         priority=priority, allowance=allowance,
+                                         page_size=page_size, mesh=mesh, n_shards=n_shards)
         share = None
         if n_shards > 1:
             cols = (batch.delivered & eff[:, None]).sum(0)
@@ -544,33 +547,35 @@ def service_sync_pooled(tree: LodTree, cfg: SessionConfig, state: ServiceState,
     eff = _effective_slots(state, participate)
     if tables is None:
         tables = ls.SlabTables.from_tree(tree, mesh=mesh)
-    top_cut, rpe, stale = ls.batched_top_and_staleness(tree, state.temporal, cams,
-                                                       focal, tau_b, eff)
-    if n_shards > 1:
-        shard_counts = shd.all_gather_blocks(
-            mesh, "clients", [stale.sum().to(torch.int32)])[0].cpu().numpy()
-        n_stale = int(shard_counts.sum())
-    else:
-        n_stale = int(stale.sum())
-    tp = state.temporal
-    slab_cut, root_expand, rho, cam0 = tp.slab_cut0, tp.root_expand0, tp.rho, tp.cam0
-    if n_stale > 0:
-        empty = False
+    with tracing.span("top_and_staleness"):
+        top_cut, rpe, stale = ls.batched_top_and_staleness(tree, state.temporal, cams,
+                                                           focal, tau_b, eff)
+    with tracing.span("pair_sweep"):
         if n_shards > 1:
-            bucket = ls.pow2_bucket(int(shard_counts.max()), stale.numel())
-            empty = int(shard_counts[mesh.index("clients")]) == 0
+            shard_counts = shd.all_gather_blocks(
+                mesh, "clients", [stale.sum().to(torch.int32)])[0].cpu().numpy()
+            n_stale = int(shard_counts.sum())
         else:
-            bucket = ls.pow2_bucket(n_stale, stale.numel())
-        if empty:
-            sel_b = sel_s = torch.zeros((bucket,), dtype=torch.int64, device=stale.device)
-        else:
-            sel_b, sel_s = _compact_stale_pairs(stale, bucket)
-        f_cut, f_rexp, f_rho = _pooled_pair_sweep(
-            tables, rpe, cams, tau_b, sel_b, sel_s, focal, max_depth=m.slab_max_depth,
-            mesh=mesh, slab_blocks=m.Ns // tables.mu.shape[0])
-        slab_cut, root_expand, rho, cam0 = _apply_pooled_updates(
-            slab_cut, root_expand, rho, cam0, sel_b, sel_s, f_cut, f_rexp, f_rho,
-            cams[sel_b], guard=empty)
+            n_stale = int(stale.sum())
+        tp = state.temporal
+        slab_cut, root_expand, rho, cam0 = tp.slab_cut0, tp.root_expand0, tp.rho, tp.cam0
+        if n_stale > 0:
+            empty = False
+            if n_shards > 1:
+                bucket = ls.pow2_bucket(int(shard_counts.max()), stale.numel())
+                empty = int(shard_counts[mesh.index("clients")]) == 0
+            else:
+                bucket = ls.pow2_bucket(n_stale, stale.numel())
+            if empty:
+                sel_b = sel_s = torch.zeros((bucket,), dtype=torch.int64, device=stale.device)
+            else:
+                sel_b, sel_s = _compact_stale_pairs(stale, bucket)
+            f_cut, f_rexp, f_rho = _pooled_pair_sweep(
+                tables, rpe, cams, tau_b, sel_b, sel_s, focal, max_depth=m.slab_max_depth,
+                mesh=mesh, slab_blocks=m.Ns // tables.mu.shape[0])
+            slab_cut, root_expand, rho, cam0 = _apply_pooled_updates(
+                slab_cut, root_expand, rho, cam0, sel_b, sel_s, f_cut, f_rexp, f_rho,
+                cams[sel_b], guard=empty)
     # the scatter never touches a slot outside `eff`; freeze the other two
     # leaves the same way, so an inactive slot stays at its reset value and
     # a slot that sat out keeps its own
@@ -740,6 +745,7 @@ class LodService:
         self.state = shd.shard_service_state(
             self.mesh, service_init(self.tree, cfg, n_clients, capacity=self.capacity))
         self.last_delta: Optional[dp.DeltaBatch] = None
+        self._syncs = 0           # syncs run: the step id of their spans
         # which client each row of last_delta is for
         self._delta_ids = np.full(self.capacity, -1, np.int64)
 
@@ -1096,66 +1102,69 @@ class LodService:
         With bandwidth-controlled clients the previous sync's bytes are read
         back here to close the loop; after a partial sync only the slots that
         took part commit a controller update."""
-        part_mask = self._participation_mask(participate)
-        if isinstance(cam_positions, dict):
-            updates = {self._slot_of(cid): np.asarray(pos, np.float32)
-                       for cid, pos in cam_positions.items()}
-            for slot, pos in updates.items():
-                self._slot_cams[slot] = pos
-        elif cam_positions is not None:
-            cams = np.asarray(cam_positions, np.float32)
-            if cams.shape != (self.n_clients, 3):
-                raise ValueError(f"expected ({self.n_clients}, 3) camera positions, "
-                                 f"got {cams.shape}")
-            self._slot_cams[self._active] = cams
-        allowance, taus_eff = None, self.taus
-        if self.dedup and np.isfinite(self._bw_target).any():
-            if self._last_stats is not None:
-                measured = self.gather_slots(
-                    self._last_stats.sync_bytes).cpu().numpy().astype(np.float64)
-                new_allow, new_tau = rate_control_step(
-                    self._bw_target, measured, self._allowance, self._tau_scale,
-                    page_size=self.page_size, max_rows=self.delta_budget)
-                commit = self._stats_fresh
-                self._allowance = np.where(commit, new_allow, self._allowance)
-                self._tau_scale = np.where(commit, new_tau,
-                                           self._tau_scale).astype(np.float32)
-            allowance = np.where(self._allowance >= 0, self._allowance,
-                                 self.delta_budget).astype(np.int32)
-            base = (self.taus if self.taus is not None
-                    else np.full(self.capacity, self.cfg.tau, np.float32))
-            taus_eff = (base * self._tau_scale).astype(np.float32)
-        # every per-slot argument is this rank's block of the slots
-        lo, hi = self.slot_block()
-        local_part = None if part_mask is None else shd.shard_participation(self.mesh,
-                                                                             part_mask)
-        kw = dict(taus=None if taus_eff is None else taus_eff[lo:hi], codec=self.codec,
-                  dedup=self.dedup, delta_budget=self.delta_budget, priority=self._priority,
-                  allowance=None if allowance is None else allowance[lo:hi],
-                  page_size=self.page_size, participate=local_part, mesh=self.mesh,
-                  n_shards=self.client_shards)
-        cams = self._slot_cams[lo:hi]
-        if self.mode == "pooled":
-            self.state, stats, batch = service_sync_pooled(
-                self.tree, self.cfg, self.state, cams, self.focal, self.bytes_per_g,
-                tables=self.tables, **kw)
-        else:
-            self.state, stats, batch = service_sync_vmapped(
-                self.tree, self.cfg, self.state, cams, self.focal, self.bytes_per_g, **kw)
-        if batch is not None:
-            self.last_delta = batch
-            self._delta_ids = self._client_ids.copy()
-        # the controller's next measurement: after a partial sync each slot
-        # keeps its latest observed row
-        if part_mask is None or self._last_stats is None:
-            self._last_stats = stats
-        else:
-            pm = torch.as_tensor(local_part, device=self.device)
-            self._last_stats = pytree.tree_map(
-                lambda n, o: torch.where(pm.reshape((-1,) + (1,) * (n.dim() - 1)), n, o),
-                stats, self._last_stats)
-        self._stats_fresh = (self._active.copy() if part_mask is None
-                             else self._active & part_mask)
+        tracing.step("sync", self._syncs)
+        self._syncs += 1
+        with tracing.span("sync"):
+            part_mask = self._participation_mask(participate)
+            if isinstance(cam_positions, dict):
+                updates = {self._slot_of(cid): np.asarray(pos, np.float32)
+                           for cid, pos in cam_positions.items()}
+                for slot, pos in updates.items():
+                    self._slot_cams[slot] = pos
+            elif cam_positions is not None:
+                cams = np.asarray(cam_positions, np.float32)
+                if cams.shape != (self.n_clients, 3):
+                    raise ValueError(f"expected ({self.n_clients}, 3) camera positions, "
+                                     f"got {cams.shape}")
+                self._slot_cams[self._active] = cams
+            allowance, taus_eff = None, self.taus
+            if self.dedup and np.isfinite(self._bw_target).any():
+                if self._last_stats is not None:
+                    measured = self.gather_slots(
+                        self._last_stats.sync_bytes).cpu().numpy().astype(np.float64)
+                    new_allow, new_tau = rate_control_step(
+                        self._bw_target, measured, self._allowance, self._tau_scale,
+                        page_size=self.page_size, max_rows=self.delta_budget)
+                    commit = self._stats_fresh
+                    self._allowance = np.where(commit, new_allow, self._allowance)
+                    self._tau_scale = np.where(commit, new_tau,
+                                               self._tau_scale).astype(np.float32)
+                allowance = np.where(self._allowance >= 0, self._allowance,
+                                     self.delta_budget).astype(np.int32)
+                base = (self.taus if self.taus is not None
+                        else np.full(self.capacity, self.cfg.tau, np.float32))
+                taus_eff = (base * self._tau_scale).astype(np.float32)
+            # every per-slot argument is this rank's block of the slots
+            lo, hi = self.slot_block()
+            local_part = None if part_mask is None else shd.shard_participation(self.mesh,
+                                                                                 part_mask)
+            kw = dict(taus=None if taus_eff is None else taus_eff[lo:hi], codec=self.codec,
+                      dedup=self.dedup, delta_budget=self.delta_budget, priority=self._priority,
+                      allowance=None if allowance is None else allowance[lo:hi],
+                      page_size=self.page_size, participate=local_part, mesh=self.mesh,
+                      n_shards=self.client_shards)
+            cams = self._slot_cams[lo:hi]
+            if self.mode == "pooled":
+                self.state, stats, batch = service_sync_pooled(
+                    self.tree, self.cfg, self.state, cams, self.focal, self.bytes_per_g,
+                    tables=self.tables, **kw)
+            else:
+                self.state, stats, batch = service_sync_vmapped(
+                    self.tree, self.cfg, self.state, cams, self.focal, self.bytes_per_g, **kw)
+            if batch is not None:
+                self.last_delta = batch
+                self._delta_ids = self._client_ids.copy()
+            # the controller's next measurement: after a partial sync each slot
+            # keeps its latest observed row
+            if part_mask is None or self._last_stats is None:
+                self._last_stats = stats
+            else:
+                pm = torch.as_tensor(local_part, device=self.device)
+                self._last_stats = pytree.tree_map(
+                    lambda n, o: torch.where(pm.reshape((-1,) + (1,) * (n.dim() - 1)), n, o),
+                    stats, self._last_stats)
+            self._stats_fresh = (self._active.copy() if part_mask is None
+                                 else self._active & part_mask)
         return stats
 
     def client_cut(self, client_id: int) -> torch.Tensor:
