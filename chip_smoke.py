@@ -18,18 +18,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
      untiled per-pixel reference;
   5. run the single-client collaborative session with the compressed Δcut
      wire (LoD sync every 4 frames, stereo render every frame) with every
-     launch counter set to 0 first, and require that K1, K3, K4, K2 and K5
-     launched; then check each sync's cut against a full search and time
-     the stages of one more frame;
+     launch counter set to 0 first, and require that K1, K3, K4, K2, K5
+     and the binning chain launched, the chain once a frame; then check
+     each sync's cut against a full search, hold the binning chain against
+     `bin_tiles_plain` on the last frame's inputs and time both (CUDA
+     events, the profiler's device time by kernel), and time the stages of
+     one more frame;
   6. trace one more sync and rendered frame with torch.profiler (device
      busy time and the kernels that take it);
   7. run the fleet: B clients on the same tree in a pooled `LodService`
      (foveated τ, encode-once Δ stream), one sync every 4 frames of each
      client's walk, then one pooled fallback render of every client, with
-     the counters set to 0 first; require that K6, K5 and K2 launched, K2
-     once; time each sync's stages;
+     the counters set to 0 first; require that K6, K5, K2 and the binning
+     chain launched, K2 once; time each sync's stages;
   8. hold K5 and K6 against their plain versions at the fleet's shapes (the
-     cold sync's Δ-union, the first warm sync's pooled bucket), the pooled
+     cold sync's Δ-union, the first warm sync's pooled bucket), the binning
+     chain against `bin_tiles_plain` on each client's inputs to the pooled
+     render, the pooled
      fallback render against the per-client one, and two pooled syncs of a
      fresh fleet against two vmapped ones;
   9. serve qwen2.5-3b as published (36 layers, bf16, seeded weights) through
@@ -368,6 +373,38 @@ def require_filtered(path: str, counts: dict) -> dict:
     return counts
 
 
+def bin_chain_check(torch, BN, kbin, call, what: str):
+    """The binning chain (`core.binning.bin_tiles` on CUDA tensors, one
+    launch of `kbin.bin_tiles_kernel`) against `bin_tiles_plain` on the same
+    inputs, `call` = (args, kwargs): lists, counts and the overflow flag
+    exactly. Returns the chain's TileLists."""
+    a, kw = call
+    before = kbin.bin_tiles_kernel.launches
+    got = BN.bin_tiles(*a, **kw)
+    launched = kbin.bin_tiles_kernel.launches - before
+    want = BN.bin_tiles_plain(*a, **kw)
+    torch.cuda.synchronize()
+    if launched != 1:
+        raise AssertionError(f"binning ({what}): the chain launched {launched} times, not once")
+    for name in ("lists", "counts", "overflow"):
+        x, y = getattr(got, name), getattr(want, name)
+        if not torch.equal(x, y):
+            raise AssertionError(f"binning ({what}): {name} differs from the plain version on "
+                                 f"{int((x != y).sum())} entries")
+    return got
+
+
+def keep_calls(fn, calls: list, last: bool = False):
+    """`fn`, recording each call's (args, kwargs) in `calls` (only the
+    latest if `last`)."""
+    def run(*a, **kw):
+        if last:
+            calls.clear()
+        calls.append((a, kw))
+        return fn(*a, **kw)
+    return run
+
+
 def profiled(torch, what: str, fn) -> dict:
     """Run `fn` under torch.profiler; log and return the wall ms, the device
     busy ms (device-side events only: kernels, copies, sets), the idle share
@@ -398,8 +435,9 @@ def profiled(torch, what: str, fn) -> dict:
 
 def device_ms(torch, fn, key: str, n: int = 10, per_call: int = 1):
     """Device ms a call of `fn` spends in the kernels whose names hold
-    `key` (`per_call` launches of them a call), from torch.profiler over
-    `n` calls after a warm-up, averaged over the calls the launches it
+    `key` (`per_call` launches of them a call; None: every such device
+    event of the `n` calls, however many a call makes), from torch.profiler
+    over `n` calls after a warm-up, averaged over the calls the launches it
     recorded make up (None if it recorded none): the kernels' own time,
     without the host's issue time that CUDA events around a short call
     also see. The trace starts with a warm-up step, whose records are
@@ -419,6 +457,8 @@ def device_ms(torch, fn, key: str, n: int = 10, per_call: int = 1):
     evs = [ev for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key]
     total, count = sum(ev.self_device_time_total for ev in evs), sum(ev.count for ev in evs)
+    if per_call is None:
+        return total / 1e3 / n if total > 0 else None
     if count != n * per_call:
         seen = {ev.key[:60]: ev.count for ev in prof.key_averages()
                 if ev.device_type == torch.autograd.DeviceType.CUDA}
@@ -902,7 +942,7 @@ def ragged_fleet(torch, dev, tree, extent, base, focal, width, height, pair_tota
                              f"{counts['rasterize_slabs']} times")
     # K1 runs only in the vmapped reference service, beside the path
     require_launched("ragged fleet", counts, ("lod_pair_sweep", "vq_assign",
-                                              "rasterize_slabs"))
+                                              "rasterize_slabs", "bin_tiles"))
     if aside["lod_slab_sweep"] < 1:
         raise AssertionError("the vmapped reference service never launched K1")
     off = [n for key in shapes for n in shapes[key] if n & (n - 1) and n not in caps[key]]
@@ -1288,7 +1328,7 @@ def fleet_recovery(torch, dev, tree, extent, base, focal, width, height, pair_to
         shutil.rmtree(directory, ignore_errors=True)
     counts = {name: n - aside[name] for name, n in K.launch_counts().items()}
     require_launched("recovery", counts, ("lod_pair_sweep", "vq_assign", "rasterize_slabs",
-                                          "preprocess", "stereo_merge"))
+                                          "preprocess", "stereo_merge", "bin_tiles"))
     if not (replayed_at["k6_pairs"] and replayed_at["k5_rows"]):
         raise AssertionError(f"K6 or K5 never launched in a replay: {replayed_at}")
     if aside["lod_slab_sweep"] < 1:
@@ -1918,7 +1958,7 @@ def fleet_mesh(torch, dev, tree, extent, base, focal, width, height, pair_total,
                                          f"differ from the meshless render")
             require_launched(f"mesh rank {rk['rank']}", rk["counts"],
                              ("lod_pair_sweep", "vq_assign", "rasterize_slabs",
-                              "preprocess", "stereo_merge"))
+                              "preprocess", "stereo_merge", "bin_tiles"))
             if sorted(rk["checked"]) != ["K5", "K6"]:
                 raise AssertionError(f"(b) rank {rk['rank']} checked {rk['checked']}")
         with not_the_path():
@@ -1964,7 +2004,8 @@ def fleet_mesh(torch, dev, tree, extent, base, focal, width, height, pair_total,
         for name, n in rk["counts"].items():
             counts[name] += n
     require_launched("mesh", counts, ("lod_slab_sweep", "lod_pair_sweep", "vq_assign",
-                                      "rasterize_slabs", "preprocess", "stereo_merge"))
+                                      "rasterize_slabs", "preprocess", "stereo_merge",
+                                      "bin_tiles"))
     report["aside"] = aside
     report["counts"] = counts
     return report
@@ -3468,6 +3509,7 @@ def main() -> int:
     from repro_torch.core import gaussians as G
     from repro_torch.core import lod_search as LS
     from repro_torch.core import pipeline as P
+    from repro_torch.core import binning as BN
     from repro_torch.core.binning import pair_spans
     from repro_torch.core.lod_tree import build_lod_tree
     from repro_torch.core.projection import depth_ranks
@@ -3476,8 +3518,10 @@ def main() -> int:
     from repro_torch.core import compression as CP
     from repro_torch.core import manager as MG
     from repro_torch.kernels import _build
+    from repro_torch.kernels import binning as kbin
     from repro_torch.kernels import (lod_cut, preprocess, rasterize, sass, stereo_shift,
                                      vq_assign)
+    from repro_torch import tracing
     from repro_torch import render as R
     from repro_torch.render import batched as RB
     from repro_torch.render import stages as RS
@@ -3874,10 +3918,13 @@ def main() -> int:
     vq_assign.reset_filter_counts(dev)
     frames = []
     sync_cuts = {}
+    bin_frame = []           # the latest frame's `bin_tiles` call: (args, kwargs)
+    bin_kept = keep_calls(BN.bin_tiles, bin_frame, last=True)
     t_run = time.perf_counter()
     for i, rig in enumerate(rigs):
         t1 = time.perf_counter()
-        st, out = sess.step(rig, render=True)
+        with mock.patch.object(BN, "bin_tiles", bin_kept):
+            st, out = sess.step(rig, render=True)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
         il, ir, (_s, ll, rl, sst) = out
@@ -3902,7 +3949,10 @@ def main() -> int:
     log(f"[session] kernels {json.dumps(counts_session)}")
     require_launched("session", counts_session, ("lod_slab_sweep", "preprocess",
                                                  "stereo_merge", "rasterize_slabs",
-                                                 "vq_assign"))
+                                                 "vq_assign", "bin_tiles"))
+    if counts_session["bin_tiles"] != args.frames:
+        raise AssertionError(f"the session launched the binning chain "
+                             f"{counts_session['bin_tiles']} times in {args.frames} frames")
     k5_session = require_filtered("session", vq_assign.filter_counts(dev))
     log(f"[session] {args.frames} frames in {run_s:.2f} s; compressed wire "
         f"{sess.bytes_per_g:.0f} B a Gaussian (raw rows would be "
@@ -3916,6 +3966,53 @@ def main() -> int:
         if not torch.equal(gids, want) or int(n_want) != count:
             raise AssertionError(f"frame {i}: temporal cut differs from a full search")
     log(f"[session] the {len(sync_cuts)} temporal cuts equal full searches")
+
+    # the binning chain against its plain version on the last frame's inputs
+    (b_args, b_kw), = bin_frame
+    b_lists = bin_chain_check(torch, BN, kbin, (b_args, b_kw), f"session frame {args.frames - 1}")
+    tracing.enable()
+    BN.bin_tiles(*b_args, **b_kw)
+    tracing.disable()
+    b_counted = tracing.drain()["counters"]
+    b_need, b_kept = b_counted["bin.pairs_needed"], b_counted["bin.pairs_sorted"]
+    b_m, b_tiles, b_len = b_args[0].shape[0], b_lists.lists.shape[0], b_args[6].list_len
+    b_key = 4 if kbin.wide_key(b_tiles) else 2
+
+    def bin_call():
+        return BN.bin_tiles(*b_args, **b_kw)
+
+    b_prof = profiled(torch, "the binning chain, one call at the session's last frame",
+                      bin_call)
+    b_sort = sum(t for name, t in b_prof["by_name"].items()
+                 if "DeviceRadixSort" in name and "at_cuda_detail" not in name)
+    b_fill = sum(t for name, t in b_prof["by_name"].items() if "bin_fill_kernel" in name)
+    kernels["bin_tiles"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/binning.cu",
+        replaces="none (src/repro/core/binning.py:68 bins with jnp sorts)", max_abs_err=0.0,
+        ms=cuda_ms(torch, bin_call, REPS),
+        device_ms=device_ms(torch, bin_call, "", n=5, per_call=None),
+        plain_ms=cuda_ms(torch, lambda: BN.bin_tiles_plain(*b_args, **b_kw), 3),
+        # each splat's mean, extent, rank, visibility and cull radius² read
+        # once; each kept pair written once by the emit and read once by the
+        # fill (its tile key and splat id); the lists and counts written once
+        bytes=b_m * (8 + 8 + 4 + 1 + 4) + b_kept * (b_key + 4) * 2 + b_tiles * (b_len + 1) * 4,
+        # the precise cull: 14 float operations a pair before it
+        ops=b_need * 14)
+    kb = kernels["bin_tiles"]
+    kb["bound_ms"], kb["bound_by"] = bound(kb["bytes"], kb["ops"])
+    report["bin_tiles"] = dict(
+        splats=b_m, tiles=b_tiles, list_len=b_len, max_pairs=b_args[6].max_pairs,
+        pairs_needed=b_need, pairs_kept=b_kept, key_bytes=b_key,
+        list_entries=int(b_lists.counts.sum()), overflow=bool(b_lists.overflow),
+        profile_busy_ms=b_prof["device_busy_ms"], sort_device_ms=b_sort,
+        fill_device_ms=b_fill)
+    log(f"[bin] chain == plain at the session's last frame: {b_m} splats, {b_tiles} tiles, "
+        f"{b_need} pairs needed, {b_kept} kept (budget {b_args[6].max_pairs}); "
+        f"{kb['ms']:.4f} ms (events), {fmt_ms(kb['device_ms'])} (device; CUB's sort "
+        f"{b_sort:.4f}, the fill {b_fill:.4f} of one profiled call), plain "
+        f"{kb['plain_ms']:.4f} ms, bound {kb['bound_ms']:.4f} ms ({kb['bound_by']}: "
+        f"{kb['bytes']} B)")
+    del b_lists, bin_frame, bin_kept, b_args, b_kw
 
     # per-stage times of one more sync frame and its render: the session's
     # own calls, each stage function wrapped with a synchronize on both sides
@@ -4050,9 +4147,11 @@ def main() -> int:
         # the pooled launch's inputs: the fleet's slabs and the bucket `sel`
         # that picks the occupied ones (the kernel module itself is not
         # patched: its wrapper counts launches under its own name)
+        bin_pooled = []      # each client's `bin_tiles` call of the pooled render
         with mock.patch.object(RB, "_gather_fleet_slabs", gather_and_keep), \
                 mock.patch.object(RB, "_scatter_slabs", recording(
-                    "k2_sel", RB._scatter_slabs, lambda i: True)):
+                    "k2_sel", RB._scatter_slabs, lambda i: True)), \
+                mock.patch.object(BN, "bin_tiles", keep_calls(BN.bin_tiles, bin_pooled)):
             fl, fr, fst = service.render_fallback(fleet_rigs, list_len=base.list_len,
                                                   max_pairs=fleet_pairs, path="pooled")
         torch.cuda.synchronize()
@@ -4061,7 +4160,7 @@ def main() -> int:
     fleet_s = time.perf_counter() - t_fleet
     log(f"[fleet] kernels {json.dumps(counts_fleet)}")
     require_launched("fleet", counts_fleet, ("lod_pair_sweep", "vq_assign",
-                                             "rasterize_slabs"))
+                                             "rasterize_slabs", "bin_tiles"))
     if counts_fleet["rasterize_slabs"] != 1:
         raise AssertionError(f"the pooled fallback render launched K2 "
                              f"{counts_fleet['rasterize_slabs']} times, not once")
@@ -4145,6 +4244,18 @@ def main() -> int:
                                         bound_ms=k2_bound[0], bound_by=k2_bound[1],
                                         **k2_pooled)
     del e2, c2, o2
+
+    # the binning chain on each client's inputs to the pooled render
+    if len(bin_pooled) != counts_fleet["bin_tiles"]:
+        raise AssertionError(f"the pooled render binned {len(bin_pooled)} times, the chain "
+                             f"launched {counts_fleet['bin_tiles']}")
+    for c, call in enumerate(bin_pooled):
+        lists_c = bin_chain_check(torch, BN, kbin, call, f"pooled render, call {c}")
+    log(f"[check] binning chain == plain on the pooled render's {len(bin_pooled)} calls "
+        f"(max_pairs {fleet_pairs}; the last: {int(lists_c.counts.sum())} list entries, "
+        f"overflow {bool(lists_c.overflow)})")
+    report["fleet"]["bin_tiles_checked"] = len(bin_pooled)
+    del bin_pooled, lists_c, call
 
     (x5, cb5), _ = captured["k5_cold"]
     vq_assign.reset_filter_counts(dev)

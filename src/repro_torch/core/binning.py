@@ -2,8 +2,11 @@
 
 Port of `repro.core.binning`. Produces per-tile fixed-length index lists,
 front-to-back, from a fixed (splat, tile) pair budget. The reference does
-this with sorts and no TPU kernel, so here it is plain tensor ops: two
-stable argsorts and a right-sided searchsorted, as in the reference.
+this with sorts and no TPU kernel. `bin_tiles_plain` follows it in plain
+tensor ops over the whole budget: two stable argsorts and a right-sided
+searchsorted. On the card `bin_tiles` runs the kernel chain of
+`kernels/binning.py` instead, whose work scales with the pairs the frame
+has, for the same lists.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.projection import ALPHA_MIN, Splats
+from repro_torch.kernels.binning import bin_tiles_kernel
 from repro_torch.numerics import div_rn, sqrt_rn
 
 _INT_LIMIT = float(2**30)
@@ -82,13 +86,37 @@ def pair_spans(mean2d: torch.Tensor, ext: torch.Tensor, visible: torch.Tensor,
 def bin_tiles(mean2d: torch.Tensor, ext: torch.Tensor, ranks: torch.Tensor,
               visible: torch.Tensor, width: int, height: int, cfg: BinConfig,
               conic: torch.Tensor = None, opacity: torch.Tensor = None) -> TileLists:
-    """Bin splats into per-tile depth-ordered lists (static budgets)."""
+    """Bin splats into per-tile depth-ordered lists (static budgets). CPU
+    tensors run `bin_tiles_plain`; CUDA tensors the kernel chain, which
+    gives the same lists, counts and overflow flag."""
+    if mean2d.device.type == "cpu":
+        return bin_tiles_plain(mean2d, ext, ranks, visible, width, height, cfg,
+                               conic=conic, opacity=opacity)
+    cull = cfg.precise_cull and conic is not None and opacity is not None
+    lists, counts, overflow = bin_tiles_kernel(
+        mean2d.contiguous(), ext.contiguous(), ranks, visible,
+        corner_r2(conic, opacity) if cull else None, width=width, height=height,
+        tile=cfg.tile, max_pairs=cfg.max_pairs, list_len=cfg.list_len)
+    return TileLists(lists=lists, counts=counts, overflow=overflow,
+                     tiles_x=-(-width // cfg.tile), tiles_y=-(-height // cfg.tile))
+
+
+def bin_tiles_plain(mean2d: torch.Tensor, ext: torch.Tensor, ranks: torch.Tensor,
+                    visible: torch.Tensor, width: int, height: int, cfg: BinConfig,
+                    conic: torch.Tensor = None, opacity: torch.Tensor = None) -> TileLists:
+    """`bin_tiles` in plain tensor ops over the whole pair budget."""
     dev = mean2d.device
     tile = cfg.tile
     tiles_x = -(-width // tile)
     tiles_y = -(-height // tile)
     n_tiles = tiles_x * tiles_y
     m = mean2d.shape[0]
+    if m == 0:   # no splat to gather from: every list empty
+        return TileLists(lists=torch.full((n_tiles, cfg.list_len), -1, dtype=torch.int32,
+                                          device=dev),
+                         counts=torch.zeros((n_tiles,), dtype=torch.int32, device=dev),
+                         overflow=torch.zeros((), dtype=torch.bool, device=dev),
+                         tiles_x=tiles_x, tiles_y=tiles_y)
 
     with tracing.span("bin.expand"):
         x0, y0, span_w, span_h = pair_spans(mean2d, ext, visible, width, height, tile)
@@ -98,6 +126,7 @@ def bin_tiles(mean2d: torch.Tensor, ext: torch.Tensor, ranks: torch.Tensor,
         total = offsets[-1] if m > 0 else torch.zeros((), dtype=torch.long, device=dev)
         starts = offsets - counts
         tracing.count("bin.pairs_needed", total)
+        tracing.count("bin.pair_budget", cfg.max_pairs)
         tracing.count("bin.pairs_sorted", cfg.max_pairs)
 
         p = torch.arange(cfg.max_pairs, dtype=torch.long, device=dev)

@@ -10,9 +10,13 @@ built by `_build`), each beside its wrapper and its plain PyTorch version:
     K7 flash_attention.flash_attention ← repro/kernels/flash_attention.py:flash_attention_pallas
        flash_attention.flash_attention_backward: K7's gradient (no TPU kernel: XLA
        derives the reference's)
+       binning.bin_tiles_kernel: tile binning over the pairs a frame has (no TPU
+       kernel: the reference bins with `jnp` sorts over the whole pair budget)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises. Each wrapper counts its launches in a plain
+launches its kernel or raises. One exception: `bin_tiles_kernel` takes CUDA
+tensors only, and `core.binning.bin_tiles` chooses between it and the plain
+version, `core.binning.bin_tiles_plain`, by the inputs' device. Each wrapper counts its launches in a plain
 integer attribute, `launches`.
 """
 
@@ -23,6 +27,7 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """name → kernel wrapper, for every kernel of the library."""
+    from repro_torch.kernels.binning import bin_tiles_kernel
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
     from repro_torch.kernels.lod_cut import lod_pair_sweep, lod_slab_sweep
     from repro_torch.kernels.preprocess import preprocess
@@ -33,7 +38,8 @@ def wrappers() -> Dict[str, object]:
             "stereo_merge": stereo_merge_kernel, "rasterize_slabs": rasterize_slabs,
             "vq_assign": vq_assign, "lod_pair_sweep": lod_pair_sweep,
             "flash_attention": flash_attention,
-            "flash_attention_backward": flash_attention_backward}
+            "flash_attention_backward": flash_attention_backward,
+            "bin_tiles": bin_tiles_kernel}
 
 
 def launch_counts() -> Dict[str, int]:

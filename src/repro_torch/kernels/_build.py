@@ -10,9 +10,10 @@ and the stream are `c_void_p`, strides `c_longlong`, and every entry point
 returns `cudaGetLastError()`, which `check` turns into an exception.
 
 Flags: `sm_90a`, `-O3`, no fast math and `--fmad=false`, because the α
-test, `proj > τ` and the visibility bits are decided by float rounding and
-the plain PyTorch versions do not contract multiplies into adds. A missing
-`nvcc` or a failed build raises; nothing falls back.
+test, `proj > τ`, the visibility bits and binning's precise cull are
+decided by float rounding and the plain PyTorch versions do not contract
+multiplies into adds. A missing `nvcc` or a failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -56,6 +57,11 @@ SIGNATURES = {
                                *[_L] * 12, _I, _I, _F, _P, _I, _I, _I, _I, _P],
     "nebula_flash_attention_backward": [*[_P] * 14, *[_I] * 7, *[_L] * 24, _I, _I, _F,
                                         _P, _I, _P, _I, *[_I] * 8, _P],
+    "nebula_bin_spans": [*[_P] * 5, *[_I] * 6, _P],
+    "nebula_bin_count": [*[_P] * 6, _I, _L, _I, _I, _I, _P],
+    "nebula_bin_emit": [*[_P] * 8, _I, _L, _I, _I, _I, _I, _P],
+    "nebula_bin_sort": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "nebula_bin_fill": [_P, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -28,9 +28,11 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def div_rn(x: torch.Tensor, y) -> torch.Tensor:
     """x / y correctly rounded when y is a Python number too: on CUDA,
-    PyTorch divides by a host scalar as a multiply by its reciprocal."""
+    PyTorch divides by a host scalar as a multiply by its reciprocal. The
+    divisor is filled on x's device, which on the card copies nothing from
+    the host and so does not wait on the stream."""
     if not torch.is_tensor(y):
-        y = torch.tensor(y, dtype=x.dtype, device=x.device)
+        y = torch.full((), y, dtype=x.dtype, device=x.device)
     return x / y
 
 

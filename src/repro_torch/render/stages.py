@@ -4,8 +4,9 @@
 
 On the card each stage that the reference could hand to a Pallas kernel
 runs a hand-written kernel: projection (K3), the shift-merge (K4) and the
-raster of both eyes (K2); binning is sorts. `render_tiles` and
-`render_reference` are the plain rasterizers, kept for checks.
+raster of both eyes (K2); binning, sorts in the reference, runs the chain
+of `kernels/binning.py`. `render_tiles` and `render_reference` are the
+plain rasterizers, kept for checks.
 """
 
 from __future__ import annotations

@@ -32,9 +32,14 @@ spans, at layer boundaries only (never per slot or per tree level):
       client_render              pipeline.client_render_step
         project                  render.stages.project (K3, depth ranks)
         bin_shared               render.stages.bin_shared
-          bin.expand             binning.bin_tiles up to the first sort
-          bin.sort               the two stable argsorts, gathers by the order
-          bin.lists              tile starts, the list scatter, tile counts
+          bin.expand             binning.bin_tiles up to the sort: on the card
+                                 the chain's spans, count and emit passes and
+                                 its one read (the kept total); on the CPU
+                                 the budget-wide expansion and cull
+          bin.sort               the card: one stable radix sort of the kept
+                                 pairs by tile; the CPU: the two stable
+                                 argsorts, gathers by the order
+          bin.lists              the lists, tile counts and overflow flag
         stereo_merge             render.stages.stereo_merge (K4)
         rasterize                render.stages.rasterize (K2, both eyes)
         stereo_stats             core.stereo.alpha_skip_stats
@@ -52,8 +57,13 @@ device tensor into a device int64 with one launch and no host read:
 
     bin.pairs_needed     Σ of the (splat, tile) pairs the frame's splats
                          cover before the precise cull (device)
-    bin.pairs_sorted     Σ of the pair budget `max_pairs` that bin_tiles
-                         sorts whatever the need (host)
+    bin.pair_budget      Σ of the pair budget `max_pairs` (host), so that
+                         needed / budget reads the same on both paths
+    bin.pairs_sorted     Σ of the pairs bin_tiles' sort took (host): on
+                         the card the kept pairs, after the budget and the
+                         precise cull, whose count the chain reads anyway;
+                         on the CPU the whole budget `max_pairs`. Before the
+                         card's chain it was the budget on both paths.
 
 Cost. Off, `span` returns one shared no-op object and `count` and `step`
 return at once: one global test per call, no allocation, no clock read, no

@@ -21,6 +21,7 @@ from repro.kernels.stereo_shift import stereo_merge_pallas
 from repro_torch import kernels as tkernels
 from repro_torch.core import binning as tbin
 from repro_torch.core import stereo as tst
+from repro_torch.kernels import binning as kbin
 from repro_torch.kernels import stereo_shift as tshift
 
 
@@ -144,3 +145,121 @@ def test_n_categories_and_stats():
     got = tst.alpha_skip_stats(left, right, hits, sc["ts"])
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.right_candidates > 0
+
+
+def _bin_args(sc, max_pairs=None):
+    cfg = sc["tcfg"] if max_pairs is None else dataclasses.replace(sc["tcfg"],
+                                                                   max_pairs=max_pairs)
+    s = sc["ts"]
+    return (s.mean2d, s.ext, sc["tranks"], s.visible, sc["wide"].width, sc["cam"].height,
+            cfg), dict(conic=s.conic, opacity=s.opacity)
+
+
+@pytest.mark.parametrize("max_pairs", [1 << 14, 300])
+def test_bin_tiles_on_cpu_is_the_plain_version(max_pairs):
+    """CPU tensors take `bin_tiles_plain`, whatever the budget: no chain launch."""
+    args, kw = _bin_args(_scene(400, 6), max_pairs)
+    before = kbin.bin_tiles_kernel.launches
+    _same_lists(tbin.bin_tiles(*args, **kw), tbin.bin_tiles_plain(*args, **kw))
+    assert kbin.bin_tiles_kernel.launches == before
+
+
+def test_bin_tiles_plain_with_no_splats():
+    """m = 0: every list empty, no overflow (nothing to gather from)."""
+    e = torch.zeros((0, 2))
+    got = tbin.bin_tiles_plain(e, e, torch.zeros((0,), dtype=torch.int32),
+                               torch.zeros((0,), dtype=torch.bool), 70, 40,
+                               tbin.BinConfig(tile=16, max_pairs=1 << 10, list_len=8),
+                               conic=torch.zeros((0, 3)), opacity=torch.zeros((0,)))
+    assert (got.tiles_x, got.tiles_y) == (5, 3)
+    assert got.lists.shape == (15, 8) and bool((got.lists == -1).all())
+    assert got.counts.dtype == torch.int32 and int(got.counts.abs().sum()) == 0
+    assert not bool(got.overflow)
+
+
+def _kernel_inputs(m=6):
+    g = torch.Generator().manual_seed(0)
+    return dict(mean2d=torch.rand((m, 2), generator=g) * 50, ext=torch.rand((m, 2), generator=g),
+                ranks=torch.randperm(m, generator=g).to(torch.int32),
+                visible=torch.ones((m,), dtype=torch.bool), r2=torch.rand((m,), generator=g))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("mean2d_float64", "mean2d must be torch.float32"),
+    ("ext_shape", r"ext must be torch.float32 \(6, 2\)"),
+    ("ranks_int64", "ranks must be torch.int32"),
+    ("visible_uint8", "visible must be torch.bool"),
+    ("r2_float64", "r2 must be torch.float32"),
+    ("mean2d_strided", "mean2d must be contiguous"),
+    ("ext_transposed", "ext must be contiguous"),
+    ("ranks_strided", "ranks must be contiguous"),
+    ("list_len", "out of range"),
+    ("max_pairs", "out of range"),
+    ("cpu", "needs CUDA tensors")])
+def test_bin_tiles_kernel_rejects_what_it_cannot_take(case, match):
+    """The chain's wrapper checks types, shapes and layouts before it looks
+    for a card, so each check shows on the CPU too."""
+    kw = _kernel_inputs()
+    grid = dict(width=64, height=48, tile=16, max_pairs=1 << 10, list_len=8)
+    if case == "mean2d_float64":
+        kw["mean2d"] = kw["mean2d"].double()
+    elif case == "ext_shape":
+        kw["ext"] = kw["ext"][:5]
+    elif case == "ranks_int64":
+        kw["ranks"] = kw["ranks"].long()
+    elif case == "visible_uint8":
+        kw["visible"] = kw["visible"].to(torch.uint8)
+    elif case == "r2_float64":
+        kw["r2"] = kw["r2"].double()
+    elif case == "mean2d_strided":
+        kw["mean2d"] = torch.zeros((6, 4))[:, 1:3]
+    elif case == "ext_transposed":
+        kw["ext"] = torch.zeros((2, 6)).T
+    elif case == "ranks_strided":
+        kw["ranks"] = torch.zeros((12,), dtype=torch.int32)[::2]
+    elif case in ("list_len", "max_pairs"):
+        grid[case] = -1
+    with pytest.raises(ValueError, match=match):
+        kbin.bin_tiles_kernel(kw["mean2d"], kw["ext"], kw["ranks"], kw["visible"], kw["r2"],
+                              **grid)
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2, 3, 256, 257, 20838, 32767, 32768, 32769,
+                                     65536, 65537, 78250])
+def test_key_width_against_a_numpy_count(n_tiles):
+    """The sort key holds the largest tile id in as few bits as it can: 16
+    up to 65536 tiles (the quest3 grid, 151 × 138 = 20838, takes 15)."""
+    ids = np.arange(n_tiles, dtype=np.int64)
+    bits = max(1, int(np.max(ids)).bit_length())
+    assert kbin.key_bits(n_tiles) == bits
+    assert np.all(ids < 2 ** bits) and (bits == 1 or np.max(ids) >= 2 ** (bits - 1))
+    assert kbin.wide_key(n_tiles) == (n_tiles > 65536)
+
+
+@pytest.mark.parametrize("max_pairs,m,n_tiles,want", [
+    (1 << 28, 1 << 20, 20838, (1 << 28) // 2048), (1 << 14, 400, 40, 8),
+    (2049, 10, 1000, 2), (2048, 10, 1000, 1), (0, 10, 10, 0), (1 << 20, 0, 10, 0),
+    (1 << 20, 3, 7, 1)])
+def test_chunk_count(max_pairs, m, n_tiles, want):
+    assert kbin.chunk_count(max_pairs, m, n_tiles) == want == int(
+        np.ceil(min(max_pairs, m * n_tiles) / kbin.PAIRS_PER_BLOCK))
+
+
+@pytest.mark.parametrize("seed,m", [(0, 1), (1, 37), (2, 1000), (3, 0)])
+def test_emit_bases_against_a_numpy_count(seed, m):
+    """Each splat's start among the kept pairs in (rank, index) order, less
+    its start in index order, and the kept total, against a loop over the
+    splats in that order; the ranks have ties and the counts zeros."""
+    rng = np.random.default_rng(seed)
+    kept = rng.integers(0, 5, m) * (rng.random(m) < 0.7)
+    ranks = rng.integers(0, max(m // 3, 1), m)
+    start, at = np.zeros(m, np.int64), 0
+    for g in sorted(range(m), key=lambda g: (ranks[g], g)):
+        start[g], at = at, at + kept[g]
+    index_start = np.concatenate([[0], np.cumsum(kept)[:-1]]) if m else np.zeros(0)
+    base, total = kbin.emit_bases(torch.from_numpy(kept.astype(np.int32)),
+                                  torch.from_numpy(ranks.astype(np.int32)))
+    assert base.dtype == torch.int64 and int(total) == int(kept.sum())
+    np.testing.assert_array_equal(base.numpy(), start - index_start)
+    ex = kbin.exclusive_sum(torch.from_numpy(kept.astype(np.int32)))
+    np.testing.assert_array_equal(ex.numpy(), index_start)

@@ -20,6 +20,7 @@ from _vq_cases import DIMS, vq_cases
 from repro_torch import convert, pytree
 from repro_torch import kernels as K
 from repro_torch import render as R
+from repro_torch.core import binning as TB
 from repro_torch.core import camera as C
 from repro_torch.core import gaussians as G
 from repro_torch.core import lod_search as LS
@@ -27,7 +28,7 @@ from repro_torch.core import pipeline as P
 from repro_torch.core.lod_tree import build_lod_tree
 from repro_torch.core.stereo import build_merge_sources
 from repro_torch.configs import get_arch
-from repro_torch.kernels import (flash_attention, lod_cut, preprocess, rasterize,
+from repro_torch.kernels import (binning, flash_attention, lod_cut, preprocess, rasterize,
                                  stereo_shift, vq_assign)
 from repro_torch.models import dense, model_zoo
 from repro_torch.models.config import reduced
@@ -116,6 +117,100 @@ def test_k4_stereo_merge(dev, scene, case):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert int(k[1].sum()) > 0
+
+
+def _splat_field(dev, seed, m, width, height, ext_px):
+    """m splats over a width×height image: means up to 100 px past its
+    edges, extents up to ext_px, a conic whose 3σ box is the extent with a
+    random tilt, opacities from 0.01, 9 in 10 visible, a random depth order."""
+    rng = np.random.default_rng(seed)
+    mean = np.stack([rng.uniform(-100, width + 100, m), rng.uniform(-100, height + 100, m)], 1)
+    ext = rng.uniform(0.5, ext_px, (m, 2))
+    sig = ext / 3
+    conic = np.stack([1 / sig[:, 0] ** 2, rng.uniform(-0.3, 0.3, m) / (sig[:, 0] * sig[:, 1]),
+                      1 / sig[:, 1] ** 2], 1)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, device=dev).to(dtype)
+    return dict(mean2d=t(mean), ext=t(ext), conic=t(conic), opacity=t(rng.uniform(0.01, 1, m)),
+                visible=t(rng.random(m) < 0.9, torch.bool),
+                ranks=t(rng.permutation(m), torch.int32))
+
+
+# The binning chain: the session's splats at a budget that holds them and at
+# one a third of their need (index-order truncation), list overflows, no
+# splats, none visible, tied ranks, no precise cull, the right eye's grid,
+# splats spanning hundreds of tiles, and grids whose tile ids take 16 bits
+# (65536 tiles) and 17 (78250: the 32-bit key).
+BIN_CASES = ["scene", "pair_budget", ("list_len", 1), ("list_len", 7), ("list_len", 256),
+             "no_splats", "none_visible", "tied_ranks", "no_cull", "right_eye",
+             "wide_splats", "grid_65536", "grid_78250"]
+
+
+@pytest.mark.parametrize("case", BIN_CASES)
+def test_bin_tiles_kernel_matches_plain(dev, scene, case):
+    """`bin_tiles` on the card (the chain) against `bin_tiles_plain` on the
+    same CUDA inputs: lists, counts and the overflow flag exact, the
+    wrapper's launches counted, two runs bit-identical."""
+    cfg = TB.BinConfig(tile=16, max_pairs=1 << 18, list_len=64)
+    synthetic = {"wide_splats": (0, 400, 1024, 768, 600.0),
+                 "grid_65536": (1, 20000, 4096, 4096, 60.0),
+                 "grid_78250": (2, 20000, 5008, 4000, 60.0)}
+    if case in synthetic:
+        seed, m, width, height, ext_px = synthetic[case]
+        f = _splat_field(dev, seed, m, width, height, ext_px)
+        mean2d, ext, ranks, vis = f["mean2d"], f["ext"], f["ranks"], f["visible"]
+        conic, opacity = f["conic"], f["opacity"]
+        cfg = dataclasses.replace(cfg, max_pairs=1 << 21)
+    else:
+        tree, rig = scene
+        plan, rcfg = _plan(tree, rig)
+        s, ranks = plan.splats, plan.ranks
+        mean2d, ext, vis, conic, opacity = s.mean2d, s.ext, s.visible, s.conic, s.opacity
+        width, height = rcfg.wide_width, rcfg.height
+    _, _, span_w, span_h = TB.pair_spans(mean2d, ext, vis, width, height, cfg.tile)
+    need = int((span_w * span_h).sum())
+    if case == "pair_budget":
+        cfg = dataclasses.replace(cfg, max_pairs=need // 3 + 5)
+    elif isinstance(case, tuple):
+        cfg = dataclasses.replace(cfg, list_len=case[1])
+    elif case == "no_splats":
+        mean2d, ext, ranks, vis = mean2d[:0], ext[:0], ranks[:0], vis[:0]
+        conic, opacity = conic[:0], opacity[:0]
+    elif case == "none_visible":
+        vis = torch.zeros_like(vis)
+    elif case == "tied_ranks":
+        ranks = ranks // 3
+    elif case == "no_cull":
+        conic = opacity = None
+    elif case == "right_eye":
+        mean2d = s.mean2d - torch.stack([s.disparity, torch.zeros_like(s.disparity)], -1)
+        width = rcfg.width
+    args = (mean2d, ext, ranks, vis, width, height, cfg)
+    before = binning.bin_tiles_kernel.launches
+    if case == "right_eye":
+        got = [TB.bin_right(s, width, height, cfg, ranks) for _ in range(2)]
+    else:
+        got = [TB.bin_tiles(*args, conic=conic, opacity=opacity) for _ in range(2)]
+    want = TB.bin_tiles_plain(*args, conic=conic, opacity=opacity)
+    torch.cuda.synchronize()
+    assert binning.bin_tiles_kernel.launches == before + 2
+    for g in got:
+        assert torch.equal(g.lists, want.lists) and g.lists.dtype == torch.int32
+        assert torch.equal(g.counts, want.counts) and g.counts.dtype == torch.int32
+        assert g.overflow.shape == () and bool(g.overflow) == bool(want.overflow)
+        assert (g.tiles_x, g.tiles_y) == (want.tiles_x, want.tiles_y)
+    assert torch.equal(got[0].lists, got[1].lists) and torch.equal(got[0].counts, got[1].counts)
+    kept = int(want.counts.sum())
+    assert (kept == 0) == (case in ("no_splats", "none_visible"))
+    if case == "pair_budget":
+        assert need > cfg.max_pairs and bool(want.overflow)
+    if case == ("list_len", 1):
+        assert bool(want.overflow)
+    if case == "wide_splats":
+        assert int((span_w * span_h).max()) >= 300
+    if case in ("grid_65536", "grid_78250"):
+        assert binning.wide_key(want.tiles_x * want.tiles_y) == (case == "grid_78250")
 
 
 def test_k2_raster(scene):
@@ -319,7 +414,8 @@ def test_session_launches_every_kernel(scene):
     counts = K.launch_counts()
     assert counts == {"lod_slab_sweep": 2, "preprocess": 4, "stereo_merge": 4,
                       "rasterize_slabs": 8, "vq_assign": 0, "lod_pair_sweep": 0,
-                      "flash_attention": 0, "flash_attention_backward": 0}, counts
+                      "flash_attention": 0, "flash_attention_backward": 0,
+                      "bin_tiles": 4}, counts
 
 
 @pytest.mark.parametrize("d", [9, 24, 45])

@@ -138,6 +138,7 @@ def test_binning_counters_count_need_and_budget(runs):
                for _, out in on)
     assert need > 0
     assert drained["counters"] == {"bin.pairs_needed": need,
+                                   "bin.pair_budget": FRAMES * CFG.max_pairs,
                                    "bin.pairs_sorted": FRAMES * CFG.max_pairs}
 
 
